@@ -1,0 +1,123 @@
+"""Topic-matrix construction and edge topics: the port of
+isle_tpu/topic_model.py (reference src/sparseMatrix.cpp:597-838,
+src/trainer.cpp:1118-1168).
+
+  1. per-doc catchword mass (D, k): segsum_onehot over the doc-sorted
+     stream, col = the word's catchword topic (-1 otherwise), val = the
+     normalized count;
+  2. top-2 topics per doc (first-index argmax, both masses positive);
+  3. per-topic threshold: the rank_threshold-th largest mass (0 when fewer
+     docs qualify or the topic has no catchwords);
+  4. Model = B W with W[d, t] = (mass[d, t] > thr[t]) + (cluster[d] == t),
+     through segsum_gather_rows over the word-sorted stream (b_y_seg);
+  5. l1 normalization per topic.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .segsum import DEFAULT_CHUNK, b_y_seg, segsum_onehot
+from .sparse import DocSparse
+
+
+def doc_topic_mass(A: DocSparse, cw_topic: torch.Tensor, num_topics: int,
+                   seg_chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """(num_docs, num_topics) catchword mass per doc."""
+    return segsum_onehot(
+        A.d_doc, cw_topic[A.d_word], A.d_val, A.num_docs, num_topics,
+        chunk=seg_chunk,
+    )[: A.num_docs]
+
+
+def model_thresholds(mass: torch.Tensor, has_catchwords: torch.Tensor,
+                     rank_threshold: int) -> torch.Tensor:
+    """Per-topic rank_threshold-th largest mass (0 if fewer than
+    rank_threshold docs have positive mass, or no catchwords)."""
+    D, k = mass.shape
+    if rank_threshold <= 0 or rank_threshold > D:
+        thr = torch.zeros(k, dtype=torch.float32, device=mass.device)
+    else:
+        svals = torch.sort(mass, dim=0, descending=True).values
+        thr = svals[rank_threshold - 1]
+        pos_counts = torch.sum(mass > 0.0, dim=0)
+        thr = torch.where(pos_counts >= rank_threshold, thr, 0.0)
+    return torch.where(has_catchwords, thr, 0.0)
+
+
+def top_two_topics(mass: torch.Tensor):
+    """First-index max and runner-up per doc. Returns (t1, t2, valid) with
+    valid = both masses strictly positive."""
+    k = mass.shape[1]
+    v1 = mass.amax(dim=1)
+    t1 = torch.argmax(mass, dim=1)
+    cols = torch.arange(k, device=mass.device)[None, :]
+    masked = torch.where(cols == t1[:, None], -torch.inf, mass)
+    v2 = masked.amax(dim=1)
+    t2 = torch.argmax(masked, dim=1)
+    valid = (v1 > 0.0) & (v2 > 0.0)
+    return t1.to(torch.int32), t2.to(torch.int32), valid
+
+
+def _contribution_weights(mass: torch.Tensor, thr: torch.Tensor,
+                          cluster_of_doc: torch.Tensor) -> torch.Tensor:
+    """W (D, k) = (mass > thr) + one-hot of the doc's cluster."""
+    W = (mass > thr[None, :]).to(torch.float32)
+    docs = torch.nonzero(cluster_of_doc >= 0)[:, 0]
+    W[docs, cluster_of_doc[docs].long()] += 1.0
+    return W
+
+
+def construct_topic_model(
+    A: DocSparse,
+    cw_topic: torch.Tensor,  # (vocab,) int32 owning topic, -1 else
+    cluster_of_doc: torch.Tensor,  # (num_docs,) int32, -1 = dropped doc
+    num_topics: int,
+    rank_threshold: int,
+    want_top_pairs: bool = False,
+    seg_chunk: int = DEFAULT_CHUNK,
+):
+    """Returns (Model (vocab, k) l1-normalized, (t1, t2, valid) or None)."""
+    owned = cw_topic[cw_topic >= 0].long()
+    has_cw = torch.bincount(owned, minlength=num_topics)[:num_topics] > 0
+    mass = doc_topic_mass(A, cw_topic, num_topics, seg_chunk)
+    thr = model_thresholds(mass, has_cw, rank_threshold)
+    pairs = top_two_topics(mass) if want_top_pairs else None
+    W = _contribution_weights(mass, thr, cluster_of_doc)
+    del mass
+    model = b_y_seg(A, W, seg_chunk)
+    sums = torch.sum(model, dim=0)
+    model = torch.where(sums[None, :] != 0.0, model / sums[None, :], model)
+    return model, pairs
+
+
+def construct_edge_topics_v2(
+    t1: np.ndarray,
+    t2: np.ndarray,
+    valid: np.ndarray,
+    model: np.ndarray,
+    num_topics: int,
+    max_edge_topics: int,
+    min_docs: int = 1,
+    primary_ratio: float = 0.7,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (edge_model (vocab, n_edges), selected pairs (n_edges, 3) of
+    [t1, t2, count]): pairs with >= min_docs docs, count-descending with
+    (t1, t2) ties ascending, truncated to max_edge_topics; edge vector =
+    primary_ratio * topic_a + (1 - primary_ratio) * topic_b. Host numpy,
+    a copy of isle_tpu.topic_model.construct_edge_topics_v2."""
+    k = num_topics
+    keys = t1.astype(np.int64) * k + t2.astype(np.int64)
+    keys = keys[valid]
+    counts = np.bincount(keys, minlength=k * k)
+    cand = np.nonzero(counts >= max(min_docs, 1))[0]
+    order = np.lexsort((cand % k, cand // k, -counts[cand]))
+    cand = cand[order][:max_edge_topics]
+    a = (cand // k).astype(np.int32)
+    b = (cand % k).astype(np.int32)
+    edge = primary_ratio * model[:, a] + (1.0 - primary_ratio) * model[:, b]
+    sel = np.stack([a, b, counts[cand].astype(np.int32)], axis=1)
+    return edge.astype(np.float32), sel

@@ -1,0 +1,613 @@
+"""Training orchestration on one device: the port of isle_tpu.trainer's
+single-device in-core path (Trainer._train_inner + _finish_train,
+isle_tpu/trainer.py:300-582) in the COO layout, with train_edge_topics,
+the stage checkpoints and the writers the training CLI calls.
+
+Stage order (reference src/trainer.cpp:425-654):
+  ingest -> ζ thresholds -> B = threshold + sqrt-scale -> truncated SVD
+  of B B^T -> k-means++ on U^T B -> Lloyd's (projected) -> lift centers
+  -> Lloyd's (full space) -> remap clusters to original docs -> r-th
+  highest stats -> catchwords -> topic matrix [-> edge topics].
+
+Checkpoints use isle_tpu's ckpt_{svd,kmeans,model}.npz schema and corpus
+stamp, so train(resume=True) finishes a run from the checkpoints that the
+JAX trainer wrote (and the other way round).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from isle_tpu import io_text, native
+from isle_tpu.config import TrainConfig
+from isle_tpu.corpus import Corpus, EntryFeeder, read_vocab_file
+from isle_tpu.diagnostics import topic_coherence, topic_diversity
+from isle_tpu.obs import Logger, OpCounter, Timer
+
+from .bmatrix import threshold_and_copy
+from .catchwords import catchword_topic_map, find_catchwords, rth_highest
+from .config import GpuConfig
+from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
+    run_lloyds_projected
+from .linalg import block_ks, dense_topk_eigh
+from .rng import Draws
+from .sparse import DocSparse, bt_x, frobenius_sq, gram_x, spmm_flops, \
+    to_dense
+from .thresholds import compute_thresholds
+from .topic_model import construct_edge_topics_v2, construct_topic_model, \
+    doc_topic_mass
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError for the options this port does not cover
+    yet (ROADMAP.md lists them)."""
+    hp = cfg.hyper
+    missing = []
+    if cfg.sample_docs:
+        missing.append("sample_docs=True (importance sampling of documents)")
+    if hp.eigensolver not in ("block_ks", "dense"):
+        missing.append(f"eigensolver={hp.eigensolver!r}")
+    if hp.kmeans_init_method != "kmeanspp":
+        missing.append(f"kmeans_init_method={hp.kmeans_init_method!r}")
+    if hp.kmeans_algo_for_sparse != "lloyds":
+        missing.append(f"kmeans_algo_for_sparse={hp.kmeans_algo_for_sparse!r}")
+    if not hp.enable_kmeans_on_lowd:
+        missing.append("enable_kmeans_on_lowd=False")
+    if not hp.use_explicit_projected_matrix:
+        missing.append("use_explicit_projected_matrix=False")
+    if missing:
+        raise NotImplementedError(
+            "not ported to isle_tpu_torch yet: " + "; ".join(missing)
+        )
+
+
+def state_from_numpy(ck: dict, device) -> dict:
+    """Stage checkpoints as numpy ({stage: {name: ndarray}}, the contents
+    of isle_tpu's ckpt_*.npz) -> the same dict of tensors on `device`."""
+    return {
+        stage: {
+            name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for name, a in arrays.items()
+        }
+        for stage, arrays in ck.items()
+    }
+
+
+def solve_gram_eigens(B: DocSparse, V: int, k: int, cfg: TrainConfig,
+                      draws, chunk: int, timer=None, logger=None):
+    """Top-k eigenpairs of B B^T: block Krylov-Schur, or the dense oracle
+    when asked for or when k is too close to V for a Krylov space.
+    Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
+    for the dense oracle and (EigResult, op width) otherwise."""
+    hp = cfg.hyper
+    eigensolver = hp.eigensolver
+    if eigensolver != "dense" and 2 * k + 2 >= V:
+        if logger:
+            logger.warning(
+                f"k={k} too close to vocab={V} for a Krylov solver; "
+                "falling back to the dense eigensolver"
+            )
+        eigensolver = "dense"
+    if eigensolver == "dense":
+        Bd = to_dense(B)
+        w, U = dense_topk_eigh(Bd @ Bd.T, k)
+        U = torch.as_tensor(U, dtype=torch.float32).to(B.device)
+        return w.astype(np.float32), U, None
+    res = block_ks(
+        lambda X: gram_x(B, X, chunk), V, k, draws, B.device,
+        blk=hp.block_ks_block_size, tol=hp.block_ks_tolerance,
+        max_restarts=hp.block_ks_max_iters, timer=timer,
+    )
+    if res.nconv < k:
+        if hp.block_ks_strict:
+            raise RuntimeError(
+                f"block_ks converged only {res.nconv}/{k} eigenpairs within "
+                f"{hp.block_ks_max_iters} restarts (block_ks_strict=True; "
+                f"evals head {res.evals[:4].tolist()})"
+            )
+        if logger:
+            logger.warning(
+                f"block_ks converged only {res.nconv}/{k} eigenpairs")
+    return res.evals, res.evecs, (res, hp.block_ks_block_size)
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: TrainConfig,
+        output_dir: str = ".",
+        vocab_file: Optional[str] = None,
+        quiet: bool = False,
+        gpu: Optional[GpuConfig] = None,
+        draws=None,
+    ):
+        self.config = config
+        self.gpu = gpu or GpuConfig()
+        self.device = self.gpu.torch_device()
+        self.draws = draws if draws is not None else Draws(config.seed)
+        self.output_dir = output_dir
+        self.run_dir = os.path.join(output_dir, config.log_dir_name())
+        os.makedirs(self.run_dir, exist_ok=True)
+        self.logger = Logger(self.run_dir, quiet=quiet)
+        self.timer = Timer(self.logger)
+        self.op_counter = OpCounter("gram SpMM")
+        self.vocab_file = vocab_file
+        self.corpus: Optional[Corpus] = None
+        self.vocab_words: List[str] = []
+        self._feeder: Optional[EntryFeeder] = None
+        self.is_training_complete = False
+        self.A: Optional[DocSparse] = None  # the corpus on the device
+
+        # Results (host numpy, as isle_tpu.trainer.Trainer keeps them)
+        self.model: Optional[np.ndarray] = None  # (vocab, k)
+        self.edge_model: Optional[np.ndarray] = None
+        self.edge_pairs: Optional[np.ndarray] = None
+        self.evalues: Optional[np.ndarray] = None
+        self.centers: Optional[np.ndarray] = None  # (k, vocab)
+        self.cluster_of_doc: Optional[np.ndarray] = None
+        self.catchword_thresholds: Optional[np.ndarray] = None  # (k, vocab)
+        self.catchwords: Optional[List[np.ndarray]] = None
+        self.top_pairs = None
+        self.original_cols: Optional[np.ndarray] = None
+
+    # ------------------------------------------------------------------
+    # Ingest
+    # ------------------------------------------------------------------
+
+    def load_data_from_file(self, tdf_path: str) -> None:
+        c = self.config
+        self.corpus = Corpus.from_tdf_file(
+            tdf_path,
+            vocab_size=c.vocab_size,
+            num_docs=c.num_docs,
+            tf_idf=c.tf_idf,
+            int_normalized=c.hyper.use_int_normalized_counts,
+        )
+        self._post_ingest()
+        self.timer.next("load + finalize data")
+
+    def feed_data(self, doc: int, words, counts) -> None:
+        """One document: 0-based doc id, 1-based word ids, counts."""
+        if self._feeder is None:
+            self._feeder = EntryFeeder()
+        self._feeder.feed(doc, words, counts)
+
+    def finalize_data(self) -> None:
+        if self._feeder is None:
+            raise RuntimeError("feed_data first")
+        c = self.config
+        self.corpus = self._feeder.finalize(
+            vocab_size=c.vocab_size, num_docs=c.num_docs, tf_idf=c.tf_idf,
+            int_normalized=c.hyper.use_int_normalized_counts,
+        )
+        self._feeder = None
+        self._post_ingest()
+        self.timer.next("finalize data")
+
+    def load_corpus(self, corpus: Corpus) -> None:
+        """Train on an already assembled isle_tpu.corpus.Corpus."""
+        self.corpus = corpus
+        self.A = None
+        self._post_ingest()
+
+    def _post_ingest(self) -> None:
+        cfg = self.config
+        object.__setattr__(cfg, "vocab_size", self.corpus.vocab_size)
+        object.__setattr__(cfg, "num_docs", self.corpus.num_docs)
+        self.vocab_words = read_vocab_file(
+            self.vocab_file or "", self.corpus.vocab_size
+        )
+        self.logger.info(
+            f"#docs: {self.corpus.num_docs}  #vocab: {self.corpus.vocab_size}  "
+            f"nnz: {self.corpus.nnz}  nz_docs: {self.corpus.nz_docs}  "
+            f"avg_doc_sz: {self.corpus.avg_doc_sz}"
+        )
+
+    def _mark(self, label: str) -> None:
+        """Close a timed stage once the device has finished its work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timer.next(label)
+
+    def _device_A(self) -> DocSparse:
+        if self.A is None:
+            self.A = DocSparse.from_corpus(self.corpus, self.device)
+        return self.A
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def train(self, resume: bool = False) -> None:
+        """Run the pipeline; with resume=True, completed stages restore
+        from the run directory's checkpoints (isle_tpu's schema)."""
+        if self.corpus is None:
+            raise RuntimeError("load data first")
+        check_supported(self.config)
+        cfg = self.config
+        hp = cfg.hyper
+        k = cfg.num_topics
+        V = self.corpus.vocab_size
+        D = self.corpus.num_docs
+        chunk, seg_chunk = self.gpu.spmm_chunk, self.gpu.seg_chunk
+
+        ck = self._load_checkpoints() if resume else {}
+        if self._restore_model_checkpoint(ck):
+            return
+        st = state_from_numpy(ck, self.device)
+
+        A = self._device_A()
+        self._mark("upload A to device")
+
+        # 1. thresholds
+        if "svd" in ck:
+            zetas = st["svd"]["zetas"]
+            self.original_cols = ck["svd"]["original_cols"]
+            self.logger.info("resumed thresholds from 'svd' checkpoint")
+        else:
+            zetas, new_nnz = compute_thresholds(
+                A, self.corpus.avg_doc_sz, self.corpus.nz_docs, k, hp,
+                seg_chunk,
+            )
+            self.logger.info(f"Entries above threshold: {new_nnz}")
+            self._mark("computing thresholds")
+
+        if "kmeans" in ck:
+            self.centers = ck["kmeans"]["centers"]
+            cluster_of_doc = ck["kmeans"]["cluster_of_doc"]
+            self.cluster_of_doc = cluster_of_doc
+            if "svd" in ck:
+                self.evalues = ck["svd"]["evalues"]
+            sizes = np.bincount(
+                cluster_of_doc[cluster_of_doc >= 0], minlength=k
+            ).astype(np.int32)
+            self.logger.info("resumed clustering from 'kmeans' checkpoint")
+            self._finish_train(A, cluster_of_doc, sizes)
+            return
+
+        # 2-3. B
+        B, original_cols = threshold_and_copy(A, zetas)
+        self.original_cols = original_cols
+        self.logger.info(
+            f"Columns remaining after thresholding: {B.num_docs}  "
+            f"nnz(B): {B.nnz}  "
+            f"Frob(B): {float(torch.sqrt(frobenius_sq(B))):.4f}"
+        )
+        self._mark("creating thresholded and scaled matrix")
+        if B.nnz == 0 or B.num_docs == 0:
+            raise ValueError(
+                "thresholding dropped every entry (nnz(B)=0): the corpus "
+                "is too sparse for these hyperparameters — check the "
+                "few_samples_threshold_drop / bad_threshold_drop flags "
+                "and eps2/eps3/w0_c"
+            )
+
+        # 4-5. truncated SVD of B B^T
+        if "svd" in ck:
+            self.evalues = ck["svd"]["evalues"]
+            U = st["svd"]["U"]
+            self.logger.info("resumed eigenvectors from 'svd' checkpoint")
+        else:
+            self.evalues, U, stats = solve_gram_eigens(
+                B, V, k, cfg, self.draws, chunk, timer=self.timer,
+                logger=self.logger,
+            )
+            if stats is not None:
+                res, op_width = stats
+                self.op_counter.add(
+                    res.op_seconds, spmm_flops(B, op_width) * res.op_calls,
+                    res.op_calls,
+                )
+                self.logger.info(self.op_counter.summary())
+        self._print_eigen_data(self.evalues, k)
+        self._mark("eigen solve (B B^T)")
+        if "svd" not in ck:
+            self._checkpoint("svd", U=U.cpu().numpy(), evalues=self.evalues,
+                             zetas=zetas.cpu().numpy(),
+                             original_cols=original_cols)
+
+        # 6. projected docs P = U^T B (k x D_B)
+        P = bt_x(B, U, chunk).T
+        self._mark("project docs")
+
+        # 7. k-means++ seeding + Lloyd's in the projected space
+        _, centers_lowd, init_residual = kmeans_init_on_projected(
+            P, k, hp.kmeans_init_reps, self.draws,
+            method=hp.kmeans_init_method,
+        )
+        self.logger.info(f"Best k-means init residual: {init_residual:.4f}")
+        self._mark("k-means seeds initialization")
+        centers_lowd, _ = run_lloyds_projected(
+            P, centers_lowd, hp.max_kmeans_lowd_reps, timer=self.timer
+        )
+        centers_full = centers_lowd @ U.T
+        self._mark("converging Lloyds k-means on B_k")
+
+        # 8. Lloyd's on B in the full vocab space
+        centers_full, assign = run_lloyds_full(
+            B, centers_full, hp.max_kmeans_reps, timer=self.timer, chunk=chunk
+        )
+        self.centers = centers_full.cpu().numpy()
+        self._mark("k-means on B")
+
+        # 9. remap cluster membership to original doc ids
+        assign_h = assign.cpu().numpy().astype(np.int32)
+        cluster_of_doc = np.full(D, -1, np.int32)
+        cluster_of_doc[original_cols] = assign_h
+        self.cluster_of_doc = cluster_of_doc
+        sizes = np.bincount(assign_h, minlength=k).astype(np.int32)
+        self._checkpoint("kmeans", centers=self.centers,
+                         cluster_of_doc=cluster_of_doc)
+        del B, P
+        self._finish_train(A, cluster_of_doc, sizes)
+
+    def _finish_train(self, A: DocSparse, cluster_of_doc: np.ndarray,
+                      sizes: np.ndarray) -> None:
+        """Stages 10-12: catchword statistics, catchwords, topic matrix."""
+        cfg = self.config
+        hp = cfg.hyper
+        k, D = cfg.num_topics, self.corpus.num_docs
+        seg_chunk = self.gpu.seg_chunk
+        cluster_t = torch.as_tensor(cluster_of_doc, dtype=torch.int32).to(
+            self.device)
+
+        # 10. r-th highest element per (word, topic)
+        r = hp.catchword_rank(D, k, None)
+        if r < 1:
+            self.logger.warning(
+                f"catchword rank r={r} < 1 (tiny corpus); clamping to 1"
+            )
+            r = 1
+        thr = rth_highest(
+            A, cluster_t,
+            torch.as_tensor(sizes, dtype=torch.int32).to(self.device),
+            k, r, seg_chunk,
+        )
+        self.catchword_thresholds = thr.cpu().numpy()
+        self._mark("collecting word freqs in clusters")
+
+        # 11. catchwords
+        is_cw_h = find_catchwords(thr, hp.rho).cpu().numpy()
+        cwt = catchword_topic_map(is_cw_h)
+        self.catchwords = [np.flatnonzero(is_cw_h[t]) for t in range(k)]
+        self._mark("finding catchwords for clusters")
+
+        # 12. topic model (+ top-2 pairs for edge topics)
+        model, pairs = construct_topic_model(
+            A,
+            torch.as_tensor(cwt).to(self.device),
+            cluster_t,
+            k,
+            hp.model_rank_threshold(D, k),
+            want_top_pairs=cfg.compute_edge_topics,
+            seg_chunk=seg_chunk,
+        )
+        self.model = model.cpu().numpy()
+        extra = {}
+        if pairs is not None:
+            self.top_pairs = tuple(x.cpu().numpy() for x in pairs)
+            extra = dict(t1=self.top_pairs[0], t2=self.top_pairs[1],
+                         valid=self.top_pairs[2])
+        self._mark("constructing topic vectors")
+        self._checkpoint(
+            "model",
+            model=self.model,
+            is_cw=is_cw_h,
+            catchword_thresholds=self.catchword_thresholds,
+            **extra,
+        )
+        self.is_training_complete = True
+
+    def train_edge_topics(self) -> None:
+        """Edge (compound) topics (src/trainer.cpp:673-685)."""
+        if not self.is_training_complete:
+            raise RuntimeError("train basic topics first")
+        if not self.config.compute_edge_topics:
+            raise RuntimeError("edge topic flag is off")
+        t1, t2, valid = self.top_pairs
+        self.edge_model, self.edge_pairs = construct_edge_topics_v2(
+            t1,
+            t2,
+            valid,
+            self.model,
+            self.config.num_topics,
+            self.config.max_edge_topics,
+            min_docs=self.config.hyper.edge_topic_min_docs,
+            primary_ratio=self.config.hyper.edge_topic_primary_ratio,
+        )
+        self.logger.info(f"#Edge topics: {self.edge_model.shape[1]}")
+        self.timer.next("constructing edge topic model")
+
+    # ------------------------------------------------------------------
+    # Outputs (the writers isle_tpu/cli/train.py calls)
+    # ------------------------------------------------------------------
+
+    def write_model_to_file(self) -> None:
+        self._require_trained()
+        io_text.write_sparse_model(
+            os.path.join(self.run_dir, "M_hat_catch_sparse"), self.model
+        )
+        self.timer.next("output model")
+        io_text.write_top_words(
+            os.path.join(self.run_dir, "TopWordsPerTopic_catch.txt"),
+            self.model,
+            self.vocab_words,
+            max(self.config.hyper.coherence_num_words, 10),
+        )
+        self.timer.next("output topwords")
+
+    def write_edgemodel_to_file(self) -> None:
+        if self.edge_model is None:
+            return
+        io_text.write_sparse_model(
+            os.path.join(self.run_dir, "EdgeModel_sparse"), self.edge_model
+        )
+        io_text.write_edge_composition(
+            os.path.join(self.run_dir, "EdgeTopicComposition.txt"),
+            self.edge_pairs,
+        )
+        self.timer.next("output edge model")
+
+    def output_doc_topic(self) -> None:
+        """DocCatchword.tsv (one `<doc>\\t<word>\\t<val>` line per entry
+        whose word is a catchword) and DocTopicCatchwordSums.tsv (every
+        positive per-doc catchword-topic mass, by topic asc then sum
+        desc); 1-based ids (src/trainer.cpp:874-1010)."""
+        self._require_trained()
+        k = self.config.num_topics
+        cwt = np.full(self.corpus.vocab_size, -1, np.int32)
+        for t in range(k):
+            cwt[self.catchwords[t]] = t
+        self.logger.info(
+            f"Total number of catchwords: {int((cwt >= 0).sum())}"
+        )
+        rows = self.corpus.rows
+        mask = cwt[rows] >= 0
+        native.write_float_triples(
+            os.path.join(self.run_dir, "DocCatchword.tsv"),
+            self.corpus.doc_ids()[mask], rows[mask], self.corpus.vals[mask],
+        )
+        mass = doc_topic_mass(
+            self._device_A(), torch.as_tensor(cwt).to(self.device), k,
+            self.gpu.seg_chunk,
+        ).cpu().numpy()
+        dd, tt = np.nonzero(mass)
+        vv = mass[dd, tt]
+        order = np.lexsort((-vv, tt))
+        native.write_float_triples(
+            os.path.join(self.run_dir, "DocTopicCatchwordSums.tsv"),
+            dd[order], tt[order], vv[order],
+        )
+        self.timer.next("writing document catchword weights")
+
+    def print_top_two_topics(self) -> None:
+        """TopTwoTopicsPerDoc.txt: `<doc>\\t<top1>\\t<top2>` (1-based),
+        doc-ascending (src/trainer.cpp:1008-1040)."""
+        if self.top_pairs is None:
+            raise RuntimeError("train with compute_edge_topics")
+        t1, t2, valid = self.top_pairs
+        d = np.flatnonzero(valid).astype(np.int32)
+        native.write_int_triples(
+            os.path.join(self.run_dir, "TopTwoTopicsPerDoc.txt"),
+            d, t1[d], t2[d],
+        )
+        self.timer.next("printing top 2 topics/doc")
+
+    def output_topic_diversity(self) -> float:
+        """Average squared distance of topic vectors to the mean topic
+        vector (src/trainer.cpp:750-771)."""
+        self._require_trained()
+        div = topic_diversity(self.model)
+        self.logger.info(f"Average topic diversity: {div:.6f}")
+        self.timer.next("calculating diversity")
+        return div
+
+    def output_cluster_summary(self) -> None:
+        """Catchwords, top words, cluster details, coherence, topic
+        diversity (src/trainer.cpp:776-829, 750-771)."""
+        self._require_trained()
+        k = self.config.num_topics
+        nw = self.config.hyper.coherence_num_words
+        tops = io_text.top_words_per_topic(self.model, max(nw, 10))
+        coh = topic_coherence(
+            self.corpus, self.model, nw, self.config.hyper.coherence_eps
+        )
+        sizes = np.bincount(
+            self.cluster_of_doc[self.cluster_of_doc >= 0], minlength=k
+        )
+        for t in range(k):
+            cw = self.catchwords[t] if self.catchwords else []
+            words = ", ".join(self.vocab_words[w] for w, _ in tops[t][:10])
+            self.logger.info(
+                f"---- Topic {t}: cluster_size={sizes[t]} "
+                f"#catchwords={len(cw)} coherence={coh[t]:.4f}\n"
+                f"     top words: {words}"
+            )
+            if len(cw) and self.catchword_thresholds is not None:
+                thr_t = self.catchword_thresholds[t]
+                detail = " ".join(
+                    f"{self.vocab_words[w]}:{w}({thr_t[w]:.6g})" for w in cw
+                )
+                self.logger.diag(f"Catchwords:\n{detail} ")
+        self.logger.info(f"Avg coherence: {float(np.mean(coh)):.4f}")
+        self.logger.info(
+            f"Average topic diversity: {topic_diversity(self.model):.6f}"
+        )
+        self.timer.next("output summary")
+
+    # ------------------------------------------------------------------
+
+    def _require_trained(self) -> None:
+        if not self.is_training_complete:
+            raise RuntimeError("train first")
+
+    def _print_eigen_data(self, evalues: np.ndarray, k: int) -> None:
+        """Singular values are sqrt of the Gram eigenvalues."""
+        sv = np.sqrt(np.maximum(evalues, 0.0))
+        self.logger.info(
+            f"Singular values (top {min(5, k)}): "
+            + ", ".join(f"{x:.4f}" for x in sv[:5])
+            + f" ... lambda_k={sv[-1]:.4f}  sum={sv.sum():.2f}"
+        )
+
+    def _restore_model_checkpoint(self, ck: dict) -> bool:
+        """Restore the final 'model' checkpoint (plus kmeans/svd context);
+        True when training is already complete."""
+        if "model" not in ck:
+            return False
+        k = self.config.num_topics
+        m = ck["model"]
+        self.model = m["model"]
+        if "is_cw" in m:
+            is_cw = m["is_cw"]
+            self.catchwords = [np.flatnonzero(is_cw[t]) for t in range(k)]
+            self.catchword_thresholds = m.get("catchword_thresholds")
+        if "t1" in m:
+            self.top_pairs = (m["t1"], m["t2"], m["valid"])
+        if "kmeans" in ck:
+            self.centers = ck["kmeans"]["centers"]
+            self.cluster_of_doc = ck["kmeans"]["cluster_of_doc"]
+        if "svd" in ck:
+            self.evalues = ck["svd"]["evalues"]
+            self.original_cols = ck["svd"]["original_cols"]
+        self.logger.info("resumed from 'model' checkpoint")
+        self.is_training_complete = True
+        return True
+
+    def _corpus_stamp(self) -> np.ndarray:
+        """(vocab, num_docs, nnz) stamped into every stage checkpoint, so a
+        checkpoint from another corpus is refused on resume."""
+        c = self.corpus
+        return np.array([c.vocab_size, c.num_docs, c.nnz], np.int64)
+
+    def _load_checkpoints(self) -> dict:
+        out = {}
+        stamp = self._corpus_stamp()
+        for stage in ("svd", "kmeans", "model"):
+            path = os.path.join(self.run_dir, f"ckpt_{stage}.npz")
+            if os.path.exists(path):
+                with np.load(path, allow_pickle=False) as z:
+                    ck = dict(z)
+                got = ck.pop("corpus_stamp", None)
+                if got is not None and not np.array_equal(got, stamp):
+                    raise ValueError(
+                        f"checkpoint '{stage}' in {self.run_dir} was "
+                        f"written for a different corpus "
+                        f"(vocab/docs/nnz {got.tolist()} vs "
+                        f"{stamp.tolist()}); delete the stale "
+                        "checkpoints or train without resume"
+                    )
+                out[stage] = ck
+                self.logger.diag(f"found checkpoint '{stage}' at {path}")
+        return out
+
+    def _checkpoint(self, stage: str, **arrays) -> None:
+        path = os.path.join(self.run_dir, f"ckpt_{stage}.npz")
+        arrays = {k: v for k, v in arrays.items() if v is not None}
+        arrays["corpus_stamp"] = self._corpus_stamp()
+        np.savez(path, **arrays)
+        self.logger.diag(f"checkpointed stage '{stage}' -> {path}")

@@ -1,0 +1,113 @@
+"""Shared inputs for the tests that hold isle_tpu_torch against isle_tpu:
+a draw source replaying isle_tpu's jax.random key schedule, the
+reference configuration, and two small corpora made with numpy from a
+seed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from isle_tpu.config import TpuConfig
+from isle_tpu.corpus import Corpus
+
+# The isle_tpu configuration the port is held against: the COO layout
+# (no hybrid dense head), both Pallas segment sums forced on (interpret
+# mode on the CPU, with real plans at a 256-entry chunk), a small SpMM
+# chunk so padding stays small, and the host-driven block_ks loop.
+REFERENCE_TPU = TpuConfig(
+    dense_head_bytes=0, pallas_segsum="on", pallas_chunk=256,
+    spmm_chunk=1 << 12, device_loop_solver=False,
+)
+
+
+class JaxDraws:
+    """isle_tpu_torch.rng.Draws replaying isle_tpu's key schedule:
+    PRNGKey(seed) split once for B (trainer.py:377), once for the
+    eigensolver (:433) and once for k-means (:478); kmeans.py:156 splits
+    per seeding rep and _kmeanspp_loop splits for the first center and
+    for each round's dice."""
+
+    def __init__(self, seed: int):
+        key = jax.random.PRNGKey(seed)
+        key, _ = jax.random.split(key)
+        key, self._eig = jax.random.split(key)
+        key, self._km = jax.random.split(key)
+
+    @classmethod
+    def from_keys(cls, eig=None, km=None):
+        """The draws of a block_ks call given `key=eig` and of a
+        kmeans_init_on_projected call given `key=km`."""
+        d = cls.__new__(cls)
+        d._eig, d._km = eig, km
+        return d
+
+    def krylov_start(self, dim, blk):
+        return _to_torch(jax.random.normal(self._eig, (dim, blk), jnp.float32))
+
+    def kmeanspp_first(self, num_docs):
+        self._km, rep = jax.random.split(self._km)
+        self._loop, sub = jax.random.split(rep)
+        return int(jax.random.randint(sub, (), 0, num_docs))
+
+    def kmeanspp_dice(self, n):
+        self._loop, sub = jax.random.split(self._loop)
+        return _to_torch(jax.random.uniform(sub, (n,), jnp.float32))
+
+
+def _to_torch(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def golden_corpus():
+    """The corpus of tests/test_golden.py (V=400, D=250, k=5)."""
+    rng = np.random.default_rng(42)
+    V, D, k = 400, 250, 5
+    docs, words, counts = [], [], []
+    for d in range(D):
+        band = d % k
+        n = int(rng.integers(10, 40))
+        ws = np.unique(np.concatenate([
+            rng.integers(band * 60, band * 60 + 60, n // 2),
+            rng.integers(0, V, n - n // 2),
+        ]))
+        for w in np.sort(ws):
+            docs.append(d)
+            words.append(int(w))
+            counts.append(int(rng.integers(1, 6)))
+    return Corpus.from_entries(
+        np.array(docs), np.array(words), np.array(counts),
+        vocab_size=V, num_docs=D,
+    )
+
+
+def biting_corpus(seed: int = 0, V: int = 200, D: int = 400, k: int = 4,
+                  nc: int = 12):
+    """A corpus where thresholding bites: the nc common words sit in most
+    docs with heavy-tailed counts, so their ζ lands well above 1 (about
+    20-32), and every 20th doc holds each common word once, so all its
+    values (avg_doc_sz / nc) fall under ζ and the doc is dropped. With
+    few_samples_threshold_drop the rare words get ζ = +inf as well."""
+    rng = np.random.default_rng(seed)
+    docs, words, counts = [], [], []
+    for d in range(D):
+        if d % 20 == 19:
+            ws, c = np.arange(nc), np.ones(nc, np.int64)
+        else:
+            band = d % k
+            n = int(rng.integers(6, 20))
+            ws = np.unique(np.concatenate([
+                np.flatnonzero(rng.random(nc) < 0.8),
+                nc + rng.integers(band * 40, band * 40 + 40, n // 2),
+                rng.integers(nc, V, n - n // 2),
+            ]))
+            c = rng.integers(1, 4, len(ws))
+            common = ws < nc
+            c[common] = rng.geometric(0.06, int(common.sum()))
+        docs += [d] * len(ws)
+        words += ws.tolist()
+        counts += c.tolist()
+    return Corpus.from_entries(
+        np.array(docs), np.array(words), np.array(counts),
+        vocab_size=V, num_docs=D,
+    )
