@@ -1,5 +1,6 @@
-"""isle-tpu-torch: the PyTorch + CUDA port of isle_tpu's in-core training
-path, for one NVIDIA Hopper card (H100).
+"""isle-tpu-torch: the PyTorch + CUDA port of isle_tpu's single-device
+in-core training path and its MWU inference, for one NVIDIA Hopper card
+(H100).
 
 The package keeps isle_tpu's module names so each counterpart is easy to
 find (isle_tpu/thresholds.py -> isle_tpu_torch/thresholds.py, ...). Its
@@ -13,8 +14,10 @@ preprocessed and obs (Logger, Timer, OpCounter). Nothing here imports jax.
 
 Public surface:
     GpuConfig, HyperParams, TrainConfig  — configuration (config.py)
+    InferConfig                          — inference configuration
     Corpus                               — host ingest (isle_tpu.corpus)
     Trainer                              — in-core training (trainer.py)
+    Inferencer                           — MWU inference (inferencer.py)
 
 TF32: importing the package turns TF32 off for float32 matmuls and
 convolutions. TF32 keeps ~10 mantissa bits, the Hopper analog of the
@@ -30,7 +33,8 @@ from .config import GpuConfig, HyperParams, TrainConfig
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["Corpus", "GpuConfig", "HyperParams", "TrainConfig", "Trainer"]
+__all__ = ["Corpus", "GpuConfig", "HyperParams", "InferConfig", "Inferencer",
+           "TrainConfig", "Trainer"]
 
 
 def __getattr__(name):
@@ -38,4 +42,12 @@ def __getattr__(name):
         from .trainer import Trainer
 
         return Trainer
+    if name == "Inferencer":
+        from .inferencer import Inferencer
+
+        return Inferencer
+    if name == "InferConfig":
+        from .config import InferConfig
+
+        return InferConfig
     raise AttributeError(name)

@@ -1,0 +1,73 @@
+"""Inference CLI of the port — the positional contract of the reference
+ISLEInfer and of isle_tpu.cli.infer (ISLEInfer.cpp:10-36):
+
+    python -m isle_tpu_torch.cli.infer <sparse_model_file> <infer_file>
+        <output_dir> <num_topics> <vocab_size>
+        <min_doc_id> <max_doc_id> <nnzs_in_infer_file>
+        <nnzs_in_sparse_model_file> <iters|0> <Lf|0> [--device D]
+
+--device is the torch device (default cuda; cpu runs on the host).
+"""
+
+from __future__ import annotations
+
+import sys
+
+from isle_tpu_torch.cli.train import _pop_flag
+
+USAGE = (
+    "Usage: python -m isle_tpu_torch.cli.infer <sparse_model_file> "
+    "<infer_file> <output_dir> <num_topics> <vocab_size> "
+    "<min_doc_id> <max_doc_id> <nnzs_in_infer_file> "
+    "<nnzs_in_model_file> <iters|0 for default> <Lf|0 for default> "
+    "[--device D]"
+)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        device = _pop_flag(argv, "--device", "cuda")
+    except ValueError as e:
+        print(f"{e}\n{USAGE}", file=sys.stderr)
+        return 1
+    if len(argv) != 11:
+        print(USAGE, file=sys.stderr)
+        return 1
+
+    from isle_tpu_torch.config import GpuConfig, InferConfig
+    from isle_tpu_torch.inferencer import Inferencer
+
+    (
+        model_file,
+        infer_file,
+        output_dir,
+        num_topics,
+        vocab_size,
+        doc_begin,
+        doc_end,
+        max_entries,
+        _model_entries,
+        iters,
+        Lf,
+    ) = argv
+    cfg = InferConfig(
+        num_topics=int(num_topics),
+        vocab_size=int(vocab_size),
+        iters=int(iters),
+        Lf=float(Lf),
+    )
+    inf = Inferencer(cfg, model_file=model_file, output_dir=output_dir,
+                     gpu=GpuConfig(device=device))
+    inf.infer_file(
+        infer_file,
+        doc_begin=int(doc_begin),
+        doc_end=int(doc_end),
+        max_entries=int(max_entries) or None,
+    )
+    inf.timer.report_total("ISLEInfer")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,8 +7,7 @@ ISLETrain and of isle_tpu.cli.train:
         <edge_topics 0/1> <max_edge_topics> [--seed N] [--device D]
 
 --device is the torch device (default cuda; cpu runs the plain PyTorch
-versions of the kernels). sample=1 is not ported yet and exits with an
-error.
+versions of the kernels). sample=1 samples documents at sample_rate.
 """
 
 from __future__ import annotations

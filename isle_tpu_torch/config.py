@@ -1,9 +1,10 @@
 """Run-time configuration of the port.
 
-HyperParams and TrainConfig are isle_tpu's own (jax-free) dataclasses;
-TrainConfig.tpu is ignored. GpuConfig holds the few knobs that map the
-pipeline onto the card; no TpuConfig knob comes over (the hybrid layout,
-Pallas plans, precision modes and tunnel codecs have no counterpart).
+HyperParams, TrainConfig and InferConfig are isle_tpu's own (jax-free)
+dataclasses; their `tpu` field is ignored. GpuConfig holds the few knobs
+that map the pipeline onto the card; no TpuConfig knob comes over (the
+hybrid layout, Pallas plans, precision modes and tunnel codecs have no
+counterpart).
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ import dataclasses
 
 import torch
 
-from isle_tpu.config import HyperParams, TrainConfig
+from isle_tpu.config import HyperParams, InferConfig, TrainConfig
 
-__all__ = ["GpuConfig", "HyperParams", "TrainConfig"]
+__all__ = ["GpuConfig", "HyperParams", "InferConfig", "TrainConfig"]
 
 
 @dataclasses.dataclass(frozen=True)

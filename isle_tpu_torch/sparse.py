@@ -79,7 +79,7 @@ class DocSparse:
         )
 
 
-def _gather_segsum(gather_idx, seg_idx, vals, X, num_segments, chunk):
+def gather_segsum(gather_idx, seg_idx, vals, X, num_segments, chunk):
     out = torch.zeros((num_segments, X.shape[1]), dtype=X.dtype,
                       device=X.device)
     for a in range(0, gather_idx.numel(), chunk):
@@ -91,13 +91,13 @@ def _gather_segsum(gather_idx, seg_idx, vals, X, num_segments, chunk):
 
 def bt_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):
     """B^T X: (num_docs, width) from X (vocab, width)."""
-    return _gather_segsum(sp.d_word, sp.d_doc, sp.d_val, X, sp.num_docs,
+    return gather_segsum(sp.d_word, sp.d_doc, sp.d_val, X, sp.num_docs,
                           chunk)
 
 
 def b_y(sp: DocSparse, Y: torch.Tensor, chunk: int = DEFAULT_CHUNK):
     """B Y: (vocab, width) from Y (num_docs, width)."""
-    return _gather_segsum(sp.w_doc, sp.w_word, sp.w_val, Y, sp.vocab, chunk)
+    return gather_segsum(sp.w_doc, sp.w_word, sp.w_val, Y, sp.vocab, chunk)
 
 
 def gram_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):

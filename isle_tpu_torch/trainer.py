@@ -4,10 +4,12 @@ isle_tpu/trainer.py:300-582) in the COO layout, with train_edge_topics,
 the stage checkpoints and the writers the training CLI calls.
 
 Stage order (reference src/trainer.cpp:425-654):
-  ingest -> ζ thresholds -> B = threshold + sqrt-scale -> truncated SVD
-  of B B^T -> k-means++ on U^T B -> Lloyd's (projected) -> lift centers
-  -> Lloyd's (full space) -> remap clusters to original docs -> r-th
-  highest stats -> catchwords -> topic matrix [-> edge topics].
+  ingest -> ζ thresholds -> B = threshold + sqrt-scale [+ document
+  sampling] -> truncated SVD of B B^T -> seeding (k-means++, k-means||
+  or AFK-MC^2) on U^T B -> Lloyd's (projected) -> lift centers [or copy
+  the seed columns of B] -> Lloyd's or Elkan's (full space) -> remap
+  clusters to original docs -> r-th highest stats -> catchwords -> topic
+  matrix [-> edge topics].
 
 Checkpoints use isle_tpu's ckpt_{svd,kmeans,model}.npz schema and corpus
 stamp, so train(resume=True) finishes a run from the checkpoints that the
@@ -31,12 +33,13 @@ from isle_tpu.obs import Logger, OpCounter, Timer
 from .bmatrix import threshold_and_copy
 from .catchwords import catchword_topic_map, find_catchwords, rth_highest
 from .config import GpuConfig
+from .elkans import run_elkans
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
 from .linalg import block_ks, dense_topk_eigh
 from .rng import Draws
-from .sparse import DocSparse, bt_x, frobenius_sq, gram_x, spmm_flops, \
-    to_dense
+from .sparse import DocSparse, b_y, bt_x, frobenius_sq, gram_x, \
+    spmm_flops, to_dense
 from .thresholds import compute_thresholds
 from .topic_model import construct_edge_topics_v2, construct_topic_model, \
     doc_topic_mass
@@ -44,24 +47,26 @@ from .topic_model import construct_edge_topics_v2, construct_topic_model, \
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for the options this port does not cover
-    yet (ROADMAP.md lists them)."""
+    yet (ROADMAP.md lists them), ValueError for settings isle_tpu refuses
+    as well."""
     hp = cfg.hyper
-    missing = []
-    if cfg.sample_docs:
-        missing.append("sample_docs=True (importance sampling of documents)")
     if hp.eigensolver not in ("block_ks", "dense"):
-        missing.append(f"eigensolver={hp.eigensolver!r}")
-    if hp.kmeans_init_method != "kmeanspp":
-        missing.append(f"kmeans_init_method={hp.kmeans_init_method!r}")
-    if hp.kmeans_algo_for_sparse != "lloyds":
-        missing.append(f"kmeans_algo_for_sparse={hp.kmeans_algo_for_sparse!r}")
-    if not hp.enable_kmeans_on_lowd:
-        missing.append("enable_kmeans_on_lowd=False")
-    if not hp.use_explicit_projected_matrix:
-        missing.append("use_explicit_projected_matrix=False")
-    if missing:
         raise NotImplementedError(
-            "not ported to isle_tpu_torch yet: " + "; ".join(missing)
+            f"not ported to isle_tpu_torch yet: eigensolver="
+            f"{hp.eigensolver!r}"
+        )
+    if hp.kmeans_init_method not in ("kmeanspp", "kmeansbb", "kmeansmcmc"):
+        raise ValueError(
+            f"unknown kmeans_init_method {hp.kmeans_init_method!r}")
+    if hp.kmeans_algo_for_sparse not in ("lloyds", "elkans"):
+        raise ValueError(
+            f"unknown kmeans_algo_for_sparse {hp.kmeans_algo_for_sparse!r}")
+    if not hp.enable_kmeans_on_lowd and hp.kmeans_init_method == "kmeansbb":
+        # the centers are copied from the seed docs' columns of B, and
+        # k-means|| has no seed docs (hyperparams.h:56-58)
+        raise ValueError(
+            "enable_kmeans_on_lowd=False needs seed docs: use "
+            "kmeans_init_method 'kmeanspp' or 'kmeansmcmc'"
         )
 
 
@@ -269,8 +274,23 @@ class Trainer:
             self._finish_train(A, cluster_of_doc, sizes)
             return
 
-        # 2-3. B
-        B, original_cols = threshold_and_copy(A, zetas)
+        # 2-3. B (+ importance sampling of documents); on resume, the
+        # checkpointed docs, which U was computed on
+        if "svd" in ck:
+            B, original_cols = threshold_and_copy(
+                A, zetas, docs=self.original_cols)
+            if not np.array_equal(original_cols, self.original_cols):
+                raise ValueError(
+                    f"checkpoint 'svd' in {self.run_dir}: its original_cols "
+                    "do not match its zetas on this corpus"
+                )
+        else:
+            sample = cfg.sample_rate if cfg.sample_docs else None
+            B, original_cols = threshold_and_copy(
+                A, zetas, sample_rate=sample,
+                uniforms=None if sample is None
+                else self.draws.doc_sample_uniforms(D),
+            )
         self.original_cols = original_cols
         self.logger.info(
             f"Columns remaining after thresholding: {B.num_docs}  "
@@ -310,25 +330,34 @@ class Trainer:
                              zetas=zetas.cpu().numpy(),
                              original_cols=original_cols)
 
-        # 6. projected docs P = U^T B (k x D_B)
+        # 6. projected docs P = U^T B (k x D_B). bt_x already streams B in
+        # chunks, so use_explicit_projected_matrix=False (isle_tpu's
+        # doc-blockwise product) is the same product here.
         P = bt_x(B, U, chunk).T
         self._mark("project docs")
 
-        # 7. k-means++ seeding + Lloyd's in the projected space
-        _, centers_lowd, init_residual = kmeans_init_on_projected(
+        # 7. seeding + Lloyd's in the projected space
+        seeds, centers_lowd, init_residual = kmeans_init_on_projected(
             P, k, hp.kmeans_init_reps, self.draws,
-            method=hp.kmeans_init_method,
+            method=hp.kmeans_init_method, timer=self.timer,
+            mcmc_sample_size=hp.kmeansmcmc_sample_size,
         )
         self.logger.info(f"Best k-means init residual: {init_residual:.4f}")
         self._mark("k-means seeds initialization")
-        centers_lowd, _ = run_lloyds_projected(
-            P, centers_lowd, hp.max_kmeans_lowd_reps, timer=self.timer
-        )
-        centers_full = centers_lowd @ U.T
-        self._mark("converging Lloyds k-means on B_k")
+        if hp.enable_kmeans_on_lowd:
+            centers_lowd, _ = run_lloyds_projected(
+                P, centers_lowd, hp.max_kmeans_lowd_reps, timer=self.timer
+            )
+            centers_full = centers_lowd @ U.T
+            self._mark("converging Lloyds k-means on B_k")
+        else:  # the seed docs' columns of B
+            onehot = torch.nn.functional.one_hot(seeds, B.num_docs)
+            centers_full = b_y(B, onehot.T.to(torch.float32), chunk).T
 
-        # 8. Lloyd's on B in the full vocab space
-        centers_full, assign = run_lloyds_full(
+        # 8. Lloyd's or Elkan's on B in the full vocab space
+        full_kmeans = (run_elkans if hp.kmeans_algo_for_sparse == "elkans"
+                       else run_lloyds_full)
+        centers_full, assign = full_kmeans(
             B, centers_full, hp.max_kmeans_reps, timer=self.timer, chunk=chunk
         )
         self.centers = centers_full.cpu().numpy()
@@ -356,7 +385,8 @@ class Trainer:
             self.device)
 
         # 10. r-th highest element per (word, topic)
-        r = hp.catchword_rank(D, k, None)
+        r = hp.catchword_rank(
+            D, k, cfg.sample_rate if cfg.sample_docs else None)
         if r < 1:
             self.logger.warning(
                 f"catchword rank r={r} < 1 (tiny corpus); clamping to 1"

@@ -138,3 +138,28 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(g.edge_model, c.edge_model, rtol=1e-4,
                                atol=1e-6)
+
+
+def test_mwu_on_the_card_matches_the_cpu(dev):
+    """MWU inference (plain PyTorch on the card: isle_tpu's MWU is XLA,
+    not Pallas) against the same call on the CPU, with a tiny Lf on half
+    the runs so that the float32 overflow retries happen on the card."""
+    from isle_tpu_torch import Corpus, mwu
+
+    rng = np.random.default_rng(3)
+    V, D, k = 500, 400, 12
+    M = rng.random((V, k)).astype(np.float32)
+    M[M < 0.6] = 0.0
+    M /= M.sum(axis=0, keepdims=True)
+    d = np.repeat(np.arange(D), rng.integers(1, 90, D))
+    key = np.unique(d * V + rng.integers(0, V, d.size))
+    corpus = Corpus.from_entries(key // V, key % V,
+                                 rng.integers(1, 6, key.size), vocab_size=V,
+                                 num_docs=D, normalize_to_one=True)
+    batch = mwu.build_infer_batch(corpus, M.sum(axis=1))
+    for Lf, top_n in ((10.0, 0), (10.0, 5), (1e-3, 0)):
+        g = mwu.infer_all(M, batch, 15, Lf, top_n=top_n, device=dev)
+        c = mwu.infer_all(M, batch, 15, Lf, top_n=top_n, device="cpu")
+        np.testing.assert_array_equal(g[1], c[1])
+        for a, b in zip((g[0], g[2], g[3]), (c[0], c[2], c[3])):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)

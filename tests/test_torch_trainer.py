@@ -128,7 +128,7 @@ def test_state_from_numpy_keeps_arrays():
 
 def test_cli_writes_the_run_directory(tmp_path):
     """python -m isle_tpu_torch.cli.train, the 12-argument contract, on the
-    CPU; sample=1 is refused with a clear error."""
+    CPU; sample=1 trains too, into its own run directory."""
     from test_end_to_end import planted_corpus
 
     text, _ = planted_corpus(np.random.default_rng(7), 48, 160, 4)
@@ -149,7 +149,8 @@ def test_cli_writes_the_run_directory(tmp_path):
         assert os.path.exists(os.path.join(run, name)), name
     sampled = list(args)
     sampled[8], sampled[9] = "1", "0.5"
-    assert main(sampled) == 2
+    assert main(sampled) == 0
+    assert len(os.listdir(tmp_path / "out")) == 2
     assert main([]) == 1
 
 

@@ -23,36 +23,68 @@ REFERENCE_TPU = TpuConfig(
 
 class JaxDraws:
     """isle_tpu_torch.rng.Draws replaying isle_tpu's key schedule:
-    PRNGKey(seed) split once for B (trainer.py:377), once for the
-    eigensolver (:433) and once for k-means (:478); kmeans.py:156 splits
-    per seeding rep and _kmeanspp_loop splits for the first center and
-    for each round's dice."""
+    PRNGKey(seed) split once for B (trainer.py:377; the sampling
+    uniforms, bmatrix.py:59), once for the eigensolver (:433) and once for
+    k-means (:478). kmeans.py:156 splits per seeding rep; every seeding
+    splits the rep key for its first center (:50, :196, :364) and then
+    draws from the rest of it: k-means++ and k-means|| split it for each
+    round (:101, :208), k-means|| hands a split to its weighted k-means++
+    (:236), which splits for each pick (:247, :256), and AFK-MC^2 splits
+    it for each chain (:393) and that again for its proposals and
+    uniforms (:303)."""
 
     def __init__(self, seed: int):
         key = jax.random.PRNGKey(seed)
-        key, _ = jax.random.split(key)
+        key, self._b = jax.random.split(key)
         key, self._eig = jax.random.split(key)
         key, self._km = jax.random.split(key)
 
     @classmethod
-    def from_keys(cls, eig=None, km=None):
-        """The draws of a block_ks call given `key=eig` and of a
-        kmeans_init_on_projected call given `key=km`."""
+    def from_keys(cls, eig=None, km=None, b=None, loop=None):
+        """The draws of a block_ks call given `key=eig`, of a
+        kmeans_init_on_projected call given `key=km`, of a
+        threshold_and_copy call given `key=b`, and of a routine handed
+        `key=loop` directly (a weighted k-means++ or one seeding rep)."""
         d = cls.__new__(cls)
-        d._eig, d._km = eig, km
+        d._eig, d._km, d._b, d._loop = eig, km, b, loop
         return d
+
+    def doc_sample_uniforms(self, num_docs):
+        return _to_torch(jax.random.uniform(self._b, (num_docs,),
+                                            dtype=jnp.float32))
 
     def krylov_start(self, dim, blk):
         return _to_torch(jax.random.normal(self._eig, (dim, blk), jnp.float32))
 
-    def kmeanspp_first(self, num_docs):
+    def seeding_first(self, num_docs):
         self._km, rep = jax.random.split(self._km)
         self._loop, sub = jax.random.split(rep)
         return int(jax.random.randint(sub, (), 0, num_docs))
 
-    def kmeanspp_dice(self, n):
+    def _sub(self):
         self._loop, sub = jax.random.split(self._loop)
-        return _to_torch(jax.random.uniform(sub, (n,), jnp.float32))
+        return sub
+
+    def uniform(self, n):
+        return _to_torch(jax.random.uniform(self._sub(), (n,), jnp.float32))
+
+    def fork(self):
+        return JaxDraws.from_keys(loop=self._sub())
+
+    def categorical(self, weights):
+        logits = jnp.log(jnp.maximum(jnp.asarray(_np(weights)), 1e-30))
+        return int(jax.random.categorical(self._sub(), logits))
+
+    def mcmc_proposals(self, q, n):
+        s1, s2 = jax.random.split(self._sub())
+        idx = jax.random.categorical(s1, jnp.log(jnp.asarray(_np(q))),
+                                     shape=(n,))
+        return (_to_torch(idx).long(),
+                _to_torch(jax.random.uniform(s2, (n,))))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
 def _to_torch(x) -> torch.Tensor:
