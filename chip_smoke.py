@@ -1,9 +1,9 @@
 """Smoke run of isle_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
-from isle_tpu_torch/csrc, trains at the NYTimes shape of bench.py
-(vocab 102,660, docs 300,000, 48M nnz, k = 100, edge topics max 2000,
-random corpus from a seed), holds each kernel against its plain PyTorch
-version on the main path's own streams, and infers the same documents
-with the trained model (MWU, ISLEInfer's path).
+from isle_tpu_torch/csrc, trains at the NYTimes shape (vocab 102,660, docs
+300,000, 48M nnz, k = 100, edge topics max 2000, the random corpus of
+isle_tpu_torch.synth from a seed), holds each kernel against its plain
+PyTorch version on the main path's own streams, and infers the same
+documents with the trained model (MWU, ISLEInfer's path).
 
     python3 chip_smoke.py [--docs N] [--seed S]
 
@@ -11,20 +11,38 @@ with the trained model (MWU, ISLEInfer's path).
 stay) and says so on its own line. Phases, in order:
 
   1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  2. the kernel build, timed;
-  3. a small corpus (bench.py's TINY shape) trained on the card and on
+  2. the kernel build, timed, with ptxas's registers and spills per
+     kernel (a spill fails the run);
+  3. a small corpus (the TINY shape below) trained on the card and on
      the CPU (plain versions): equal clusters, eigenvalues within rtol
      1e-4, models within rtol 1e-4, atol 1e-6, top-two topics per doc
      equal but where the doc's catchword masses tie (check_tiny);
   4. the main path: Trainer.train() + train_edge_topics() at the NYTimes
      shape with the launch counts reset just before and read just after;
-  5. kernel against plain version on that run's streams (ζ histogram,
-     r-th group counts, doc-topic mass, model SpMM), each timed with CUDA
-     events: counts exactly equal; sums within rtol 1e-5 of the plain
-     version taken in float64 (atomics reorder float32 sums);
-  6. checks of the result: both kernels launched on the main path, every
-     model column sums (in float64) to 1 within 1e-5 or is all zero,
-     eigenvalues finite and descending, at least one catchword;
+     then a second training run of the same corpus and seed: its wall,
+     and whether its catchword count, edge-topic count and model equal
+     the first run's (printed, not required: the onehot kernel's float
+     atomics and Lloyd's near ties remain);
+  5. kernel against plain version on the main path's streams, each use
+     timed with CUDA events beside its bound (bytes: the stream, the
+     table and the output once, at 3.35 TB/s; operations at 67 TFLOP/s
+     float32) and one PyTorch library call for the same function:
+     segsum_onehot's ζ histogram, r-th group counts and doc-topic mass
+     (library: index_put_ with accumulate=True), counts exactly equal,
+     sums within rtol 1e-5 of the plain version in float64 (atomics
+     reorder float32 sums); segsum_gather_rows's model SpMM B W (width
+     100), eigensolver B^T X and B Y (width 128) and Lloyd's B^T C and
+     B onehot (width 100) on the thresholded matrix B (library:
+     torch.sparse.mm on a CSR copy of the stream, built outside the
+     timed window), each element within 1e-5 |B| |X| of the plain
+     version in float64 (|B| |X|: the plain version on absolute values;
+     Krylov blocks have mixed signs), and two launches bit-equal;
+  6. checks of the result: both kernels launched on the main path,
+     segsum_gather_rows at least twice per eigensolver operator call and
+     per full-space Lloyd's iteration plus the projection and the model
+     SpMM, every model column sums (in float64) to 1 within 1e-5 or is
+     all zero, eigenvalues finite and descending, at least one
+     catchword;
   7. each training option beyond the defaults (document sampling at rate
      0.5, Elkan's, k-means||, AFK-MC^2, centers from the seed columns of
      B, use_explicit_projected_matrix=False) on the small corpus with
@@ -44,7 +62,9 @@ stay) and says so on its own line. Phases, in order:
      Whether the two runs' weights are bit-equal is printed. MWU reaches
      no kernel: the launch counts of this run are printed, not required.
 
-Prints a JSON line of the kernels, the card's line, and last
+Prints a JSON line of the kernels (per kernel: launches on the main path,
+max error, and the sums over its uses of ms, plain_ms, bound_ms and
+library_ms, each use listed under "uses"), the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
 CUDA device it exits with code 2 and prints no result.
 """
@@ -65,6 +85,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NYT = dict(vocab=102_660, docs=300_000, nnz=48_000_000, k=100, edges=2000)
 TINY = dict(vocab=2_000, docs=3_000, nnz=120_000, k=10, edges=20)
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def card_line() -> str:
@@ -93,7 +115,7 @@ MWU_SAMPLE = 2048
 
 
 def synth_entries(shape: dict, seed: int):
-    from bench import synth_corpus
+    from isle_tpu_torch.synth import synth_corpus
 
     return synth_corpus(shape["vocab"], shape["docs"], shape["nnz"], seed)
 
@@ -312,9 +334,121 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str) -> None:
           f"err {err:.3e}")
 
 
-def compare_kernels(tr) -> dict:
-    """Each kernel against its plain version on the main path's streams."""
-    from isle_tpu_torch import segsum, thresholds, topic_model
+def bound(nbytes: int, ops: int) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def onehot_use(use, seg, col, val, S, nc, launches) -> dict:
+    """segsum_onehot against its plain version and index_put_."""
+    from isle_tpu_torch import segsum
+
+    got = segsum.segsum_onehot(seg, col, val, S, nc)
+    if val is None:
+        ref = segsum.segsum_onehot_plain(seg, col, None, S, nc)
+        assert torch.equal(got, ref), f"{use}: counts differ"
+        err = 0.0
+    else:
+        ref = segsum.segsum_onehot_plain(seg, col, val.double(), S, nc)
+        err = float((got.double() - ref).abs().max())
+        assert torch.allclose(got.double(), ref, rtol=1e-5, atol=0), \
+            f"{use}: max abs err {err}"
+    n = seg.numel()
+    dtype = got.dtype
+    # the library call on the entries the kernel counts, indexed outside
+    # the timed window
+    ok = (col >= 0) & (col < nc) & (seg >= 0) & (seg <= S)
+    si, ci = seg[ok].long(), col[ok].long()
+    vi = (torch.ones(si.numel(), dtype=dtype, device=seg.device)
+          if val is None else val[ok])
+
+    def library():
+        return torch.zeros((S + 1, nc), dtype=dtype,
+                           device=seg.device).index_put_((si, ci), vi,
+                                                         accumulate=True)
+
+    lib_err = float((library().double() - ref.double()).abs().max())
+    nbytes = n * (8 if val is None else 12) + got.numel() * 4
+    bound_ms, bound_by = bound(nbytes, n)
+    return dict(
+        use=use, n=n, shape=[S + 1, nc], launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
+        plain_ms=time_ms(lambda: segsum.segsum_onehot_plain(
+            seg, col, val, S, nc)),
+        library_ms=time_ms(library), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+    )
+
+
+def gather_use(use, seg, idx, val, table, S, launches) -> dict:
+    """segsum_gather_rows against its plain version and torch.sparse.mm:
+    each element within 1e-5 |B| |X| of the float64 plain version, two
+    launches bit-equal."""
+    from isle_tpu_torch import segsum
+
+    got = segsum.segsum_gather_rows(seg, idx, val, table, S)
+    again = segsum.segsum_gather_rows(seg, idx, val, table, S)
+    bit_equal = bool(torch.equal(got, again))
+    assert bit_equal, f"{use}: two launches differ"
+    del again
+    ref = segsum.segsum_gather_rows_plain(seg, idx, val.double(),
+                                          table.double(), S)
+    scale = segsum.segsum_gather_rows_plain(seg, idx, val.double().abs(),
+                                            table.double().abs(), S)
+    diff = (got.double() - ref).abs()
+    err = float(diff.max())
+    worst = float((diff / scale.clamp(min=1e-300)).max())
+    assert bool((diff <= 1e-5 * scale).all()), \
+        f"{use}: max abs err {err}, max err / (|B| |X|) {worst}"
+    del scale, diff
+    rows, W = table.shape
+    n = seg.numel()
+    # the library call: cuSPARSE SpMM on a CSR copy of the sorted stream
+    # (made outside the timed window); the port never calls it
+    crow = torch.zeros(S + 1, dtype=torch.int64, device=seg.device)
+    crow[1:] = torch.cumsum(torch.bincount(seg.long(), minlength=S + 1)[:S],
+                            0)
+    csr = torch.sparse_csr_tensor(crow.int(), idx, val, size=(S, rows),
+                                  check_invariants=False)
+
+    def library():
+        return torch.sparse.mm(csr, table)
+
+    lib_err = float((library().double() - ref[:S]).abs().max())
+    del ref
+    nbytes = n * 12 + table.numel() * 4 + got.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 2 * n * W)
+    return dict(
+        use=use, n=n, shape=[S + 1, W], table=[rows, W], launches=launches,
+        max_abs_err=err, err_over_abs_bound=worst, bit_equal=bit_equal,
+        ms=time_ms(lambda: segsum.segsum_gather_rows(seg, idx, val, table,
+                                                     S)),
+        plain_ms=time_ms(lambda: segsum.segsum_gather_rows_plain(
+            seg, idx, val, table, S)),
+        library_ms=time_ms(library), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+    )
+
+
+def lloyds_reps(tr) -> int:
+    """Full-space Lloyd's iterations of the run, from its diagnostic log."""
+    path = os.path.join(tr.run_dir, "diagnosticLog.txt")
+    with open(path) as f:
+        reps = [int(line.split("ran ")[1].split()[0]) for line in f
+                if line.startswith("full lloyds ran ")]
+    assert reps, f"no full-space Lloyd's line in {path}"
+    return reps[-1]
+
+
+def compare_kernels(tr, launches: dict, seed: int) -> dict:
+    """Each kernel against its plain version, at the main path's shapes on
+    its own streams: A's for the three onehot uses and the model SpMM,
+    the thresholded B's for the SpMM of the eigensolver and of Lloyd's."""
+    from isle_tpu_torch import bmatrix, segsum, sparse, thresholds, \
+        topic_model
 
     A = tr.A
     hp, k = tr.config.hyper, tr.config.num_topics
@@ -332,46 +466,63 @@ def compare_kernels(tr) -> dict:
     has_cw = torch.bincount(cwt[cwt >= 0].long(), minlength=k) > 0
     thr = topic_model.model_thresholds(mass, has_cw,
                                        hp.model_rank_threshold(D, k))
-    W = topic_model._contribution_weights(mass, thr, cluster)
+    Wc = topic_model._contribution_weights(mass, thr, cluster)
 
-    onehot = [  # (use, seg, col, val, num_segments, ncols)
+    uses = {"segsum_onehot": [], "segsum_gather_rows": []}
+    for use, seg, col, val, S, nc in (
         ("zeta histogram", A.w_word, thresholds.hist_cols(A.w_val, F), None,
          V, F + 1),
         ("r-th group counts", A.w_word, cluster[A.w_doc], None, V, k),
         ("doc-topic mass", A.d_doc, cwt[A.d_word], A.d_val, D, k),
-    ]
-    uses = {"segsum_onehot": [], "segsum_gather_rows": []}
-    for use, seg, col, val, S, nc in onehot:
-        got = segsum.segsum_onehot(seg, col, val, S, nc)
-        if val is None:
-            ref = segsum.segsum_onehot_plain(seg, col, None, S, nc)
-            assert torch.equal(got, ref), f"{use}: counts differ"
-            err = 0.0
-        else:
-            ref = segsum.segsum_onehot_plain(seg, col, val.double(), S, nc)
-            err = float((got.double() - ref).abs().max())
-            assert torch.allclose(got.double(), ref, rtol=1e-5, atol=0), \
-                f"{use}: max abs err {err}"
-        uses["segsum_onehot"].append(dict(
-            use=use, n=seg.numel(), shape=[S + 1, nc], max_abs_err=err,
-            ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
-            plain_ms=time_ms(lambda: segsum.segsum_onehot_plain(
-                seg, col, val, S, nc)),
-        ))
-    args = (A.w_word, A.w_doc, A.w_val)
-    got = segsum.segsum_gather_rows(*args, W, V)
-    ref = segsum.segsum_gather_rows_plain(A.w_word, A.w_doc, A.w_val.double(),
-                                          W.double(), V)
-    err = float((got.double() - ref).abs().max())
-    assert torch.allclose(got.double(), ref, rtol=1e-5, atol=0), \
-        f"model SpMM: max abs err {err}"
-    uses["segsum_gather_rows"].append(dict(
-        use="model SpMM B W", n=A.nnz, shape=[V + 1, k], max_abs_err=err,
-        ms=time_ms(lambda: segsum.segsum_gather_rows(*args, W, V)),
-        plain_ms=time_ms(lambda: segsum.segsum_gather_rows_plain(
-            *args, W, V)),
-    ))
+    ):
+        uses["segsum_onehot"].append(
+            onehot_use(use, seg, col, val, S, nc, launches=1))
+
+    # B as the main path built it (no sampling: the same thresholds)
+    zetas, _ = thresholds.compute_thresholds(
+        A, tr.corpus.avg_doc_sz, tr.corpus.nz_docs, k, hp)
+    B, cols = bmatrix.threshold_and_copy(A, zetas)
+    assert np.array_equal(cols, tr.original_cols), "B differs from the run's"
+    calls, reps = tr.op_counter.calls, lloyds_reps(tr)
+    blk = hp.block_ks_block_size
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((V, blk), generator=g).to(dev)  # a Krylov block
+    Y = sparse.bt_x(B, X)
+    centers = torch.as_tensor(tr.centers).T.contiguous().to(dev)
+    assign = torch.as_tensor(tr.cluster_of_doc[cols]).long().to(dev)
+    onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
+    d_stream = (B.d_doc, B.d_word, B.d_val)
+    w_stream = (B.w_word, B.w_doc, B.w_val)
+    for use, stream, table, S, n_launch in (
+        ("model SpMM B W", (A.w_word, A.w_doc, A.w_val), Wc, V, 1),
+        ("eigensolver B^T X", d_stream, X, B.num_docs, calls),
+        ("eigensolver B Y", w_stream, Y, V, calls),
+        ("Lloyd's B^T C (+ projection)", d_stream, centers, B.num_docs,
+         reps + 1),
+        ("Lloyd's B onehot", w_stream, onehot, V, reps),
+    ):
+        uses["segsum_gather_rows"].append(
+            gather_use(use, *stream, table, S, n_launch))
     return uses
+
+
+def train_again(corpus, shape, seed, out, first) -> None:
+    """A second training run of the same corpus and seed: its wall, and
+    whether its results equal the first run's (printed, not required)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = train(corpus, shape, seed, "cuda", out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_cw = [sum(len(c) for c in t.catchwords) for t in (first, tr)]
+    n_edge = [t.edge_model.shape[1] for t in (first, tr)]
+    print(f"second training run: {wall:.2f} s wall; catchwords {n_cw[1]} "
+          f"(first {n_cw[0]}), edge topics {n_edge[1]} (first {n_edge[0]}); "
+          f"clusters equal: "
+          f"{np.array_equal(tr.cluster_of_doc, first.cluster_of_doc)}, "
+          f"model equal: {np.array_equal(tr.model, first.model)}, edge "
+          f"model equal: {np.array_equal(tr.edge_model, first.edge_model)}")
+    tr.A = None
 
 
 def main() -> int:
@@ -379,6 +530,7 @@ def main() -> int:
     ap.add_argument("--docs", type=int, default=NYT["docs"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -396,9 +548,13 @@ def main() -> int:
     lib = kernels()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s) -> {os.path.relpath(lib.path)}")
+    spills = 0
     for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
             print(f"  ptxas: {line.strip()}")
+        if "spill stores" in line:
+            spills += int(line.split("bytes spill stores")[0].split(",")[-1])
+    assert spills == 0, f"ptxas spilled {spills} bytes"
 
     out = os.path.join(ROOT, "build", "chip_smoke")
     tiny_entries = synth_entries(TINY, args.seed)
@@ -430,16 +586,32 @@ def main() -> int:
     for label, w, _ in tr.timer.phases:
         print(f"  stage {label}: {w:.3f} s")
 
-    uses = compare_kernels(tr)
+    train_again(corpus, shape, args.seed, os.path.join(out, "nyt2"), tr)
+
+    uses = compare_kernels(tr, launches, args.seed)
     for name, rows in uses.items():
         for u in rows:
             print(f"  {name} [{u['use']}] n={u['n']} out={u['shape']}: "
                   f"kernel {u['ms']:.3f} ms, plain {u['plain_ms']:.3f} ms, "
-                  f"max abs err {u['max_abs_err']:.3e}")
+                  f"library {u['library_ms']:.3f} ms, bound "
+                  f"{u['bound_ms']:.3f} ms "
+                  f"({u['bound_by']}: {u['bound_bytes']} B), launches on "
+                  f"the main path {u['launches']}, max abs err "
+                  f"{u['max_abs_err']:.3e}"
+                  + (f", bit-equal across two launches {u['bit_equal']}"
+                     if "bit_equal" in u else ""))
 
     assert launches["segsum_onehot"] > 0, "segsum_onehot not launched"
-    assert launches["segsum_gather_rows"] > 0, \
-        "segsum_gather_rows not launched"
+    # every eigensolver operator call (bt_x + b_y), every full-space
+    # Lloyd's iteration (bt_x + b_y), the projection and the model SpMM
+    need = sum(u["launches"] for u in uses["segsum_gather_rows"])
+    assert launches["segsum_gather_rows"] >= need, \
+        f"segsum_gather_rows launched {launches['segsum_gather_rows']} " \
+        f"times on the main path, fewer than its {need} SpMM calls"
+    print(f"segsum_gather_rows on the main path: "
+          f"{launches['segsum_gather_rows']} launches for {need} SpMM calls "
+          f"({tr.op_counter.calls} eigensolver operator calls, "
+          f"{lloyds_reps(tr)} full-space Lloyd's iterations)")
     model = tr.model
     assert model.shape == (shape["vocab"], shape["k"])
     assert np.isfinite(model).all() and np.isfinite(tr.edge_model).all()
@@ -459,8 +631,8 @@ def main() -> int:
     # Lloyd's meets near ties that rounding decides, so the options run
     # where the card projects the docs exactly as the CPU does: the dense
     # eigensolver (U from the host) and PyTorch's deterministic
-    # algorithms (index_add_ without atomics). Phase 3 runs the default
-    # path as it is.
+    # algorithms (index_add_ without atomics in the projected Lloyd's and
+    # the doc norms). Phase 3 runs the default path as it is.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for label, opts in OPTIONS.items():
@@ -477,19 +649,25 @@ def main() -> int:
     del corpus
     torch.cuda.empty_cache()
     infer_full(tr, entries, shape, args.seed, out)
-    assert "jax" not in sys.modules, "the port imported jax"
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "isle_tpu", "bench")]
+    assert not bad, f"the port imported {bad}"
 
     source = "isle_tpu_torch/csrc/segsum.cu"
     replaces = {"segsum_onehot": "isle_tpu/pallas_ops.py:236",
                 "segsum_gather_rows": "isle_tpu/pallas_ops.py:203"}
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces[name],
              launches=launches[name],
              max_abs_err=max(u["max_abs_err"] for u in rows),
-             ms=sum(u["ms"] for u in rows),
-             plain_ms=sum(u["plain_ms"] for u in rows), uses=rows)
+             **{key: sum(u[key] for u in rows)
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by="bytes" if all(u["bound_by"] == "bytes" for u in rows)
+             else "operations", uses=rows)
         for name, rows in uses.items()
     ]}))
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,14 @@ two Pallas segment sums (isle_tpu/pallas_ops.py) are hand-written CUDA
 kernels for sm_90a in csrc/segsum.cu, built with nvcc at first use; on a
 CPU tensor each wrapper runs its plain PyTorch version instead.
 
-Only these jax-free host modules of isle_tpu are imported: config
-(HyperParams, TrainConfig), corpus, native, io_text, diagnostics,
-preprocessed and obs (Logger, Timer, OpCounter). Nothing here imports jax.
+It imports nothing of isle_tpu and no jax: the host modules it needs
+(config, corpus, native, io_text, diagnostics, obs) are its own copies,
+and synth.py holds the synthetic NYTimes-shape corpus of chip_smoke.py.
 
 Public surface:
     GpuConfig, HyperParams, TrainConfig  — configuration (config.py)
     InferConfig                          — inference configuration
-    Corpus                               — host ingest (isle_tpu.corpus)
+    Corpus                               — host ingest (corpus.py)
     Trainer                              — in-core training (trainer.py)
     Inferencer                           — MWU inference (inferencer.py)
 
@@ -26,9 +26,9 @@ projections and Lloyd's steps need full float32.
 """
 
 import torch
-from isle_tpu.corpus import Corpus
 
-from .config import GpuConfig, HyperParams, TrainConfig
+from .config import GpuConfig, HyperParams, InferConfig, TrainConfig
+from .corpus import Corpus
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -46,8 +46,4 @@ def __getattr__(name):
         from .inferencer import Inferencer
 
         return Inferencer
-    if name == "InferConfig":
-        from .config import InferConfig
-
-        return InferConfig
     raise AttributeError(name)

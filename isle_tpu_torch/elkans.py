@@ -24,7 +24,8 @@ from typing import Tuple
 import torch
 
 from .kmeans import update_centers_full
-from .sparse import DEFAULT_CHUNK, DocSparse, bt_x, doc_l2sq, gather_segsum
+from .segsum import segsum_gather_rows
+from .sparse import DEFAULT_CHUNK, DocSparse, bt_x, doc_l2sq
 
 
 def _dists(dots: torch.Tensor, docs_l2: torch.Tensor,
@@ -41,9 +42,11 @@ def _flagged_dists(sp: DocSparse, flagged: torch.Tensor,
     ids = torch.nonzero(flagged)[:, 0]
     rank = torch.cumsum(flagged.to(torch.int64), 0) - 1
     ent = flagged[sp.d_doc]
-    seg = rank[sp.d_doc[ent]]  # non-decreasing: the stream is doc-sorted
-    dots = gather_segsum(sp.d_word[ent], seg, sp.d_val[ent],
-                          centers.T.contiguous(), ids.numel(), chunk)
+    # non-decreasing: the stream is doc-sorted
+    seg = rank[sp.d_doc[ent]].to(torch.int32)
+    m = ids.numel()
+    dots = segsum_gather_rows(seg, sp.d_word[ent], sp.d_val[ent],
+                              centers.T.contiguous(), m, chunk=chunk)[:m]
     return ids, _dists(dots, docs_l2[ids], centers)
 
 

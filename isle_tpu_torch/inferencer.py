@@ -13,13 +13,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from isle_tpu import io_text
-from isle_tpu.config import InferConfig
-from isle_tpu.corpus import Corpus
-from isle_tpu.obs import Logger, Timer
-
-from .config import GpuConfig
+from . import io_text
+from .config import GpuConfig, InferConfig
+from .corpus import Corpus
 from .mwu import build_infer_batch, infer_all
+from .obs import Logger, Timer
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ Two wrappers, each over one hand-written CUDA kernel (csrc/segsum.cu):
       entries with seg == s and col == c; col outside [0, ncols) adds
       nothing. Exact int32 counts without `val`, float32 sums with it.
   segsum_gather_rows(seg, idx, val, table, S)  out[s, :] += val *
-      table[idx, :]; idx outside [0, len(table)) adds nothing.
+      table[idx, :]; idx outside [0, len(table)) adds nothing. The port's
+      SpMM (sparse.bt_x, sparse.b_y) runs on it.
 
 Both return (S + 1) rows with the spill row last, the shape of the JAX
 wrappers; entries whose segment lies outside [0, S] add nothing. The
@@ -26,8 +27,8 @@ from typing import Optional
 
 import torch
 
-DEFAULT_CHUNK = 2048
-MAX_GATHER_CHUNK = 4096  # (seg, idx, val) of a chunk in 48 KB of shared memory
+DEFAULT_CHUNK = 2048  # entries per CUDA block (onehot) or slice (rows)
+MAX_CHUNK = 1 << 20
 PLAIN_CHUNK = 1 << 21  # entries per step of segsum_gather_rows_plain
 
 
@@ -129,7 +130,7 @@ def segsum_onehot(
         return segsum_onehot_plain(seg, col, val, num_segments, ncols, init)
     if dev.type != "cuda":
         raise ValueError(f"segsum_onehot runs on cpu or cuda, not {dev}")
-    _check_chunk(chunk, 1 << 20)
+    _check_chunk(chunk, MAX_CHUNK)
     from ._build import kernels
 
     lib = kernels().lib
@@ -194,7 +195,9 @@ def segsum_gather_rows(
 ) -> torch.Tensor:
     """(num_segments + 1, W): out[s, :] += val[e] * table[idx[e], :] over
     entries with seg[e] == s. `seg` must be sorted (not checked here).
-    int32 seg/idx; float32 val and (rows, W) table."""
+    int32 seg/idx; float32 val and (rows, W) table. On the card the sums
+    are taken in a fixed order (no atomics): `chunk` entries per slice,
+    slices in stream order, so equal inputs give bit-equal outputs."""
     n, dev = seg.numel(), seg.device
     _check_1d("seg", seg, torch.int32, n, dev)
     _check_1d("idx", idx, torch.int32, n, dev)
@@ -207,25 +210,31 @@ def segsum_gather_rows(
         )
     if num_segments < 0:
         raise ValueError(f"bad num_segments={num_segments}")
-    shape = (num_segments + 1, table.shape[1])
+    W = table.shape[1]
+    shape = (num_segments + 1, W)
     _check_init(init, shape, torch.float32, dev)
     if dev.type == "cpu":
         return segsum_gather_rows_plain(seg, idx, val, table, num_segments,
                                         init)
     if dev.type != "cuda":
         raise ValueError(f"segsum_gather_rows runs on cpu or cuda, not {dev}")
-    _check_chunk(chunk, MAX_GATHER_CHUNK)
+    _check_chunk(chunk, MAX_CHUNK)
     from ._build import kernels
 
     lib = kernels().lib
     out = _out(init, shape, torch.float32, dev)
-    if n == 0 or shape[1] == 0:
+    if n == 0 or W == 0:
         return out
+    # the partial sums of the runs that cross a slice edge (csrc/segsum.cu)
+    slices = -(-n // chunk)
+    carry = torch.empty((slices, 2, W), dtype=torch.float32, device=dev)
+    carry_seg = torch.empty((slices, 2), dtype=torch.int32, device=dev)
     device, stream = _launch_args(seg)
     rc = lib.isle_segsum_gather_rows_f32(
         seg.data_ptr(), idx.data_ptr(), val.data_ptr(), table.data_ptr(), n,
-        table.shape[0], table.shape[1], num_segments, chunk, out.data_ptr(),
-        device, stream,
+        table.shape[0], W, num_segments, chunk, int(init is not None),
+        out.data_ptr(), carry.data_ptr(), carry_seg.data_ptr(), device,
+        stream,
     )
     segsum_gather_rows.launches += 1
     _raise_on_error("segsum_gather_rows", rc)
@@ -233,14 +242,6 @@ def segsum_gather_rows(
 
 
 segsum_gather_rows.launches = 0
-
-
-def b_y_seg(sp, Y: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """B Y (vocab, W) through segsum_gather_rows on the word-sorted stream:
-    the counterpart of isle_tpu.pallas_ops.b_y_plan."""
-    return segsum_gather_rows(
-        sp.w_word, sp.w_doc, sp.w_val, Y.contiguous(), sp.vocab, chunk=chunk
-    )[: sp.vocab]
 
 
 def reset_launch_counts() -> None:

@@ -6,12 +6,15 @@ by (doc, word) (the CSC order), w_* sorted by (word, doc) (the CSR order).
 Unlike isle_tpu.sparse.DocSparse there is no padding to a static length:
 every array is exactly nnz long, int32 indices and float32 values.
 
-The SpMM directions are a row gather and a scatter-add by segment,
-streamed `chunk` entries at a time so the gathered (chunk, width)
-intermediate stays bounded:
+The two SpMM directions are one function, segsum.segsum_gather_rows
+(a hand-written kernel on the card, its plain version on the CPU), over
+one of the two sorted streams:
 
     B^T X : out[d, :] += val * X[word, :]   over the doc-sorted stream
     B  Y  : out[w, :] += val * Y[doc, :]    over the word-sorted stream
+
+`chunk` is the kernel's slice length (entries per slice); the CPU path
+ignores it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-DEFAULT_CHUNK = 1 << 21
+from .segsum import DEFAULT_CHUNK, segsum_gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +48,7 @@ class DocSparse:
 
     @staticmethod
     def from_corpus(corpus, device) -> "DocSparse":
-        """From an isle_tpu.corpus.Corpus, whose CSC arrays are doc-sorted;
+        """From a corpus.Corpus, whose CSC arrays are doc-sorted;
         the word-sorted copy is made on the device by one sort of
         word * (D + 1) + doc."""
         D = corpus.num_docs
@@ -79,25 +82,16 @@ class DocSparse:
         )
 
 
-def gather_segsum(gather_idx, seg_idx, vals, X, num_segments, chunk):
-    out = torch.zeros((num_segments, X.shape[1]), dtype=X.dtype,
-                      device=X.device)
-    for a in range(0, gather_idx.numel(), chunk):
-        rows = X.index_select(0, gather_idx[a:a + chunk])
-        rows *= vals[a:a + chunk, None]
-        out.index_add_(0, seg_idx[a:a + chunk], rows)
-    return out
-
-
 def bt_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):
     """B^T X: (num_docs, width) from X (vocab, width)."""
-    return gather_segsum(sp.d_word, sp.d_doc, sp.d_val, X, sp.num_docs,
-                          chunk)
+    return segsum_gather_rows(sp.d_doc, sp.d_word, sp.d_val, X.contiguous(),
+                              sp.num_docs, chunk=chunk)[:sp.num_docs]
 
 
 def b_y(sp: DocSparse, Y: torch.Tensor, chunk: int = DEFAULT_CHUNK):
     """B Y: (vocab, width) from Y (num_docs, width)."""
-    return gather_segsum(sp.w_doc, sp.w_word, sp.w_val, Y, sp.vocab, chunk)
+    return segsum_gather_rows(sp.w_word, sp.w_doc, sp.w_val, Y.contiguous(),
+                              sp.vocab, chunk=chunk)[:sp.vocab]
 
 
 def gram_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):

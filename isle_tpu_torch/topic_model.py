@@ -9,7 +9,7 @@ src/trainer.cpp:1118-1168).
   3. per-topic threshold: the rank_threshold-th largest mass (0 when fewer
      docs qualify or the topic has no catchwords);
   4. Model = B W with W[d, t] = (mass[d, t] > thr[t]) + (cluster[d] == t),
-     through segsum_gather_rows over the word-sorted stream (b_y_seg);
+     through segsum_gather_rows over the word-sorted stream (sparse.b_y);
   5. l1 normalization per topic.
 """
 
@@ -20,8 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .segsum import DEFAULT_CHUNK, b_y_seg, segsum_onehot
-from .sparse import DocSparse
+from .segsum import DEFAULT_CHUNK, segsum_onehot
+from .sparse import DocSparse, b_y
 
 
 def doc_topic_mass(A: DocSparse, cw_topic: torch.Tensor, num_topics: int,
@@ -88,7 +88,7 @@ def construct_topic_model(
     pairs = top_two_topics(mass) if want_top_pairs else None
     W = _contribution_weights(mass, thr, cluster_of_doc)
     del mass
-    model = b_y_seg(A, W, seg_chunk)
+    model = b_y(A, W, seg_chunk)
     sums = torch.sum(model, dim=0)
     model = torch.where(sums[None, :] != 0.0, model / sums[None, :], model)
     return model, pairs

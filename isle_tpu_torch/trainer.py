@@ -24,19 +24,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from isle_tpu import io_text, native
-from isle_tpu.config import TrainConfig
-from isle_tpu.corpus import Corpus, EntryFeeder, read_vocab_file
-from isle_tpu.diagnostics import topic_coherence, topic_diversity
-from isle_tpu.obs import Logger, OpCounter, Timer
-
+from . import io_text, native
 from .bmatrix import threshold_and_copy
 from .catchwords import catchword_topic_map, find_catchwords, rth_highest
-from .config import GpuConfig
+from .config import GpuConfig, TrainConfig
+from .corpus import Corpus, EntryFeeder, read_vocab_file
+from .diagnostics import topic_coherence, topic_diversity
 from .elkans import run_elkans
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
 from .linalg import block_ks, dense_topk_eigh
+from .obs import Logger, OpCounter, Timer
 from .rng import Draws
 from .sparse import DocSparse, b_y, bt_x, frobenius_sq, gram_x, \
     spmm_flops, to_dense
@@ -194,7 +192,8 @@ class Trainer:
         self.timer.next("finalize data")
 
     def load_corpus(self, corpus: Corpus) -> None:
-        """Train on an already assembled isle_tpu.corpus.Corpus."""
+        """Train on an already assembled corpus.Corpus (or any object with
+        its arrays, isle_tpu.corpus.Corpus among them)."""
         self.corpus = corpus
         self.A = None
         self._post_ingest()
@@ -238,7 +237,7 @@ class Trainer:
         k = cfg.num_topics
         V = self.corpus.vocab_size
         D = self.corpus.num_docs
-        chunk, seg_chunk = self.gpu.spmm_chunk, self.gpu.seg_chunk
+        chunk = self.gpu.seg_chunk
 
         ck = self._load_checkpoints() if resume else {}
         if self._restore_model_checkpoint(ck):
@@ -256,7 +255,7 @@ class Trainer:
         else:
             zetas, new_nnz = compute_thresholds(
                 A, self.corpus.avg_doc_sz, self.corpus.nz_docs, k, hp,
-                seg_chunk,
+                chunk,
             )
             self.logger.info(f"Entries above threshold: {new_nnz}")
             self._mark("computing thresholds")
@@ -330,9 +329,10 @@ class Trainer:
                              zetas=zetas.cpu().numpy(),
                              original_cols=original_cols)
 
-        # 6. projected docs P = U^T B (k x D_B). bt_x already streams B in
-        # chunks, so use_explicit_projected_matrix=False (isle_tpu's
-        # doc-blockwise product) is the same product here.
+        # 6. projected docs P = U^T B (k x D_B). bt_x already streams B
+        # without a (docs, width) intermediate, so
+        # use_explicit_projected_matrix=False (isle_tpu's doc-blockwise
+        # product) is the same product here.
         P = bt_x(B, U, chunk).T
         self._mark("project docs")
 

@@ -7,7 +7,9 @@ conftest:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Counts must be exactly equal; float32 sums within rtol 1e-5, atol 1e-6
-(atomics add in another order on every run)."""
+(the onehot kernel's atomics add in another order on every run; the gather
+kernel sums in a fixed order of its own, other than the plain version's).
+"""
 
 import numpy as np
 import pytest
@@ -50,7 +52,7 @@ def test_segsum_onehot_matches_plain(dev, with_val, chunk):
 
 
 @pytest.mark.parametrize("chunk", [256, 2048, 4096])
-@pytest.mark.parametrize("W", [5, 100, 300])
+@pytest.mark.parametrize("W", [1, 5, 100, 128, 300])
 def test_segsum_gather_rows_matches_plain(dev, W, chunk):
     seg, idx, val, table, S = gather_case(8, W=W)
     args = _cuda(dev, seg, idx, val, table)
@@ -64,8 +66,10 @@ def test_segsum_gather_rows_matches_plain(dev, W, chunk):
 
 @pytest.mark.parametrize("layout", ["one_run", "all_distinct", "spill_only"])
 def test_extreme_streams(dev, layout):
-    """One run across every chunk edge (only atomics at both ends), a new
-    segment at every entry, and a stream that is all spill row."""
+    """One run across every chunk edge (the gather kernel's carries at
+    both ends of every slice), a new segment at every entry, and a stream
+    that is all spill row; a tenth of the gather indices lie outside the
+    table."""
     n, S, k, W = 5000, 6000, 3, 40
     rng = np.random.default_rng(1)
     seg = {"one_run": np.full(n, 17), "all_distinct": np.arange(n),
@@ -73,7 +77,7 @@ def test_extreme_streams(dev, layout):
     col = rng.integers(0, k, n).astype(np.int32)
     val = rng.random(n).astype(np.float32)
     table = rng.random((50, W)).astype(np.float32)
-    idx = rng.integers(0, 50, n).astype(np.int32)
+    idx = rng.integers(-3, 53, n).astype(np.int32)
     s, c, v, i, tb = _cuda(dev, seg, col, val, idx, table)
     for with_val in (False, True):
         vv = v if with_val else None
@@ -96,10 +100,104 @@ def test_init_carry_and_checks(dev):
         segsum.segsum_onehot(s, c.cpu(), v, S, k)
     seg, idx, val, table, S = gather_case(4)
     s, i, v, tb = _cuda(dev, seg, idx, val, table)
+    init = torch.full((S + 1, tb.shape[1]), -1.5, device=dev)
+    got = segsum.segsum_gather_rows(s, i, v, tb, S, init=init)
+    torch.testing.assert_close(
+        got, segsum.segsum_gather_rows_plain(s, i, v, tb, S, init=init))
+    assert torch.all(init == -1.5)
     with pytest.raises(ValueError, match="chunk"):
-        segsum.segsum_gather_rows(s, i, v, tb, S, chunk=8192)
+        segsum.segsum_gather_rows(s, i, v, tb, S, chunk=0)
     with pytest.raises(ValueError, match="table"):
         segsum.segsum_gather_rows(s, i, v, tb.cpu(), S)
+
+
+def _zipf_stream(n, S, rows, seed):
+    """A sorted stream whose head segment holds 40% of the entries (a Zipf
+    head word), the rest Zipf-spread over S segments."""
+    rng = np.random.default_rng(seed)
+    seg = np.minimum((np.exp(rng.random(n) * np.log(S)) - 1).astype(
+        np.int64), S - 1)
+    seg[: int(0.4 * n)] = 3
+    seg = np.sort(seg).astype(np.int32)
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    val = (rng.random(n) + 0.5).astype(np.float32)
+    return seg, idx, val
+
+
+def test_gather_rows_run_across_many_slices(dev):
+    """A head segment of 80,000 entries crosses 156 slices of 512: its sum
+    is the carry kernel's, added in slice order."""
+    n, S, rows, W = 200_000, 5_000, 3_000, 100
+    seg, idx, val = _zipf_stream(n, S, rows, 4)
+    table = np.random.default_rng(5).random((rows, W)).astype(np.float32)
+    s, i, v, tb = _cuda(dev, seg, idx, val, table)
+    got = segsum.segsum_gather_rows(s, i, v, tb, S, chunk=512)
+    ref = segsum.segsum_gather_rows_plain(s, i, v.double(), tb.double(), S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("W", [7, 128])
+def test_gather_rows_two_launches_bit_equal(dev, W):
+    """No float atomics: the same input gives the same bits."""
+    seg, idx, val = _zipf_stream(300_000, 20_000, 10_000, 6)
+    table = np.random.default_rng(7).normal(size=(10_000, W)).astype(
+        np.float32)
+    args = _cuda(dev, seg, idx, val, table)
+    a = segsum.segsum_gather_rows(*args, 20_000)
+    b = segsum.segsum_gather_rows(*args, 20_000)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_gather_rows_empty_stream(dev):
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    tb = torch.ones((4, 8), device=dev)
+    before = segsum.segsum_gather_rows.launches
+    got = segsum.segsum_gather_rows(z, z, z.float(), tb, 6)
+    assert segsum.segsum_gather_rows.launches == before
+    assert got.shape == (7, 8) and not got.any()
+    init = torch.full((7, 8), 3.0, device=dev)
+    assert torch.equal(segsum.segsum_gather_rows(z, z, z.float(), tb, 6,
+                                                 init=init), init)
+
+
+def test_spmm_on_the_card_matches_plain(dev):
+    """sparse.bt_x and sparse.b_y launch the kernel; each element within
+    1e-5 of |B| |X| (the plain version on absolute values, in float64) of
+    the plain version, since a Krylov block has mixed signs."""
+    from isle_tpu_torch import sparse
+
+    rng = np.random.default_rng(8)
+    V, D, nnz = 3_000, 4_000, 150_000
+    key = np.unique(rng.integers(0, D, nnz) * V
+                    + np.minimum((np.exp(rng.random(nnz) * np.log(V)) - 1)
+                                 .astype(np.int64), V - 1))
+    d, w = key // V, key % V
+    dv = (rng.random(key.size) * 3).astype(np.float32)
+    order = np.lexsort((d, w))
+    sp = sparse.DocSparse(
+        *(torch.from_numpy(a).to(dev) for a in (
+            w.astype(np.int32), d.astype(np.int32), dv,
+            w[order].astype(np.int32), d[order].astype(np.int32),
+            dv[order])), vocab=V, num_docs=D)
+    X = torch.from_numpy(rng.normal(size=(V, 128)).astype(np.float32)).to(dev)
+    Y = torch.from_numpy(rng.normal(size=(D, 100)).astype(np.float32)).to(dev)
+    cases = (
+        (sparse.bt_x, X, (sp.d_doc, sp.d_word, sp.d_val), D),
+        (sparse.b_y, Y, (sp.w_word, sp.w_doc, sp.w_val), V),
+    )
+    for fn, T, (s, i, v), S in cases:
+        before = segsum.segsum_gather_rows.launches
+        got = fn(sp, T)
+        assert segsum.segsum_gather_rows.launches == before + 1
+        ref = segsum.segsum_gather_rows_plain(s, i, v.double(), T.double(),
+                                              S)[:S]
+        bound = segsum.segsum_gather_rows_plain(
+            s, i, v.double().abs(), T.double().abs(), S)[:S]
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        assert bool(((got.double() - ref).abs() <= 1e-5 * bound).all())
 
 
 def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):

@@ -105,6 +105,32 @@ def test_docsparse_and_spmm(name):
                                float(jsp.frobenius_sq(J)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("width", [1, 100, 128])
+@pytest.mark.parametrize("name", sorted(CORPORA))
+def test_spmm_on_cpu_launches_no_kernel(name, width):
+    """bt_x and b_y on CPU tensors take segsum_gather_rows's plain version
+    (no launch) and equal isle_tpu.sparse.bt_x / b_y, on Krylov-like
+    blocks of mixed sign."""
+    from isle_tpu_torch import segsum
+
+    J, A = _both(CORPORA[name]())
+    rng = np.random.default_rng(width)
+    X = rng.normal(size=(J.vocab, width)).astype(np.float32)
+    Y = rng.normal(size=(J.num_docs, width)).astype(np.float32)
+    segsum.reset_launch_counts()
+    got_x = sparse.bt_x(A, torch.from_numpy(X))
+    got_y = sparse.b_y(A, torch.from_numpy(Y))
+    assert segsum.launch_counts() == {
+        "segsum_onehot": 0, "segsum_gather_rows": 0,
+    }
+    assert got_x.shape == (J.num_docs, width)
+    assert got_y.shape == (J.vocab, width)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(
+        jsp.bt_x(J, jnp.asarray(X)))[:, :width], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(
+        jsp.b_y(J, jnp.asarray(Y)))[:, :width], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("drop", [False, True])
 @pytest.mark.parametrize("name", sorted(CORPORA))
 def test_thresholds_and_b(name, drop):

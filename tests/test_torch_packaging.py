@@ -1,5 +1,6 @@
 """Packaging of the port: isle_tpu_torch ships with its CUDA sources, adds
-no console script, and none of its sources imports jax."""
+no console script, and neither it nor chip_smoke.py imports jax, the JAX
+package isle_tpu or bench.py."""
 
 import pathlib
 import re
@@ -20,10 +21,15 @@ def test_every_package_dir_has_init():
 
 
 def test_sources_do_not_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|isle_tpu|bench)\b(?!_)",
+                     re.M)
     sources = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in sources:
-        assert not pat.search(f.read_text()), f"{f} imports jax"
+        m = pat.search(f.read_text())
+        assert m is None, f"{f} imports {m.group(2)}"
+    assert pat.search("from isle_tpu.corpus import Corpus")
+    assert pat.search("  import bench")
+    assert not pat.search("from isle_tpu_torch import sparse")
 
 
 def test_pyproject_ships_the_port():
@@ -53,7 +59,63 @@ def test_import_pulls_in_no_jax(module):
         "    m.Inferencer, m.InferConfig, m.Trainer\n"
         "assert not [n for n in sys.modules if n.split('.')[0] == 'jax'], "
         "'jax imported'\n"
+        "assert not [n for n in sys.modules\n"
+        "            if n.split('.')[0] in ('isle_tpu', 'bench')], "
+        "'isle_tpu or bench imported'\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
+
+
+def test_trains_and_infers_with_jax_isle_tpu_and_bench_blocked(tmp_path):
+    """A meta-path finder refuses jax, isle_tpu and bench; the port still
+    builds a corpus, trains it on the CPU with edge topics, writes the
+    model, loads it back and infers the corpus."""
+    code = f"""
+import sys
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "isle_tpu", "bench"):
+            raise ImportError(f"blocked: {{name}}")
+
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(ROOT)!r})
+import os
+import numpy as np
+from isle_tpu_torch import (Corpus, GpuConfig, InferConfig, Inferencer,
+                            TrainConfig, Trainer)
+from isle_tpu_torch.synth import synth_corpus
+
+d, w, c = synth_corpus(60, 120, 1500, seed=3)
+corpus = Corpus.from_entries(d, w, c, vocab_size=60, num_docs=120,
+                             sort_dedup=False)
+cpu = GpuConfig(device="cpu")
+tr = Trainer(TrainConfig(num_topics=3, seed=1, compute_edge_topics=True,
+                         max_edge_topics=4),
+             output_dir={str(tmp_path)!r}, quiet=True, gpu=cpu)
+tr.load_corpus(corpus)
+tr.train()
+tr.train_edge_topics()
+tr.write_model_to_file()
+model_file = os.path.join(tr.run_dir, "M_hat_catch_sparse")
+inf = Inferencer(InferConfig(num_topics=3, vocab_size=60),
+                 model_file=model_file, output_dir={str(tmp_path)!r},
+                 quiet=True, gpu=cpu)
+res = inf.infer_corpus(Corpus.from_entries(d, w, c, vocab_size=60,
+                                           num_docs=120,
+                                           normalize_to_one=True))
+assert res.weights.shape == (120, 3) and np.isfinite(res.weights).all()
+assert res.num_converged > 0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "isle_tpu",
+                                                       "bench")]
+assert not bad, bad
+print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("OK")

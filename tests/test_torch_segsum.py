@@ -55,8 +55,10 @@ def test_segsum_gather_rows_matches_pallas(seed):
 
 
 def test_b_y_seg_matches_b_y_plan():
+    """sparse.b_y (segsum_gather_rows on the word-sorted stream, the
+    port's one B Y) against isle_tpu's Pallas b_y_plan."""
     from isle_tpu.sparse import DocSparse as JaxDocSparse
-    from isle_tpu_torch.sparse import DocSparse
+    from isle_tpu_torch.sparse import DocSparse, b_y
 
     rng = np.random.default_rng(6)
     V, D, W = 45, 130, 5
@@ -76,7 +78,7 @@ def test_b_y_seg_matches_b_y_plan():
                                   jsp.w_word, jsp.w_doc, jsp.w_val)),
         V, D, "cpu",
     )
-    got = segsum.b_y_seg(sp, t(Y)).numpy()
+    got = b_y(sp, t(Y)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
