@@ -20,25 +20,30 @@ stay) and says so on its own line. Phases, in order:
   4. the main path: Trainer.train() + train_edge_topics() at the NYTimes
      shape with the launch counts reset just before and read just after;
      then a second training run of the same corpus and seed: its wall,
-     and whether its catchword count, edge-topic count and model equal
-     the first run's (printed, not required: the onehot kernel's float
-     atomics and Lloyd's near ties remain);
+     and whether its catchword count, edge-topic count, clusters, model
+     and doc-topic mass equal the first run's (printed, not required:
+     Lloyd's near ties meet the projected Lloyd's index_add_ atomics);
   5. kernel against plain version on the main path's streams, each use
      timed with CUDA events beside its bound (bytes: the stream, the
      table and the output once, at 3.35 TB/s; operations at 67 TFLOP/s
      float32) and one PyTorch library call for the same function:
-     segsum_onehot's ζ histogram, r-th group counts and doc-topic mass
-     (library: index_put_ with accumulate=True), counts exactly equal,
-     sums within rtol 1e-5 of the plain version in float64 (atomics
-     reorder float32 sums); segsum_gather_rows's model SpMM B W (width
+     segsum_onehot's ζ histogram, r-th group counts, doc-topic mass and
+     doc norms of B (library: index_put_ with accumulate=True; the doc
+     norms take no column array, and sparse.doc_l2sq is also timed whole
+     beside the index_add_ it replaced), each with the row window of its
+     kernel, counts exactly equal, sums within rtol 1e-5 of the plain
+     version in float64 (the kernel sums float32 in its own fixed order),
+     and two launches bit-equal;
+     segsum_gather_rows's model SpMM B W (width
      100), eigensolver B^T X and B Y (width 128) and Lloyd's B^T C and
      B onehot (width 100) on the thresholded matrix B (library:
      torch.sparse.mm on a CSR copy of the stream, built outside the
      timed window), each element within 1e-5 |B| |X| of the plain
      version in float64 (|B| |X|: the plain version on absolute values;
      Krylov blocks have mixed signs), and two launches bit-equal;
-  6. checks of the result: both kernels launched on the main path,
-     segsum_gather_rows at least twice per eigensolver operator call and
+  6. checks of the result: segsum_onehot launched at least once per
+     use on the main path, segsum_gather_rows at least twice per
+     eigensolver operator call and
      per full-space Lloyd's iteration plus the projection and the model
      SpMM, every model column sums (in float64) to 1 within 1e-5 or is
      all zero, eigenvalues finite and descending, at least one
@@ -87,6 +92,9 @@ TINY = dict(vocab=2_000, docs=3_000, nnz=120_000, k=10, edges=20)
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# kCells of csrc/segsum.cu: the cells of a warp's window of output rows in
+# segsum_onehot (one row of the ζ histogram's 635 columns, 10 of 100)
+ONEHOT_WINDOW_CELLS = 1024
 
 
 def card_line() -> str:
@@ -159,28 +167,31 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def tie_flips(gpu, cpu) -> np.ndarray:
+def tie_flips(gpu, cpu) -> tuple:
     """Docs whose top-two topics differ between the card and the CPU. The
-    card's float atomics sum a doc's catchword masses in another order,
-    so where two topics' masses tie the argmax may pick the other one:
+    card sums a doc's catchword masses in another order than the CPU, so
+    where two topics' masses tie the argmax may pick the other one:
     each such pick must have the mass of the CPU's pick within rtol 1e-5
-    (the CPU's masses). Returns the doc ids."""
+    (the CPU's masses). Returns the doc ids and the largest relative gap
+    between the two picks' masses."""
     from isle_tpu_torch.topic_model import doc_topic_mass
 
     g, c = gpu.top_pairs, cpu.top_pairs
     assert np.array_equal(g[2], c[2]), "top-two valid flags differ"
     flip = np.flatnonzero((g[0] != c[0]) | (g[1] != c[1]))
+    gap = 0.0
     if flip.size:
         cwt = np.full(cpu.corpus.vocab_size, -1, np.int32)
         for t, words in enumerate(cpu.catchwords):
             cwt[words] = t
         mass = doc_topic_mass(cpu._device_A(), torch.as_tensor(cwt),
-                              len(cpu.catchwords)).numpy()
+                              len(cpu.catchwords)).numpy().astype(np.float64)
         for got, ref in zip(g[:2], c[:2]):
+            a, b = mass[flip, got[flip]], mass[flip, ref[flip]]
             np.testing.assert_allclose(
-                mass[flip, got[flip]], mass[flip, ref[flip]], rtol=1e-5,
-                err_msg="top-two topics differ beyond a tie")
-    return flip
+                a, b, rtol=1e-5, err_msg="top-two topics differ beyond a tie")
+            gap = max(gap, float((np.abs(a - b) / np.abs(b)).max()))
+    return flip, gap
 
 
 def check_tiny(corpus, seed: int, out: str, label: str = "",
@@ -202,7 +213,7 @@ def check_tiny(corpus, seed: int, out: str, label: str = "",
         f"tiny {label}: clusters differ between the card and the CPU"
     np.testing.assert_allclose(gpu.evalues, cpu.evalues, rtol=1e-4)
     np.testing.assert_allclose(gpu.model, cpu.model, rtol=1e-4, atol=1e-6)
-    flips = tie_flips(gpu, cpu)
+    flips, gap = tie_flips(gpu, cpu)
     hp = cpu.config.hyper
     edge, pairs = construct_edge_topics_v2(
         *gpu.top_pairs, cpu.model, TINY["k"], TINY["edges"],
@@ -213,7 +224,8 @@ def check_tiny(corpus, seed: int, out: str, label: str = "",
     print(f"tiny corpus {TINY}{' ' + label if label else ''}: card == CPU "
           f"(clusters equal, {len(gpu.original_cols)} docs in B, model max "
           f"abs diff {np.abs(gpu.model - cpu.model).max():.3e}, top-two "
-          f"topics flipped on ties in {flips.size} docs)")
+          f"topics flipped on ties in {flips.size} docs, largest relative "
+          f"mass gap {gap:.3e})")
     return gpu
 
 
@@ -342,11 +354,25 @@ def bound(nbytes: int, ops: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def onehot_use(use, seg, col, val, S, nc, launches) -> dict:
-    """segsum_onehot against its plain version and index_put_."""
+def onehot_window(nc: int) -> dict:
+    """The row window segsum_onehot's kernel reduces `nc` columns in:
+    rows of ONEHOT_WINDOW_CELLS cells, column tiles per row."""
+    ct = min(nc, ONEHOT_WINDOW_CELLS)
+    return {"window_rows": ONEHOT_WINDOW_CELLS // ct,
+            "column_tiles": -(-nc // ct)}
+
+
+def onehot_use(use, seg, col, val, S, nc, launches, whole=None) -> dict:
+    """segsum_onehot against its plain version and index_put_, two
+    launches bit-equal. `whole`: {label: fn} of the caller's function
+    around the kernel and what it replaced, each timed too."""
     from isle_tpu_torch import segsum
 
     got = segsum.segsum_onehot(seg, col, val, S, nc)
+    again = segsum.segsum_onehot(seg, col, val, S, nc)
+    bit_equal = bool(torch.equal(got, again))
+    assert bit_equal, f"{use}: two launches differ"
+    del again
     if val is None:
         ref = segsum.segsum_onehot_plain(seg, col, None, S, nc)
         assert torch.equal(got, ref), f"{use}: counts differ"
@@ -360,8 +386,11 @@ def onehot_use(use, seg, col, val, S, nc, launches) -> dict:
     dtype = got.dtype
     # the library call on the entries the kernel counts, indexed outside
     # the timed window
-    ok = (col >= 0) & (col < nc) & (seg >= 0) & (seg <= S)
-    si, ci = seg[ok].long(), col[ok].long()
+    ok = (seg >= 0) & (seg <= S)
+    if col is not None:
+        ok &= (col >= 0) & (col < nc)
+    si = seg[ok].long()
+    ci = torch.zeros_like(si) if col is None else col[ok].long()
     vi = (torch.ones(si.numel(), dtype=dtype, device=seg.device)
           if val is None else val[ok])
 
@@ -371,10 +400,14 @@ def onehot_use(use, seg, col, val, S, nc, launches) -> dict:
                                                          accumulate=True)
 
     lib_err = float((library().double() - ref.double()).abs().max())
-    nbytes = n * (8 if val is None else 12) + got.numel() * 4
+    # seg, col and val where given, read once; the output written once
+    per_entry = 4 + (col is not None) * 4 + (val is not None) * 4
+    nbytes = n * per_entry + got.numel() * 4
     bound_ms, bound_by = bound(nbytes, n)
     return dict(
         use=use, n=n, shape=[S + 1, nc], launches=launches, max_abs_err=err,
+        bit_equal=bit_equal, window=onehot_window(nc),
+        whole_ms={label: time_ms(fn) for label, fn in (whole or {}).items()},
         ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
         plain_ms=time_ms(lambda: segsum.segsum_onehot_plain(
             seg, col, val, S, nc)),
@@ -443,53 +476,88 @@ def lloyds_reps(tr) -> int:
     return reps[-1]
 
 
-def compare_kernels(tr, launches: dict, seed: int) -> dict:
-    """Each kernel against its plain version, at the main path's shapes on
-    its own streams: A's for the three onehot uses and the model SpMM,
-    the thresholded B's for the SpMM of the eigensolver and of Lloyd's."""
-    from isle_tpu_torch import bmatrix, segsum, sparse, thresholds, \
-        topic_model
+def catchword_topics(tr) -> torch.Tensor:
+    """(vocab,) int32 on the run's device: each catchword's topic, -1 for
+    the other words."""
+    cwt = torch.full((tr.A.vocab,), -1, dtype=torch.int32)
+    for t, cw in enumerate(tr.catchwords):
+        cwt[torch.as_tensor(cw, dtype=torch.long)] = t
+    return cwt.to(tr.A.device)
+
+
+def onehot_streams(tr) -> tuple:
+    """The main path's segsum_onehot uses of a trained run, as (use, seg,
+    col, val, S, ncols, launches on the main path), and the thresholded
+    matrix B: the ζ histogram, the r-th group counts and the doc-topic
+    mass on A's streams, the doc norms (sparse.doc_l2sq) on B's."""
+    from isle_tpu_torch import bmatrix, thresholds
 
     A = tr.A
     hp, k = tr.config.hyper, tr.config.num_topics
     V, D = A.vocab, A.num_docs
-    dev = A.device
     for name, s in (("w_word", A.w_word), ("d_doc", A.d_doc)):
         assert bool(torch.all(s[1:] >= s[:-1])), f"{name} is not sorted"
-    cluster = torch.as_tensor(tr.cluster_of_doc).to(dev)
-    cwt = torch.full((V,), -1, dtype=torch.int32)
-    for t, cw in enumerate(tr.catchwords):
-        cwt[torch.as_tensor(cw, dtype=torch.long)] = t
-    cwt = cwt.to(dev)
+    cluster = torch.as_tensor(tr.cluster_of_doc).to(A.device)
+    cwt = catchword_topics(tr)
     F = thresholds.freq_bound(tr.corpus.avg_doc_sz)
-    mass = topic_model.doc_topic_mass(A, cwt, k)
-    has_cw = torch.bincount(cwt[cwt >= 0].long(), minlength=k) > 0
-    thr = topic_model.model_thresholds(mass, has_cw,
-                                       hp.model_rank_threshold(D, k))
-    Wc = topic_model._contribution_weights(mass, thr, cluster)
-
-    uses = {"segsum_onehot": [], "segsum_gather_rows": []}
-    for use, seg, col, val, S, nc in (
-        ("zeta histogram", A.w_word, thresholds.hist_cols(A.w_val, F), None,
-         V, F + 1),
-        ("r-th group counts", A.w_word, cluster[A.w_doc], None, V, k),
-        ("doc-topic mass", A.d_doc, cwt[A.d_word], A.d_val, D, k),
-    ):
-        uses["segsum_onehot"].append(
-            onehot_use(use, seg, col, val, S, nc, launches=1))
 
     # B as the main path built it (no sampling: the same thresholds)
     zetas, _ = thresholds.compute_thresholds(
         A, tr.corpus.avg_doc_sz, tr.corpus.nz_docs, k, hp)
     B, cols = bmatrix.threshold_and_copy(A, zetas)
     assert np.array_equal(cols, tr.original_cols), "B differs from the run's"
+    return (
+        ("zeta histogram", A.w_word, thresholds.hist_cols(A.w_val, F), None,
+         V, F + 1, 1),
+        ("r-th group counts", A.w_word, cluster[A.w_doc], None, V, k, 1),
+        ("doc-topic mass", A.d_doc, cwt[A.d_word], A.d_val, D, k, 1),
+        # sparse.doc_l2sq: Frob(B) and the full-space Lloyd's
+        ("doc norms of B", B.d_doc, None, B.d_val * B.d_val, B.num_docs, 1,
+         2),
+    ), B
+
+
+def compare_kernels(tr, launches: dict, seed: int) -> dict:
+    """Each kernel against its plain version, at the main path's shapes on
+    its own streams: A's for the three onehot uses and the model SpMM,
+    the thresholded B's for the doc norms and the SpMM of the eigensolver
+    and of Lloyd's."""
+    from isle_tpu_torch import sparse, topic_model
+
+    A = tr.A
+    hp, k = tr.config.hyper, tr.config.num_topics
+    V, D = A.vocab, A.num_docs
+    dev = A.device
+    cluster = torch.as_tensor(tr.cluster_of_doc).to(dev)
+    cwt = catchword_topics(tr)
+    mass = topic_model.doc_topic_mass(A, cwt, k)
+    has_cw = torch.bincount(cwt[cwt >= 0].long(), minlength=k) > 0
+    thr = topic_model.model_thresholds(mass, has_cw,
+                                       hp.model_rank_threshold(D, k))
+    Wc = topic_model._contribution_weights(mass, thr, cluster)
+    del mass
+    streams, B = onehot_streams(tr)
+
+    def index_add_l2sq():  # sparse.doc_l2sq before it ran on the kernel
+        return torch.zeros(B.num_docs, device=dev).index_add_(
+            0, B.d_doc, B.d_val * B.d_val)
+
+    whole = {"doc norms of B": {
+        "sparse.doc_l2sq": lambda: sparse.doc_l2sq(B),
+        "index_add_ (before)": index_add_l2sq}}
+    uses = {"segsum_onehot": [], "segsum_gather_rows": []}
+    for use, seg, col, val, S, nc, n_launch in streams:
+        uses["segsum_onehot"].append(
+            onehot_use(use, seg, col, val, S, nc, n_launch, whole.get(use)))
+    del streams
     calls, reps = tr.op_counter.calls, lloyds_reps(tr)
     blk = hp.block_ks_block_size
     g = torch.Generator().manual_seed(seed)
     X = torch.randn((V, blk), generator=g).to(dev)  # a Krylov block
     Y = sparse.bt_x(B, X)
     centers = torch.as_tensor(tr.centers).T.contiguous().to(dev)
-    assign = torch.as_tensor(tr.cluster_of_doc[cols]).long().to(dev)
+    assign = torch.as_tensor(tr.cluster_of_doc[tr.original_cols]).long().to(
+        dev)
     onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
     d_stream = (B.d_doc, B.d_word, B.d_val)
     w_stream = (B.w_word, B.w_doc, B.w_val)
@@ -506,6 +574,14 @@ def compare_kernels(tr, launches: dict, seed: int) -> dict:
     return uses
 
 
+def run_mass(tr) -> torch.Tensor:
+    """The doc-topic mass of a run (segsum_onehot on the card), from its
+    catchwords."""
+    from isle_tpu_torch.topic_model import doc_topic_mass
+
+    return doc_topic_mass(tr.A, catchword_topics(tr), len(tr.catchwords))
+
+
 def train_again(corpus, shape, seed, out, first) -> None:
     """A second training run of the same corpus and seed: its wall, and
     whether its results equal the first run's (printed, not required)."""
@@ -520,6 +596,8 @@ def train_again(corpus, shape, seed, out, first) -> None:
           f"(first {n_cw[0]}), edge topics {n_edge[1]} (first {n_edge[0]}); "
           f"clusters equal: "
           f"{np.array_equal(tr.cluster_of_doc, first.cluster_of_doc)}, "
+          f"doc-topic mass equal: "
+          f"{bool(torch.equal(run_mass(tr), run_mass(first)))}, "
           f"model equal: {np.array_equal(tr.model, first.model)}, edge "
           f"model equal: {np.array_equal(tr.edge_model, first.edge_model)}")
     tr.A = None
@@ -597,11 +675,19 @@ def main() -> int:
                   f"{u['bound_ms']:.3f} ms "
                   f"({u['bound_by']}: {u['bound_bytes']} B), launches on "
                   f"the main path {u['launches']}, max abs err "
-                  f"{u['max_abs_err']:.3e}"
-                  + (f", bit-equal across two launches {u['bit_equal']}"
-                     if "bit_equal" in u else ""))
+                  f"{u['max_abs_err']:.3e}, bit-equal across two launches "
+                  f"{u['bit_equal']}"
+                  + (f", window {u['window']['window_rows']} row(s) x "
+                     f"{u['shape'][1]} columns in "
+                     f"{u['window']['column_tiles']} column tile(s)"
+                     if "window" in u else "")
+                  + "".join(f"; {label} {ms:.3f} ms"
+                            for label, ms in u.get("whole_ms", {}).items()))
 
-    assert launches["segsum_onehot"] > 0, "segsum_onehot not launched"
+    need = sum(u["launches"] for u in uses["segsum_onehot"])
+    assert launches["segsum_onehot"] >= need, \
+        f"segsum_onehot launched {launches['segsum_onehot']} times on the " \
+        f"main path, fewer than its {need} uses"
     # every eigensolver operator call (bt_x + b_y), every full-space
     # Lloyd's iteration (bt_x + b_y), the projection and the model SpMM
     need = sum(u["launches"] for u in uses["segsum_gather_rows"])
@@ -631,8 +717,8 @@ def main() -> int:
     # Lloyd's meets near ties that rounding decides, so the options run
     # where the card projects the docs exactly as the CPU does: the dense
     # eigensolver (U from the host) and PyTorch's deterministic
-    # algorithms (index_add_ without atomics in the projected Lloyd's and
-    # the doc norms). Phase 3 runs the default path as it is.
+    # algorithms (index_add_ without atomics in the projected Lloyd's).
+    # Phase 3 runs the default path as it is.
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for label, opts in OPTIONS.items():

@@ -37,8 +37,10 @@ _I = ctypes.c_int
 # Every pointer and the stream are c_void_p: a bare Python int would be
 # passed as a 32-bit int and cut the address.
 _SIGNATURES = {
-    "isle_segsum_onehot_i32": [_P, _P, _I64, _I, _I, _I, _P, _I, _P],
-    "isle_segsum_onehot_f32": [_P, _P, _P, _I64, _I, _I, _I, _P, _I, _P],
+    "isle_segsum_onehot_i32": [_P, _P, _P, _I64, _I, _I, _I64, _P, _I, _P],
+    "isle_segsum_onehot_f32": [
+        _P, _P, _P, _P, _I64, _I, _I, _I64, _P, _P, _I, _P,
+    ],
     "isle_segsum_gather_rows_f32": [
         _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P, _I, _P,
     ],

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .segsum import segsum_onehot
 from .sparse import DocSparse
 
 
@@ -32,8 +33,10 @@ def sample_select(A: DocSparse, keep_d: torch.Tensor, zetas: torch.Tensor,
     """Importance-sampled doc selection (src/sparseMatrix.cpp:1383-1417).
     Returns a boolean per-doc mask."""
     D = A.num_docs
-    w = torch.zeros(D, dtype=torch.float32, device=A.device).index_add_(
-        0, A.d_doc, torch.where(keep_d, zetas[A.d_word], 0.0))
+    # each doc's weight: a segment sum of its kept entries' ζ (column -1
+    # drops an entry), summed in a fixed order on the card
+    col = torch.where(keep_d, 0, -1).to(torch.int32)
+    w = segsum_onehot(A.d_doc, col, zetas[A.d_word], D, 1)[:D, 0]
     u = uniforms.to(device=A.device, dtype=torch.float32)
     dice = torch.where(w > 0.0, torch.pow(u, 1.0 / torch.clamp(w, min=1e-30)),
                        0.0)

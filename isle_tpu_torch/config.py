@@ -172,9 +172,9 @@ class GpuConfig:
     # Where the tensors live: "cuda" (the card; kernels launch) or "cpu"
     # (plain PyTorch versions, the test path).
     device: str = "cuda"
-    # Entries per CUDA block (segsum_onehot) or per slice
-    # (segsum_gather_rows, and so the SpMM) in the segment-sum kernels of
-    # csrc/segsum.cu.
+    # Entries per slice (one warp's work unit) of the segment-sum kernels
+    # of csrc/segsum.cu: segsum_onehot and segsum_gather_rows, and so the
+    # SpMM.
     seg_chunk: int = 2048
 
     def torch_device(self) -> torch.device:

@@ -69,7 +69,7 @@ def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
     assignment."""
     k = centers.shape[0]
     D = sp.num_docs
-    docs_l2 = doc_l2sq(sp)
+    docs_l2 = doc_l2sq(sp, chunk)
     dist = _dists(bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
     assign = torch.argmin(dist, dim=1)
     ub = dist.amin(dim=1)

@@ -313,7 +313,7 @@ def run_lloyds_full(sp: DocSparse, centers: torch.Tensor, max_reps: int,
     """Lloyd's on B in the full vocab space from centers (k, vocab).
     Returns (centers, assignment int64 (num_docs,))."""
     k = centers.shape[0]
-    docs_l2 = doc_l2sq(sp)
+    docs_l2 = doc_l2sq(sp, chunk)
     assign = torch.full((sp.num_docs,), -1, dtype=torch.int64,
                         device=sp.device)
     reps = 0

@@ -5,7 +5,8 @@ Two wrappers, each over one hand-written CUDA kernel (csrc/segsum.cu):
 
   segsum_onehot(seg, col, val, S, ncols)  out[s, c] += (val or 1) over
       entries with seg == s and col == c; col outside [0, ncols) adds
-      nothing. Exact int32 counts without `val`, float32 sums with it.
+      nothing, col None puts every entry in column 0. Exact int32 counts
+      without `val`, float32 sums with it.
   segsum_gather_rows(seg, idx, val, table, S)  out[s, :] += val *
       table[idx, :]; idx outside [0, len(table)) adds nothing. The port's
       SpMM (sparse.bt_x, sparse.b_y) runs on it.
@@ -14,6 +15,13 @@ Both return (S + 1) rows with the spill row last, the shape of the JAX
 wrappers; entries whose segment lies outside [0, S] add nothing. The
 kernels find run boundaries themselves, so isle_tpu's plan_segments,
 SegPlan and its rank cap have no counterpart here.
+
+On the card both cut the stream into slices of `chunk` entries, one warp
+a slice, and sum floats in an order fixed by the input (no float
+atomics): equal inputs give bit-equal outputs. segsum_onehot reduces each
+slice in a window of whole output rows in shared memory and writes every
+output cell itself (init added), so its output needs no zero-fill;
+csrc/segsum.cu describes both designs.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain PyTorch version beside each wrapper (index_add_ on a flat
@@ -27,7 +35,7 @@ from typing import Optional
 
 import torch
 
-DEFAULT_CHUNK = 2048  # entries per CUDA block (onehot) or slice (rows)
+DEFAULT_CHUNK = 2048  # entries per slice of either kernel
 MAX_CHUNK = 1 << 20
 PLAIN_CHUNK = 1 << 21  # entries per step of segsum_gather_rows_plain
 
@@ -85,19 +93,23 @@ def _out(init, shape, dtype, device) -> torch.Tensor:
 
 def segsum_onehot_plain(
     seg: torch.Tensor,
-    col: torch.Tensor,
+    col: Optional[torch.Tensor],
     val: Optional[torch.Tensor],
     num_segments: int,
     ncols: int,
     init: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of segsum_onehot: one index_add_ on the flat
-    index seg * ncols + col. Sums in val's dtype (int32 counts without
-    val), on any device; needs no sortedness."""
+    index seg * ncols + col (col None: column 0). Sums in val's dtype
+    (int32 counts without val), on any device; needs no sortedness."""
     dtype = torch.int32 if val is None else val.dtype
     out = _out(init, (num_segments + 1, ncols), dtype, seg.device)
-    ok = (col >= 0) & (col < ncols) & (seg >= 0) & (seg <= num_segments)
-    flat = seg[ok].long() * ncols + col[ok].long()
+    ok = (seg >= 0) & (seg <= num_segments)
+    if col is not None:
+        ok &= (col >= 0) & (col < ncols)
+    flat = seg[ok].long() * ncols
+    if col is not None:
+        flat += col[ok].long()
     src = (torch.ones(flat.numel(), dtype=dtype, device=seg.device)
            if val is None else val[ok])
     out.view(-1).index_add_(0, flat, src)
@@ -106,7 +118,7 @@ def segsum_onehot_plain(
 
 def segsum_onehot(
     seg: torch.Tensor,
-    col: torch.Tensor,
+    col: Optional[torch.Tensor],
     val: Optional[torch.Tensor],
     num_segments: int,
     ncols: int,
@@ -114,11 +126,15 @@ def segsum_onehot(
     chunk: int = DEFAULT_CHUNK,
 ) -> torch.Tensor:
     """(num_segments + 1, ncols): out[s, c] += (val or 1) over entries with
-    seg == s and col == c. `seg` must be sorted (not checked here: the
-    check costs a pass over the stream). int32 seg/col; float32 val."""
+    seg == s and col == c; col None puts every entry in column 0 (the
+    kernel then reads no column array). `seg` must be sorted (not checked
+    here: the check costs a pass over the stream). int32 seg/col; float32
+    val. On the card float sums are taken in a fixed order (no atomics):
+    equal inputs give bit-equal outputs."""
     n, dev = seg.numel(), seg.device
     _check_1d("seg", seg, torch.int32, n, dev)
-    _check_1d("col", col, torch.int32, n, dev)
+    if col is not None:
+        _check_1d("col", col, torch.int32, n, dev)
     if val is not None:
         _check_1d("val", val, torch.float32, n, dev)
     if num_segments < 0 or ncols < 1:
@@ -134,19 +150,28 @@ def segsum_onehot(
     from ._build import kernels
 
     lib = kernels().lib
-    out = _out(init, shape, dtype, dev)
     if n == 0:
-        return out
+        return _out(init, shape, dtype, dev)
+    # the kernel writes every cell, init included
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if init is not None:
+        init = init.contiguous()
+    init_ptr = None if init is None else init.data_ptr()
+    col_ptr = None if col is None else col.data_ptr()
     device, stream = _launch_args(seg)
     if val is None:
         rc = lib.isle_segsum_onehot_i32(
-            seg.data_ptr(), col.data_ptr(), n, num_segments, ncols, chunk,
+            seg.data_ptr(), col_ptr, init_ptr, n, num_segments, ncols, chunk,
             out.data_ptr(), device, stream,
         )
     else:
+        # the parts of the runs that cross a slice edge (csrc/segsum.cu)
+        carry = torch.empty((-(-n // chunk), 2, ncols), dtype=torch.float32,
+                            device=dev)
         rc = lib.isle_segsum_onehot_f32(
-            seg.data_ptr(), col.data_ptr(), val.data_ptr(), n, num_segments,
-            ncols, chunk, out.data_ptr(), device, stream,
+            seg.data_ptr(), col_ptr, val.data_ptr(), init_ptr, n,
+            num_segments, ncols, chunk, out.data_ptr(), carry.data_ptr(),
+            device, stream,
         )
     segsum_onehot.launches += 1
     _raise_on_error("segsum_onehot", rc)

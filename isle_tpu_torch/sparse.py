@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .segsum import DEFAULT_CHUNK, segsum_gather_rows
+from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +99,12 @@ def gram_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):
     return b_y(sp, bt_x(sp, X, chunk), chunk)
 
 
-def doc_l2sq(sp: DocSparse) -> torch.Tensor:
-    """Per-document squared l2 norms."""
-    out = torch.zeros(sp.num_docs, dtype=torch.float32, device=sp.device)
-    return out.index_add_(0, sp.d_doc, sp.d_val * sp.d_val)
+def doc_l2sq(sp: DocSparse, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Per-document squared l2 norms: segsum_onehot of val^2 over the
+    doc-sorted stream into one column, so on the card they are bit-equal
+    from run to run."""
+    return segsum_onehot(sp.d_doc, None, sp.d_val * sp.d_val, sp.num_docs, 1,
+                         chunk=chunk)[:sp.num_docs, 0]
 
 
 def frobenius_sq(sp: DocSparse) -> torch.Tensor:

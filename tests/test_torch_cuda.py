@@ -6,9 +6,9 @@ conftest:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Counts must be exactly equal; float32 sums within rtol 1e-5, atol 1e-6
-(the onehot kernel's atomics add in another order on every run; the gather
-kernel sums in a fixed order of its own, other than the plain version's).
+Counts must be exactly equal; float32 sums within rtol 1e-5, atol 1e-6:
+both kernels sum floats in a fixed order of their own (no float atomics,
+so two launches are bit-equal), other than the plain version's.
 """
 
 import numpy as np
@@ -51,6 +51,109 @@ def test_segsum_onehot_matches_plain(dev, with_val, chunk):
     _check_onehot(got, segsum.segsum_onehot_plain(*args, S, k), with_val)
 
 
+def _onehot_stream(n, S, ncols, seed, with_val):
+    """A sorted stream with a head segment of 30% of the entries (across
+    many slices), the rest Zipf-spread over S segments, a tenth of the
+    columns masked (-1) and a few entries outside [0, S] at both ends."""
+    rng = np.random.default_rng(seed)
+    seg = np.minimum((np.exp(rng.random(n) * np.log(S)) - 1).astype(
+        np.int64), S - 1)
+    seg[: int(0.3 * n)] = S // 3
+    seg[:5] = -2
+    seg[-5:] = S + 1
+    seg = np.sort(seg).astype(np.int32)
+    col = rng.integers(0, ncols, n).astype(np.int32)
+    col[rng.random(n) < 0.1] = -1
+    val = (rng.random(n) + 0.5).astype(np.float32) if with_val else None
+    return seg, col, val
+
+
+@pytest.mark.parametrize("with_val", [False, True])
+@pytest.mark.parametrize("ncols", [1, 7, 100, 635, 3000])
+def test_segsum_onehot_every_path(dev, ncols, with_val):
+    """Each window shape of the kernel's 1024-cell row window: many rows
+    (1, 7, 100 columns), one row (the ζ histogram's 635) and column tiles
+    (3000), against the plain version in float64."""
+    S = 4_000
+    seg, col, val = _onehot_stream(60_000, S, ncols, ncols, with_val)
+    s, c, v = _cuda(dev, seg, col, val)
+    got = segsum.segsum_onehot(s, c, v, S, ncols)
+    if with_val:
+        ref = segsum.segsum_onehot_plain(s, c, v.double(), S, ncols)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-6)
+    else:
+        _check_onehot(got, segsum.segsum_onehot_plain(s, c, None, S, ncols),
+                      False)
+
+
+@pytest.mark.parametrize("chunk", [7, 2048])
+@pytest.mark.parametrize("with_val", [False, True])
+def test_segsum_onehot_without_col(dev, with_val, chunk):
+    """col=None (every entry in column 0, no column array read) equals a
+    col of zeros and the plain version; float sums bit-equal across two
+    launches."""
+    S = 4_000
+    seg, _, val = _onehot_stream(60_000, S, 1, 14, with_val)
+    s, v = _cuda(dev, seg, val)
+    zeros = torch.zeros_like(s)
+    got = segsum.segsum_onehot(s, None, v, S, 1, chunk=chunk)
+    _check_onehot(got, segsum.segsum_onehot_plain(s, None, v, S, 1),
+                  with_val)
+    assert torch.equal(got, segsum.segsum_onehot(s, zeros, v, S, 1,
+                                                 chunk=chunk))
+    assert torch.equal(got, segsum.segsum_onehot(s, None, v, S, 1,
+                                                 chunk=chunk))
+
+
+@pytest.mark.parametrize("with_val", [False, True])
+@pytest.mark.parametrize("chunk", [1, 7, 256, 2048, 65536])
+def test_segsum_onehot_any_chunk(dev, chunk, with_val):
+    """Slices of one entry up to one slice for the whole stream."""
+    S, k = 700, 9
+    seg, col, val = _onehot_stream(20_000, S, k, 11, with_val)
+    s, c, v = _cuda(dev, seg, col, val)
+    init = None
+    if with_val:
+        init = torch.full((S + 1, k), 0.25, device=dev)
+    got = segsum.segsum_onehot(s, c, v, S, k, init=init, chunk=chunk)
+    _check_onehot(got, segsum.segsum_onehot_plain(s, c, v, S, k, init=init),
+                  with_val)
+
+
+@pytest.mark.parametrize("ncols", [1, 100])
+def test_segsum_onehot_two_launches_bit_equal(dev, ncols):
+    """No float atomics: the same input gives the same bits, on a head
+    segment that crosses many slices (its parts added by the edge
+    kernel in slice order)."""
+    seg, col, val = _onehot_stream(400_000, 30_000, ncols, 12, True)
+    args = _cuda(dev, seg, col, val)
+    a = segsum.segsum_onehot(*args, 30_000, ncols)
+    b = segsum.segsum_onehot(*args, 30_000, ncols)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_segsum_onehot_empty_and_init(dev):
+    """An empty stream launches nothing and returns zeros or init; init
+    seeds the counts too and is not written in place."""
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = segsum.segsum_onehot.launches
+    assert not segsum.segsum_onehot(z, z, None, 6, 4).any()
+    init = torch.full((7, 4), 3.0, device=dev)
+    assert torch.equal(segsum.segsum_onehot(z, z, z.float(), 6, 4,
+                                            init=init), init)
+    assert segsum.segsum_onehot.launches == before
+    seg, col, _ = _onehot_stream(30_000, 900, 5, 13, False)
+    s, c = _cuda(dev, seg, col)
+    init = torch.randint(0, 50, (901, 5), dtype=torch.int32, device=dev)
+    keep = init.clone()
+    got = segsum.segsum_onehot(s, c, None, 900, 5, init=init, chunk=512)
+    _check_onehot(got, segsum.segsum_onehot_plain(s, c, None, 900, 5,
+                                                  init=init), False)
+    assert torch.equal(init, keep)
+
+
 @pytest.mark.parametrize("chunk", [256, 2048, 4096])
 @pytest.mark.parametrize("W", [1, 5, 100, 128, 300])
 def test_segsum_gather_rows_matches_plain(dev, W, chunk):
@@ -64,16 +167,19 @@ def test_segsum_gather_rows_matches_plain(dev, W, chunk):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("layout", ["one_run", "all_distinct", "spill_only"])
+@pytest.mark.parametrize("layout", ["one_run", "all_distinct", "spill_only",
+                                    "outside"])
 def test_extreme_streams(dev, layout):
-    """One run across every chunk edge (the gather kernel's carries at
-    both ends of every slice), a new segment at every entry, and a stream
-    that is all spill row; a tenth of the gather indices lie outside the
-    table."""
+    """One run across every chunk edge (the kernels' carries at both ends
+    of every slice), a new segment at every entry, a stream that is all
+    spill row, and one whose segments run from below 0 to past the spill
+    row; a tenth of the gather indices lie outside the table."""
     n, S, k, W = 5000, 6000, 3, 40
     rng = np.random.default_rng(1)
     seg = {"one_run": np.full(n, 17), "all_distinct": np.arange(n),
-           "spill_only": np.full(n, S)}[layout].astype(np.int32)
+           "spill_only": np.full(n, S),
+           "outside": np.linspace(-300, S + 300, n).astype(np.int64),
+           }[layout].astype(np.int32)
     col = rng.integers(0, k, n).astype(np.int32)
     val = rng.random(n).astype(np.float32)
     table = rng.random((50, W)).astype(np.float32)
@@ -202,7 +308,12 @@ def test_spmm_on_the_card_matches_plain(dev):
 
 def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
     """The whole slice on the card (both kernels launched) against the same
-    slice on the CPU with the plain versions."""
+    slice on the CPU with the plain versions. Every doc's counts add up to
+    64, the corpus's average, so each normalized value is its count and
+    each catchword mass an integer sum, exact in float32 whatever the
+    order of the sum: the card's masses equal the CPU's bit for bit, two
+    topics that tie tie on both and both take the first (argmax), so the
+    top-two topics and the edge topics must match."""
     from isle_tpu_torch import Corpus, GpuConfig, TrainConfig, Trainer
 
     rng = np.random.default_rng(0)
@@ -212,9 +323,14 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
                  rng.integers(0, V // k, d.size) + (d % k) * (V // k),
                  rng.integers(0, V, d.size))
     key = np.unique(d * V + w)
-    corpus = Corpus.from_entries(key // V, key % V,
-                                 rng.integers(1, 6, key.size),
-                                 vocab_size=V, num_docs=D)
+    d, w = key // V, key % V
+    # one count a word, the rest of the doc's 64 spread over its words
+    per_doc = np.bincount(d, minlength=D)
+    counts = 1 + np.concatenate([rng.multinomial(64 - m, np.full(m, 1 / m))
+                                 for m in per_doc])
+    corpus = Corpus.from_entries(d, w, counts, vocab_size=V, num_docs=D)
+    assert corpus.avg_doc_sz == 64
+    np.testing.assert_array_equal(corpus.vals, counts)
     cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
                       max_edge_topics=8)
     runs = {}
@@ -234,6 +350,9 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_array_equal(g.cluster_of_doc, c.cluster_of_doc)
     np.testing.assert_allclose(g.evalues, c.evalues, rtol=1e-4)
     np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)
+    for a, b in zip(g.top_pairs, c.top_pairs):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(g.edge_pairs, c.edge_pairs)
     np.testing.assert_allclose(g.edge_model, c.edge_model, rtol=1e-4,
                                atol=1e-6)
 

@@ -105,6 +105,17 @@ def test_docsparse_and_spmm(name):
                                float(jsp.frobenius_sq(J)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("which", MATRICES)
+def test_doc_l2sq_matches_jax(which):
+    """doc_l2sq (segsum_onehot into one column) against
+    isle_tpu.sparse.doc_l2sq, on A and on the biting corpus's B, the
+    matrix the main path takes the norms of."""
+    J, A = _matrix(which)
+    np.testing.assert_allclose(sparse.doc_l2sq(A).numpy(),
+                               np.asarray(jsp.doc_l2sq(J)), rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("width", [1, 100, 128])
 @pytest.mark.parametrize("name", sorted(CORPORA))
 def test_spmm_on_cpu_launches_no_kernel(name, width):

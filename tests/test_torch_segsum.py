@@ -3,7 +3,10 @@
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 side runs the Pallas kernels in interpret mode with real plans. Streams
 are sorted, with runs that straddle the 256-entry chunk edges, masked
-columns (-1), out-of-range gather indices and a spill tail. Counts must
+columns (-1), out-of-range gather indices and a spill tail; the onehot
+cases add 635 columns, a head segment across many chunk edges, every
+column masked, segments past the spill row, an init carry and one column
+without a col array (col=None against Pallas's col of zeros). Counts must
 be exactly equal; sums within rtol 1e-5, atol 1e-6 (float32 sums taken in
 another order). tests/test_torch_cuda.py holds the CUDA kernels against
 the plain versions on the card."""
@@ -15,20 +18,28 @@ import torch
 
 from isle_tpu import pallas_ops
 from isle_tpu_torch import segsum
-from torch_cases import CHUNK, gather_case, onehot_case, t
+from torch_cases import CHUNK, ONEHOT_KINDS, gather_case, onehot_case, \
+    onehot_kind_case, t
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+# an int case is onehot_case's mixed stream from that seed
+@pytest.mark.parametrize("case", [0, 1, *ONEHOT_KINDS])
 @pytest.mark.parametrize("with_val", [False, True])
-def test_segsum_onehot_matches_pallas(seed, with_val):
-    seg, col, val, S, k = onehot_case(seed, with_val)
+def test_segsum_onehot_matches_pallas(case, with_val):
+    if isinstance(case, int):
+        seg, col, val, S, k = onehot_case(case, with_val)
+        init = None
+    else:
+        seg, col, val, S, k, init = onehot_kind_case(case, with_val)
     plan = pallas_ops.plan_segments(jnp.asarray(seg), S, chunk=CHUNK)
     assert plan is not None
     ref = np.asarray(pallas_ops.segsum_onehot(
         plan, jnp.asarray(col), None if val is None else jnp.asarray(val),
         S, k, interpret=True,
+        init=None if init is None else jnp.asarray(init),
     ))
-    got = segsum.segsum_onehot(t(seg), t(col), t(val), S, k).numpy()
+    got = segsum.segsum_onehot(t(seg), None if case == "nocol" else t(col),
+                               t(val), S, k, init=t(init)).numpy()
     assert got.shape == ref.shape == (S + 1, k)
     if with_val:
         assert got.dtype == np.float32
@@ -113,6 +124,15 @@ def test_cpu_path_launches_no_kernel():
     segsum.reset_launch_counts()
     seg, col, val, S, k = onehot_case(5, False)
     segsum.segsum_onehot(t(seg), t(col), None, S, k)
+    assert segsum.launch_counts() == {
+        "segsum_onehot": 0, "segsum_gather_rows": 0,
+    }
+
+
+def test_reset_launch_counts_clears_every_wrapper():
+    segsum.segsum_onehot.launches = 3
+    segsum.segsum_gather_rows.launches = 4
+    segsum.reset_launch_counts()
     assert segsum.launch_counts() == {
         "segsum_onehot": 0, "segsum_gather_rows": 0,
     }

@@ -31,6 +31,39 @@ def onehot_case(seed, with_val, n=8 * CHUNK, S=500, k=7):
     return seg, col, val, S, k
 
 
+ONEHOT_KINDS = ["wide", "head", "masked", "beyond", "init", "nocol"]
+
+
+def onehot_kind_case(kind, with_val, n=8 * CHUNK, S=500):
+    """segsum_onehot inputs past onehot_case's mixed stream, one per kind:
+    "wide" (635 columns, the ζ histogram's width), "head" (one segment
+    holds 60% of the entries, across many chunk edges), "masked" (every
+    column -1), "beyond" (a fifth of the entries in segments past the
+    spill row S, which add nothing), "init" (a carried-in output) and
+    "nocol" (one column, every col 0: the port's col=None).
+    Returns (seg, col, val, S, ncols, init)."""
+    rng = np.random.default_rng(10 + ONEHOT_KINDS.index(kind))
+    k = {"wide": 635, "nocol": 1}.get(kind, 7)
+    seg = sorted_stream(rng, n, S, avg_run=20)
+    if kind == "head":
+        seg[rng.random(n) < 0.6] = 123
+        seg = np.sort(seg)
+    if kind == "beyond":
+        past = rng.random(n) < 0.2
+        seg = np.sort(np.where(past, S + 1 + rng.integers(0, 5, n), seg))
+    col = rng.integers(-1, k, n).astype(np.int32)
+    if kind == "masked":
+        col[:] = -1
+    if kind == "nocol":
+        col[:] = 0
+    val = (rng.random(n).astype(np.float32) + 0.5) if with_val else None
+    init = None
+    if kind == "init":
+        init = (rng.random((S + 1, k)).astype(np.float32) if with_val
+                else rng.integers(0, 9, (S + 1, k)).astype(np.int32))
+    return seg.astype(np.int32), col, val, S, k, init
+
+
 def gather_case(seed, n=8 * CHUNK, S=300, rows=90, W=5):
     rng = np.random.default_rng(seed)
     seg = sorted_stream(rng, n, S, avg_run=12)
