@@ -67,9 +67,49 @@ stay) and says so on its own line. Phases, in order:
      Whether the two runs' weights are bit-equal is printed. MWU reaches
      no kernel: the launch counts of this run are printed, not required.
 
-Prints a JSON line of the kernels (per kernel: launches on the main path,
-max error, and the sums over its uses of ms, plain_ms, bound_ms and
-library_ms, each use listed under "uses"), the card's line, and last
+Between 7 and 8, with the in-core corpus off the card:
+
+  S1. streamed training (isle_tpu_torch.streaming.StreamedTrainer) of the
+     same corpus at full width, chunk_entries 2^22 (12 chunks), launch
+     counts reset just before and read just after: ζ, original_cols and
+     B exactly equal to the in-core stages', eigenvalues within rtol 1e-4
+     of phase 4's, model columns sum to 1 within 1e-5; stage walls, train
+     wall, peak device memory, bytes copied to the card and the share of
+     the wall spent waiting for copies. The launch counts are read at
+     the end of every stage (Trainer.stage_launches), and each streamed
+     pass must have launched its kernel exactly once a chunk: the
+     histogram, the mass and the model accumulation, and nothing in the B
+     construction. Then a second StreamedTrainer
+     resumes from phase 4's ckpt_svd.npz and ckpt_kmeans.npz: the same
+     catchwords, the same top-two topics but where a doc's two masses tie
+     (within rtol 1e-5: the chunks shift the kernel's order of summing),
+     the model within rtol 1e-4, atol 1e-6. Then a third trains with
+     document sampling at rate 0.5, the case in which B shrinks to fit
+     the card: the sampling weights launch once a chunk as well, ζ
+     equals the in-core run's, and the sampled docs and B equal the
+     in-core stage's with the same draws (a doc may flip only where its
+     dice ties the pivot within rounding);
+  S2. the streamed uses of both kernels on a middle chunk against their
+     plain versions, as phase 5 does it: the ζ histogram and the model
+     accumulation with the carry of the chunks before as `init`, the
+     doc-topic mass and the sampling weights on the chunk's local doc ids
+     (and the mass once more with a non-zero init); the bound counts the
+     chunk's stream, the chunk's rows of the table and the carry read
+     and written once; the chunk's sort by word is timed beside them.
+     Each use's launches are the counts read from S1's runs;
+  S3. Lanczos: the small corpus with eigensolver="lanczos" card against
+     CPU (as phase 7), and at the NYTimes shape linalg.lanczos on the
+     streamed B against phase 4's block_ks eigenvalues within rtol 1e-3,
+     with restarts, operator calls, wall and the width-1 launches' times;
+  S4. the reports on the small corpus, card against CPU:
+     A_squared_spectrum.txt within rtol 1e-4, M_hat_avg within 1e-5, edge
+     topics v1 within 1e-5 with the same selected pairs.
+
+Prints a JSON line of the kernels (per kernel: launches on the driven
+paths (in-core, the three streamed runs and Lanczos, each also under
+"launches_by_path"), max error, and the sums of ms, plain_ms, bound_ms
+and library_ms over the uses that a driven path launched, every use
+listed under "uses"), the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
 CUDA device it exits with code 2 and prints no result.
 """
@@ -79,9 +119,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -120,6 +162,9 @@ OPTIONS = {
         hyper=dict(use_explicit_projected_matrix=False)),
 }
 MWU_SAMPLE = 2048
+STREAM_CHUNK_ENTRIES = 1 << 22
+STREAM_SAMPLE_RATE = 0.5
+ONEHOT, GATHER = "segsum_onehot", "segsum_gather_rows"
 
 
 def synth_entries(shape: dict, seed: int):
@@ -200,8 +245,8 @@ def check_tiny(corpus, seed: int, out: str, label: str = "",
     options: equal clusters, eigenvalues within rtol 1e-4, models within
     rtol 1e-4, atol 1e-6, top-two topics equal up to ties (tie_flips),
     and edge topics within rtol 1e-4, atol 1e-6 of the CPU's edge
-    construction from the card's top-two topics. Returns the card's
-    trainer."""
+    construction from the card's top-two topics. Returns the card's and
+    the CPU's trainer."""
     from isle_tpu_torch.topic_model import construct_edge_topics_v2
 
     tag = label.replace(" ", "_").replace("=", "_")
@@ -226,7 +271,7 @@ def check_tiny(corpus, seed: int, out: str, label: str = "",
           f"abs diff {np.abs(gpu.model - cpu.model).max():.3e}, top-two "
           f"topics flipped on ties in {flips.size} docs, largest relative "
           f"mass gap {gap:.3e})")
-    return gpu
+    return gpu, cpu
 
 
 def inferencer(model: np.ndarray, device: str, out: str):
@@ -362,23 +407,28 @@ def onehot_window(nc: int) -> dict:
             "column_tiles": -(-nc // ct)}
 
 
-def onehot_use(use, seg, col, val, S, nc, launches, whole=None) -> dict:
+def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
+               init=None, chunk=2048) -> dict:
     """segsum_onehot against its plain version and index_put_, two
     launches bit-equal. `whole`: {label: fn} of the caller's function
-    around the kernel and what it replaced, each timed too."""
+    around the kernel and what it replaced, each timed too. `init`: the
+    carry of a streamed use, read once and written once in the bound."""
     from isle_tpu_torch import segsum
 
-    got = segsum.segsum_onehot(seg, col, val, S, nc)
-    again = segsum.segsum_onehot(seg, col, val, S, nc)
+    got = segsum.segsum_onehot(seg, col, val, S, nc, init=init, chunk=chunk)
+    again = segsum.segsum_onehot(seg, col, val, S, nc, init=init,
+                                 chunk=chunk)
     bit_equal = bool(torch.equal(got, again))
     assert bit_equal, f"{use}: two launches differ"
     del again
     if val is None:
-        ref = segsum.segsum_onehot_plain(seg, col, None, S, nc)
+        ref = segsum.segsum_onehot_plain(seg, col, None, S, nc, init=init)
         assert torch.equal(got, ref), f"{use}: counts differ"
         err = 0.0
     else:
-        ref = segsum.segsum_onehot_plain(seg, col, val.double(), S, nc)
+        ref = segsum.segsum_onehot_plain(
+            seg, col, val.double(), S, nc,
+            init=None if init is None else init.double())
         err = float((got.double() - ref).abs().max())
         assert torch.allclose(got.double(), ref, rtol=1e-5, atol=0), \
             f"{use}: max abs err {err}"
@@ -395,42 +445,52 @@ def onehot_use(use, seg, col, val, S, nc, launches, whole=None) -> dict:
           if val is None else val[ok])
 
     def library():
-        return torch.zeros((S + 1, nc), dtype=dtype,
-                           device=seg.device).index_put_((si, ci), vi,
-                                                         accumulate=True)
+        start = (torch.zeros((S + 1, nc), dtype=dtype, device=seg.device)
+                 if init is None else init.clone())
+        return start.index_put_((si, ci), vi, accumulate=True)
 
     lib_err = float((library().double() - ref.double()).abs().max())
-    # seg, col and val where given, read once; the output written once
+    # seg, col and val where given, read once; the carry read once where
+    # there is one; the output written once
     per_entry = 4 + (col is not None) * 4 + (val is not None) * 4
-    nbytes = n * per_entry + got.numel() * 4
+    nbytes = n * per_entry + got.numel() * 4 * (1 + (init is not None))
     bound_ms, bound_by = bound(nbytes, n)
     return dict(
         use=use, n=n, shape=[S + 1, nc], launches=launches, max_abs_err=err,
         bit_equal=bit_equal, window=onehot_window(nc),
+        with_init=init is not None, slice_len=chunk,
         whole_ms={label: time_ms(fn) for label, fn in (whole or {}).items()},
-        ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
+        ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc,
+                                                init=init, chunk=chunk)),
         plain_ms=time_ms(lambda: segsum.segsum_onehot_plain(
-            seg, col, val, S, nc)),
+            seg, col, val, S, nc, init=init)),
         library_ms=time_ms(library), library_max_abs_err=lib_err,
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
     )
 
 
-def gather_use(use, seg, idx, val, table, S, launches) -> dict:
+def gather_use(use, seg, idx, val, table, S, launches, init=None,
+               chunk=2048) -> dict:
     """segsum_gather_rows against its plain version and torch.sparse.mm:
     each element within 1e-5 |B| |X| of the float64 plain version, two
-    launches bit-equal."""
+    launches bit-equal. `init`: the carry of a streamed use, read once
+    and written once in the bound; `table` holds the rows the stream can
+    index and no others, each counted once."""
     from isle_tpu_torch import segsum
 
-    got = segsum.segsum_gather_rows(seg, idx, val, table, S)
-    again = segsum.segsum_gather_rows(seg, idx, val, table, S)
+    got = segsum.segsum_gather_rows(seg, idx, val, table, S, init=init,
+                                    chunk=chunk)
+    again = segsum.segsum_gather_rows(seg, idx, val, table, S, init=init,
+                                      chunk=chunk)
     bit_equal = bool(torch.equal(got, again))
     assert bit_equal, f"{use}: two launches differ"
     del again
-    ref = segsum.segsum_gather_rows_plain(seg, idx, val.double(),
-                                          table.double(), S)
-    scale = segsum.segsum_gather_rows_plain(seg, idx, val.double().abs(),
-                                            table.double().abs(), S)
+    ref = segsum.segsum_gather_rows_plain(
+        seg, idx, val.double(), table.double(), S,
+        init=None if init is None else init.double())
+    scale = segsum.segsum_gather_rows_plain(
+        seg, idx, val.double().abs(), table.double().abs(), S,
+        init=None if init is None else init.double().abs())
     diff = (got.double() - ref).abs()
     err = float(diff.max())
     worst = float((diff / scale.clamp(min=1e-300)).max())
@@ -448,19 +508,23 @@ def gather_use(use, seg, idx, val, table, S, launches) -> dict:
                                   check_invariants=False)
 
     def library():
-        return torch.sparse.mm(csr, table)
+        out = torch.sparse.mm(csr, table)
+        return out if init is None else out + init[:S]
 
     lib_err = float((library().double() - ref[:S]).abs().max())
     del ref
-    nbytes = n * 12 + table.numel() * 4 + got.numel() * 4
+    nbytes = (n * 12 + table.numel() * 4
+              + got.numel() * 4 * (1 + (init is not None)))
     bound_ms, bound_by = bound(nbytes, 2 * n * W)
     return dict(
         use=use, n=n, shape=[S + 1, W], table=[rows, W], launches=launches,
         max_abs_err=err, err_over_abs_bound=worst, bit_equal=bit_equal,
+        with_init=init is not None, slice_len=chunk,
         ms=time_ms(lambda: segsum.segsum_gather_rows(seg, idx, val, table,
-                                                     S)),
+                                                     S, init=init,
+                                                     chunk=chunk)),
         plain_ms=time_ms(lambda: segsum.segsum_gather_rows_plain(
-            seg, idx, val, table, S)),
+            seg, idx, val, table, S, init=init)),
         library_ms=time_ms(library), library_max_abs_err=lib_err,
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
     )
@@ -476,13 +540,13 @@ def lloyds_reps(tr) -> int:
     return reps[-1]
 
 
-def catchword_topics(tr) -> torch.Tensor:
-    """(vocab,) int32 on the run's device: each catchword's topic, -1 for
-    the other words."""
-    cwt = torch.full((tr.A.vocab,), -1, dtype=torch.int32)
+def catchword_topics(tr, device="cuda") -> torch.Tensor:
+    """(vocab,) int32 on `device`: each catchword's topic in run `tr`, -1
+    for the other words."""
+    cwt = torch.full((tr.corpus.vocab_size,), -1, dtype=torch.int32)
     for t, cw in enumerate(tr.catchwords):
         cwt[torch.as_tensor(cw, dtype=torch.long)] = t
-    return cwt.to(tr.A.device)
+    return cwt.to(device)
 
 
 def onehot_streams(tr) -> tuple:
@@ -603,6 +667,431 @@ def train_again(corpus, shape, seed, out, first) -> None:
     tr.A = None
 
 
+def print_uses(uses: dict, path: str) -> None:
+    for name, rows in uses.items():
+        for u in rows:
+            print(f"  {name} [{u['use']}] n={u['n']} out={u['shape']}: "
+                  f"kernel {u['ms']:.3f} ms, plain {u['plain_ms']:.3f} ms, "
+                  f"library {u['library_ms']:.3f} ms, bound "
+                  f"{u['bound_ms']:.3f} ms "
+                  f"({u['bound_by']}: {u['bound_bytes']} B), launches on "
+                  f"the {path} {u['launches']}, max abs err "
+                  f"{u['max_abs_err']:.3e}, bit-equal across two launches "
+                  f"{u['bit_equal']}"
+                  + (f", window {u['window']['window_rows']} row(s) x "
+                     f"{u['shape'][1]} columns in "
+                     f"{u['window']['column_tiles']} column tile(s)"
+                     if "window" in u else "")
+                  + "".join(f"; {label} {ms:.3f} ms"
+                            for label, ms in u.get("whole_ms", {}).items()))
+
+
+def run_dir_arrays(tr, stage: str) -> dict:
+    with np.load(os.path.join(tr.run_dir, f"ckpt_{stage}.npz")) as z:
+        return dict(z)
+
+
+def streamed_trainer(corpus, shape, seed, out, **cfg_kw):
+    from isle_tpu_torch import GpuConfig, TrainConfig
+    from isle_tpu_torch.streaming import StreamedTrainer
+
+    cfg = TrainConfig(num_topics=shape["k"], seed=seed,
+                      compute_edge_topics=True,
+                      max_edge_topics=shape["edges"], **cfg_kw)
+    st = StreamedTrainer(cfg, output_dir=out, quiet=True,
+                         chunk_entries=STREAM_CHUNK_ENTRIES,
+                         gpu=GpuConfig(device="cuda"))
+    st.load_corpus(corpus)
+    return st
+
+
+def stage_launches(tr) -> dict:
+    """{stage: {kernel: launches within the stage}} of a run whose launch
+    counts were set to 0 just before it."""
+    per, last = {}, {ONEHOT: 0, GATHER: 0}
+    for label, now in tr.stage_launches:
+        per[label] = {name: now[name] - last[name] for name in now}
+        last = now
+    return per
+
+
+def check_streamed_launches(per: dict, chunks: int, label: str) -> None:
+    """Every streamed pass of a run launched its kernel exactly once a
+    chunk (the catchword pass: one launch for the group counts), by the
+    counts read at the end of each stage."""
+    want = {
+        "streamed thresholds": (chunks, 0),  # the ζ histogram
+        "streamed doc sampling": (chunks, 0),  # the doc weights
+        "streamed B construction": (0, 0),
+        "streamed catchwords": (1, 0),  # the r-th group counts
+        # the doc-topic mass and the model accumulation
+        "streamed topic model": (chunks, chunks),
+    }
+    for stage, counts in per.items():
+        if stage in want:
+            assert (counts[ONEHOT], counts[GATHER]) == want[stage], \
+                f"{label}: stage {stage!r} launched {counts}, expected " \
+                f"(onehot, gather) = {want[stage]} with {chunks} chunks"
+    print(f"{label}: launches by stage (segsum_onehot, segsum_gather_rows): "
+          + "; ".join(f"{stage} ({c[ONEHOT]}, {c[GATHER]})"
+                      for stage, c in per.items()))
+
+
+def run_streamed(st) -> tuple:
+    """train() + train_edge_topics() of a streamed trainer with the launch
+    counts set to 0 just before. Returns (wall seconds, (peak device GiB,
+    GiB held on the card before the run), launch counts, launches by
+    stage)."""
+    from isle_tpu_torch import segsum
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    st.train()
+    st.train_edge_topics()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (wall, (torch.cuda.max_memory_allocated() / 2**30, held),
+            segsum.launch_counts(), stage_launches(st))
+
+
+def print_streamed_run(label, st, wall, peak, launches) -> None:
+    loader = st.loader
+    wait_s = loader.copy_wait_ms() / 1e3
+    copied = loader.bytes_copied
+    print(f"{label}: train + edge topics {wall:.2f} s wall in "
+          f"{len(loader.ranges)} chunks of at most {STREAM_CHUNK_ENTRIES} "
+          f"entries, peak device memory {peak[0]:.2f} GiB ({peak[1]:.2f} "
+          f"GiB of it held before the run), kernel launches "
+          f"{launches}; {copied} bytes copied to the card "
+          f"({copied / (8 * loader.corpus.nnz):.2f} passes over the "
+          f"corpus's word ids and values); the stream waited {wait_s:.4f} s "
+          f"for copies ({wait_s / wall:.2%} of the wall), the host "
+          f"{loader.host_wait_seconds:.4f} s for a free staging buffer "
+          f"({loader.host_wait_seconds / wall:.2%})")
+    for stage, w, _ in st.timer.phases:
+        print(f"  {label} stage {stage}: {w:.3f} s")
+
+
+def assert_same_b(B, IB) -> None:
+    assert B.num_docs == IB.num_docs
+    for f in ("d_word", "d_doc", "d_val", "w_word", "w_doc", "w_val"):
+        assert torch.equal(getattr(B, f), getattr(IB, f)), f"streamed B: {f}"
+
+
+def streamed_phase(corpus, shape, seed, out, tr):
+    """Phase S1. Returns the streamed trainer, its launch counts, its
+    launches by stage and B on the card."""
+    from isle_tpu_torch import bmatrix, streaming
+    from isle_tpu_torch.sparse import DocSparse
+
+    st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_s"))
+    wall, peak, launches, per = run_streamed(st)
+    loader = st.loader
+    print_streamed_run("streamed path", st, wall, peak, launches)
+    check_streamed_launches(per, len(loader.ranges), "streamed path")
+    assert "streamed doc sampling" not in per
+    assert per["eigen solve (B B^T)"][GATHER] >= 2 * st.op_counter.calls
+
+    ours, ref = run_dir_arrays(st, "svd"), run_dir_arrays(tr, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"]), "streamed zetas"
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    np.testing.assert_allclose(ours["evalues"], ref["evalues"], rtol=1e-4)
+    sums = st.model.sum(axis=0, dtype=np.float64)
+    zero = ~st.model.any(axis=0)
+    assert np.all(zero | (np.abs(sums - 1.0) <= 1e-5)), sums
+    assert np.isfinite(st.model).all() and np.isfinite(st.edge_model).all()
+    # B: the in-core stage on the whole corpus against the streamed one
+    A = DocSparse.from_corpus(corpus, "cuda")
+    z = torch.from_numpy(ref["zetas"]).cuda()
+    IB, in_cols = bmatrix.threshold_and_copy(A, z)
+    B, cols = streaming.streamed_build_b(corpus, z, None, loader)
+    assert np.array_equal(cols, in_cols)
+    assert_same_b(B, IB)
+    del A, IB
+    n_cw = sum(len(c) for c in st.catchwords)
+    print(f"streamed checks: zetas, original_cols and B ({B.nnz} nnz, "
+          f"{B.num_docs} docs) equal the in-core stages'; eigenvalues max "
+          f"rel diff {np.abs(ours['evalues'] / ref['evalues'] - 1).max():.2e}"
+          f"; {n_cw} catchwords, {st.edge_model.shape[1]} edge topics, "
+          f"{int(zero.sum())} empty topics; clusters equal the in-core "
+          f"run's: {np.array_equal(st.cluster_of_doc, tr.cluster_of_doc)}")
+    return st, launches, per, B
+
+
+def streamed_resume_phase(corpus, shape, seed, out, tr, loader) -> dict:
+    """Phase S1's second part: the finish passes, from the in-core run's
+    svd and kmeans checkpoints, against the in-core run's results.
+    Returns the run's launch counts."""
+    from isle_tpu_torch import segsum, streaming
+
+    st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_r"))
+    for stage in ("svd", "kmeans", "model"):
+        path = os.path.join(st.run_dir, f"ckpt_{stage}.npz")
+        if os.path.exists(path):
+            os.remove(path)
+        if stage != "model":
+            shutil.copy(os.path.join(tr.run_dir, f"ckpt_{stage}.npz"), path)
+    torch.cuda.synchronize()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    st.train(resume=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    per = stage_launches(st)
+    assert set(per) == {"streamed catchwords", "streamed topic model"}, per
+    check_streamed_launches(per, len(st.loader.ranges), "streamed resume")
+    assert np.array_equal(st.cluster_of_doc, tr.cluster_of_doc)
+    for t, (a, b) in enumerate(zip(st.catchwords, tr.catchwords)):
+        assert np.array_equal(a, b), f"resumed run: catchwords of topic {t}"
+    g, c = st.top_pairs, tr.top_pairs
+    assert np.array_equal(g[2], c[2]), "resumed run: top-two valid flags"
+    flip = np.flatnonzero((g[0] != c[0]) | (g[1] != c[1]))
+    if flip.size:  # each must be a tie of the doc's two masses
+        mass = streaming.streamed_doc_topic_mass(
+            corpus, catchword_topics(st), shape["k"],
+            loader).cpu().numpy().astype(np.float64)
+        for got, ref in zip(g[:2], c[:2]):
+            np.testing.assert_allclose(
+                mass[flip, got[flip]], mass[flip, ref[flip]], rtol=1e-5,
+                err_msg="resumed run: top-two topics differ beyond a tie")
+    np.testing.assert_allclose(st.model, tr.model, rtol=1e-4, atol=1e-6)
+    print(f"streamed resume from the in-core run's svd + kmeans "
+          f"checkpoints: {wall:.2f} s wall; catchwords equal, top-two "
+          f"topics equal but {flip.size} docs that flip on a tie, model max "
+          f"abs diff {np.abs(st.model - tr.model).max():.3e}")
+    return launches
+
+
+def streamed_sampling_phase(corpus, shape, seed, out, tr) -> tuple:
+    """Phase S1's third part: a streamed run with document sampling, and
+    its selection and B against the in-core stage's with the same draws.
+    Returns (launch counts, launches by stage)."""
+    from isle_tpu_torch import bmatrix, streaming
+    from isle_tpu_torch.rng import Draws
+    from isle_tpu_torch.sparse import DocSparse
+
+    rate, D = STREAM_SAMPLE_RATE, shape["docs"]
+    st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_ss"),
+                          sample_docs=True, sample_rate=rate)
+    wall, peak, launches, per = run_streamed(st)
+    loader = st.loader
+    print_streamed_run(f"streamed path, sampled at rate {rate}", st, wall,
+                       peak, launches)
+    check_streamed_launches(per, len(loader.ranges), "streamed, sampled")
+    assert "streamed doc sampling" in per
+    sums = st.model.sum(axis=0, dtype=np.float64)
+    zero = ~st.model.any(axis=0)
+    assert np.all(zero | (np.abs(sums - 1.0) <= 1e-5)), sums
+    assert np.isfinite(st.model).all() and np.isfinite(st.edge_model).all()
+    ours, ref = run_dir_arrays(st, "svd"), run_dir_arrays(tr, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"]), "sampled run: zetas"
+    cols = ours["original_cols"]
+
+    # the in-core stage on the whole corpus with the same uniforms
+    A = DocSparse.from_corpus(corpus, "cuda")
+    z = torch.from_numpy(ref["zetas"]).cuda()
+    u = Draws(seed).doc_sample_uniforms(D)
+    IB, in_cols = bmatrix.threshold_and_copy(A, z, sample_rate=rate,
+                                             uniforms=u)
+    w_in = bmatrix.doc_weights(A, torch.floor(A.d_val + 0.5) >= z[A.d_word],
+                               z)
+    del A
+    w_st = streaming.streamed_doc_weights(corpus, z, loader)
+    assert torch.allclose(w_st, w_in, rtol=1e-5, atol=0), "doc weights"
+    flips = np.setxor1d(cols, in_cols)
+    if flips.size:  # only docs whose dice tie the pivot within rounding
+        dice = bmatrix.doc_dice(w_in, u)
+        pivot = torch.sort(dice, descending=True).values[
+            min(int(rate * D), D - 1)]
+        gap = (dice[torch.from_numpy(flips).long().cuda()] - pivot).abs()
+        assert bool((gap <= 2e-7).all()), \
+            f"sampled run: {flips.size} docs differ beyond a tie at the pivot"
+    else:
+        sel = torch.zeros(D, dtype=torch.bool, device="cuda")
+        sel[torch.from_numpy(cols).long().cuda()] = True
+        B, b_cols = streaming.streamed_build_b(corpus, z, sel, loader)
+        assert np.array_equal(b_cols, in_cols)
+        assert_same_b(B, IB)
+    print(f"streamed sampling checks: zetas equal the in-core run's; "
+          f"{len(cols)} of {D} docs kept; doc weights max rel diff to the "
+          f"in-core stage's "
+          f"{float(((w_st - w_in).abs() / w_in.clamp(min=1e-30)).max()):.2e}"
+          f"; docs that flip on a tie at the pivot: {flips.size}"
+          + ("" if flips.size else "; B equals the in-core stage's")
+          + f"; {sum(len(c) for c in st.catchwords)} catchwords, "
+          f"{st.edge_model.shape[1]} edge topics")
+    return launches, per
+
+
+def middle_chunk(tr, corpus, loader) -> SimpleNamespace:
+    """The loader's middle chunk as the streamed stages hand it to the
+    kernels, from run `tr`'s ζ, catchwords and clusters: the doc-ordered
+    chunk (w, v, d, docs [lo, hi)), its word-sorted streams for the
+    histogram (hs, hr) and the model accumulation (ms, md on local doc
+    ids, mv; table: the chunk's rows of the contribution weights), the
+    two carries as they stand before it (hist, model), and the slice
+    length of the word-keyed sums."""
+    from isle_tpu_torch import segsum, streaming, thresholds, topic_model
+
+    hp, k = tr.config.hyper, tr.config.num_topics
+    V, D = corpus.vocab_size, corpus.num_docs
+    F = thresholds.freq_bound(corpus.avg_doc_sz)
+    dev = loader.device
+    mid = len(loader.ranges) // 2
+    cwt = catchword_topics(tr, dev)
+    cluster = torch.from_numpy(tr.cluster_of_doc).to(dev)
+    zetas = torch.from_numpy(run_dir_arrays(tr, "svd")["zetas"]).to(dev)
+    mass = streaming.streamed_doc_topic_mass(corpus, cwt, k, loader)
+    thr = topic_model.model_thresholds(
+        mass, topic_model.has_catchwords(cwt, k),
+        hp.model_rank_threshold(D, k))
+    Wc = topic_model._contribution_weights(mass, thr, cluster)
+    del mass
+    hist = torch.zeros((V + 1, F + 1), dtype=torch.int32, device=dev)
+    model = torch.zeros((V + 1, k), dtype=torch.float32, device=dev)
+    for i, (lo, hi, w, v, d) in enumerate(loader.chunks()):
+        if i == mid:
+            w, v, d = w.clone(), v.clone(), d.clone()
+            break
+        ws, rs = streaming._sort_by_word(w, thresholds.hist_cols(v, F))
+        hist = segsum.segsum_onehot(ws, rs, None, V, F + 1, init=hist)
+        ws, ds, vs = streaming._sort_by_word(w, d - lo, v)
+        model = segsum.segsum_gather_rows(ws, ds, vs, Wc[lo:hi], V,
+                                          init=model)
+    assert bool(hist.any()) and bool(model.any())
+    hs, hr = streaming._sort_by_word(w, thresholds.hist_cols(v, F))
+    ms, md, mv = streaming._sort_by_word(w, d - lo, v)
+    for name, stream in (("hist", hs), ("model", ms), ("docs", d)):
+        assert bool(torch.all(stream[1:] >= stream[:-1])), f"{name} unsorted"
+    return SimpleNamespace(
+        index=mid, lo=lo, hi=hi, w=w, v=v, d=d, F=F, k=k, V=V, cwt=cwt,
+        zetas=zetas, hist=hist, model=model, hs=hs, hr=hr, ms=ms, md=md,
+        mv=mv, table=Wc[lo:hi],
+        word_slice=streaming.word_slice_len(w.numel(), V, tr.gpu.seg_chunk))
+
+
+def streamed_uses(st, corpus, launched: dict) -> dict:
+    """Phase S2: both kernels' streamed uses on a middle chunk. `launched`:
+    the launches of each use as read from S1's runs."""
+    from isle_tpu_torch import streaming, thresholds
+
+    loader = st.loader
+    c = middle_chunk(st, corpus, loader)
+    w, v, F, k, V = c.w, c.v, c.F, c.k, c.V
+    n, rows = w.numel(), c.hi - c.lo
+    sort_ms = {
+        "sort by word, 1 payload (histogram)": time_ms(
+            lambda: streaming._sort_by_word(w, thresholds.hist_cols(v, F))),
+        "sort by word, 2 payloads (model)": time_ms(
+            lambda: streaming._sort_by_word(w, c.d - c.lo, v)),
+    }
+    local = c.d - c.lo
+    z = c.zetas[w]
+    wcol = torch.where(torch.floor(v + 0.5) >= z, 0, -1).to(torch.int32)
+    mass_init = torch.rand((rows + 1, k), device=loader.device)
+    uses = {
+        ONEHOT: [
+            onehot_use("streamed zeta histogram, chunk with init", c.hs, c.hr,
+                       None, V, F + 1, launched["histogram"], init=c.hist,
+                       chunk=c.word_slice),
+            onehot_use("streamed doc-topic mass, chunk's local docs", local,
+                       c.cwt[w], v, rows, k, launched["mass"]),
+            # no streamed stage passes the mass an init: checked, not driven
+            onehot_use("streamed doc-topic mass, local docs with init",
+                       local, c.cwt[w], v, rows, k, 0, init=mass_init),
+            onehot_use("streamed sampling weights, chunk's local docs",
+                       local, wcol, z, rows, 1, launched["weights"]),
+        ],
+        GATHER: [
+            gather_use("streamed model accumulation, chunk with init", c.ms,
+                       c.md, c.mv, c.table, V, launched["model"],
+                       init=c.model, chunk=c.word_slice),
+        ],
+    }
+    print(f"streamed uses on chunk {c.index} of {len(loader.ranges)} (docs "
+          f"[{c.lo}, {c.hi}), {n} entries; the word-keyed sums in slices of "
+          f"{c.word_slice} entries, streaming.word_slice_len): "
+          + "; ".join(f"{label} {ms_:.3f} ms"
+                      for label, ms_ in sort_ms.items()))
+    print_uses(uses, "streamed paths")
+    return uses
+
+
+def lanczos_phase(B, tr, seed: int, chunk: int) -> tuple:
+    """Phase S3 at the NYTimes shape: linalg.lanczos on B B^T, all k
+    eigenvalues with the trainer's tolerance and cap on restarts, against
+    the main path's block_ks eigenvalues. Returns (the width-1 uses, the
+    launch counts of the solve)."""
+    from isle_tpu_torch import linalg, segsum, sparse
+    from isle_tpu_torch.rng import Draws
+
+    hp = tr.config.hyper
+    V, nev = B.vocab, tr.config.num_topics
+    torch.cuda.synchronize()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = linalg.lanczos(lambda X: sparse.gram_x(B, X, chunk), V, nev,
+                         Draws(seed), B.device, tol=hp.block_ks_tolerance,
+                         max_restarts=hp.block_ks_max_iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    assert launches[GATHER] == 2 * res.op_calls, launches
+    assert res.nconv == nev, \
+        f"lanczos converged {res.nconv}/{nev} in {res.restarts} restarts"
+    ref = np.asarray(tr.evalues)
+    np.testing.assert_allclose(res.evals, ref, rtol=1e-3)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((V, 1), generator=g).to(B.device)
+    y = sparse.bt_x(B, x, chunk)
+    uses = [
+        gather_use("Lanczos B^T x, width 1", B.d_doc, B.d_word, B.d_val, x,
+                   B.num_docs, res.op_calls),
+        gather_use("Lanczos B y, width 1", B.w_word, B.w_doc, B.w_val, y,
+                   V, res.op_calls),
+    ]
+    print(f"lanczos at the NYTimes shape: {nev} eigenvalues in {wall:.2f} s "
+          f"wall, {res.restarts} restarts, {res.op_calls} operator calls "
+          f"({launches[GATHER]} width-1 launches), max rel "
+          f"diff to block_ks {np.abs(res.evals / ref - 1).max():.2e}")
+    print_uses({GATHER: uses}, "Lanczos solve")
+    return uses, launches
+
+
+def reports_phase(gpu, cpu) -> None:
+    """Phase S4: the spectrum of A, the catchword-free model and edge
+    topics v1 of the small corpus, card against CPU (the same top-two
+    pairs go to both v1 constructions)."""
+    from isle_tpu_torch.topic_model import construct_edge_topics_v1
+
+    out = {}
+    for name, tr in (("cuda", gpu), ("cpu", cpu)):
+        tr.compute_input_svd()
+        tr.output_avg_topic_coherence()
+        spectrum = np.loadtxt(os.path.join(tr.run_dir,
+                                           "A_squared_spectrum.txt"))
+        m_hat = np.loadtxt(os.path.join(tr.run_dir, "M_hat_avg"), ndmin=2)
+        edge, sel = construct_edge_topics_v1(
+            tr._device_A(), *cpu.top_pairs, None, TINY["k"], TINY["edges"],
+            min_docs=cpu.config.hyper.edge_topic_min_docs)
+        assert tr._device_A().device.type == name
+        out[name] = (spectrum, m_hat, edge, sel)
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-4)
+    np.testing.assert_allclose(g[1], c[1], atol=1e-5)
+    np.testing.assert_allclose(g[2], c[2], atol=1e-5)
+    assert np.array_equal(g[3], c[3]) and len(g[3]) > 0
+    print(f"tiny reports: card == CPU (A_squared_spectrum max rel diff "
+          f"{np.abs(g[0] / c[0] - 1).max():.2e}, M_hat_avg max abs diff "
+          f"{np.abs(g[1] - c[1]).max():.2e}, edge topics v1: "
+          f"{len(g[3])} pairs equal, max abs diff "
+          f"{np.abs(g[2] - c[2]).max():.2e})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=NYT["docs"])
@@ -637,7 +1126,7 @@ def main() -> int:
     out = os.path.join(ROOT, "build", "chip_smoke")
     tiny_entries = synth_entries(TINY, args.seed)
     tiny = make_corpus(tiny_entries, TINY)
-    tiny_tr = check_tiny(tiny, args.seed, out)
+    tiny_tr, tiny_cpu = check_tiny(tiny, args.seed, out)
 
     shape = dict(NYT)
     if args.docs != NYT["docs"]:
@@ -667,22 +1156,7 @@ def main() -> int:
     train_again(corpus, shape, args.seed, os.path.join(out, "nyt2"), tr)
 
     uses = compare_kernels(tr, launches, args.seed)
-    for name, rows in uses.items():
-        for u in rows:
-            print(f"  {name} [{u['use']}] n={u['n']} out={u['shape']}: "
-                  f"kernel {u['ms']:.3f} ms, plain {u['plain_ms']:.3f} ms, "
-                  f"library {u['library_ms']:.3f} ms, bound "
-                  f"{u['bound_ms']:.3f} ms "
-                  f"({u['bound_by']}: {u['bound_bytes']} B), launches on "
-                  f"the main path {u['launches']}, max abs err "
-                  f"{u['max_abs_err']:.3e}, bit-equal across two launches "
-                  f"{u['bit_equal']}"
-                  + (f", window {u['window']['window_rows']} row(s) x "
-                     f"{u['shape'][1]} columns in "
-                     f"{u['window']['column_tiles']} column tile(s)"
-                     if "window" in u else "")
-                  + "".join(f"; {label} {ms:.3f} ms"
-                            for label, ms in u.get("whole_ms", {}).items()))
+    print_uses(uses, "main path")
 
     need = sum(u["launches"] for u in uses["segsum_onehot"])
     assert launches["segsum_onehot"] >= need, \
@@ -725,13 +1199,43 @@ def main() -> int:
             hyper = dict(opts.get("hyper", {}), eigensolver="dense")
             check_tiny(tiny, args.seed, out, label,
                        **{**opts, "hyper": hyper})
+        # S3 on the small corpus: Lanczos, card against CPU
+        check_tiny(tiny, args.seed, out, "lanczos",
+                   hyper=dict(eigensolver="lanczos"))
     finally:
         torch.use_deterministic_algorithms(False)
     check_tiny_infer(tiny_tr, make_corpus(tiny_entries, TINY,
                                           normalize_to_one=True), out)
 
+    reports_phase(tiny_tr, tiny_cpu)
+
+    # S1-S3: out of core. The in-core corpus leaves the card first.
+    tr.A = None
+    torch.cuda.empty_cache()
+    st, s_launches, s_per, B = streamed_phase(corpus, shape, args.seed, out,
+                                              tr)
+    r_launches = streamed_resume_phase(corpus, shape, args.seed, out, tr,
+                                       st.loader)
+    ss_launches, ss_per = streamed_sampling_phase(corpus, shape, args.seed,
+                                                  out, tr)
+    s_uses = streamed_uses(st, corpus, {
+        "histogram": s_per["streamed thresholds"][ONEHOT],
+        "mass": s_per["streamed topic model"][ONEHOT],
+        "model": s_per["streamed topic model"][GATHER],
+        "weights": ss_per["streamed doc sampling"][ONEHOT],
+    })
+    l_uses, l_launches = lanczos_phase(B, tr, args.seed, tr.gpu.seg_chunk)
+    for name in (ONEHOT, GATHER):
+        uses[name] += s_uses[name]
+    uses[GATHER] += l_uses
+    by_path = {name: {"in-core": launches[name],
+                      "streamed": s_launches[name],
+                      "streamed, resumed": r_launches[name],
+                      "streamed, sampled": ss_launches[name],
+                      "lanczos": l_launches[name]} for name in uses}
+    del st, B
+
     # 8. inference at full width with the main path's model
-    tr.A = None  # the training corpus leaves the card
     del corpus
     torch.cuda.empty_cache()
     infer_full(tr, entries, shape, args.seed, out)
@@ -740,14 +1244,16 @@ def main() -> int:
     assert not bad, f"the port imported {bad}"
 
     source = "isle_tpu_torch/csrc/segsum.cu"
-    replaces = {"segsum_onehot": "isle_tpu/pallas_ops.py:236",
-                "segsum_gather_rows": "isle_tpu/pallas_ops.py:203"}
+    replaces = {ONEHOT: "isle_tpu/pallas_ops.py:236",
+                GATHER: "isle_tpu/pallas_ops.py:203"}
 
+    # the times are summed over the uses that a driven path launched
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces[name],
-             launches=launches[name],
+             launches=sum(by_path[name].values()),
+             launches_by_path=by_path[name],
              max_abs_err=max(u["max_abs_err"] for u in rows),
-             **{key: sum(u[key] for u in rows)
+             **{key: sum(u[key] for u in rows if u["launches"] > 0)
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by="bytes" if all(u["bound_by"] == "bytes" for u in rows)
              else "operations", uses=rows)

@@ -28,21 +28,41 @@ from .segsum import segsum_onehot
 from .sparse import DocSparse
 
 
+def doc_dice(weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Each doc's dice u^(1/weight) of the exponential race (0 for weight
+    0)."""
+    u = uniforms.to(device=weights.device, dtype=torch.float32)
+    return torch.where(
+        weights > 0.0,
+        torch.pow(u, 1.0 / torch.clamp(weights, min=1e-30)), 0.0)
+
+
+def dice_select(weights: torch.Tensor, sample_rate: float,
+                uniforms: torch.Tensor) -> torch.Tensor:
+    """The exponential race over per-doc weights
+    (src/sparseMatrix.cpp:1399-1417): a boolean mask of the docs whose
+    dice reach the pivot."""
+    D = weights.numel()
+    dice = doc_dice(weights, uniforms)
+    pivot_index = min(int(sample_rate * D), D - 1)
+    pivot = torch.sort(dice, descending=True).values[pivot_index]
+    return dice >= pivot
+
+
+def doc_weights(A: DocSparse, keep_d: torch.Tensor,
+                zetas: torch.Tensor) -> torch.Tensor:
+    """Each doc's sampling weight: a segment sum of its kept entries' ζ
+    (column -1 drops an entry), summed in a fixed order on the card."""
+    D = A.num_docs
+    col = torch.where(keep_d, 0, -1).to(torch.int32)
+    return segsum_onehot(A.d_doc, col, zetas[A.d_word], D, 1)[:D, 0]
+
+
 def sample_select(A: DocSparse, keep_d: torch.Tensor, zetas: torch.Tensor,
                   sample_rate: float, uniforms: torch.Tensor) -> torch.Tensor:
     """Importance-sampled doc selection (src/sparseMatrix.cpp:1383-1417).
     Returns a boolean per-doc mask."""
-    D = A.num_docs
-    # each doc's weight: a segment sum of its kept entries' ζ (column -1
-    # drops an entry), summed in a fixed order on the card
-    col = torch.where(keep_d, 0, -1).to(torch.int32)
-    w = segsum_onehot(A.d_doc, col, zetas[A.d_word], D, 1)[:D, 0]
-    u = uniforms.to(device=A.device, dtype=torch.float32)
-    dice = torch.where(w > 0.0, torch.pow(u, 1.0 / torch.clamp(w, min=1e-30)),
-                       0.0)
-    pivot_index = min(int(sample_rate * D), D - 1)
-    pivot = torch.sort(dice, descending=True).values[pivot_index]
-    return dice >= pivot
+    return dice_select(doc_weights(A, keep_d, zetas), sample_rate, uniforms)
 
 
 def threshold_and_copy(

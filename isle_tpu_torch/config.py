@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,10 +49,11 @@ class HyperParams:
     bad_threshold_drop: bool = False
 
     # Eigensolver (hyperparams.h:31-40): "block_ks" (the reference's
-    # default) or "dense" (the full dense eigendecomposition oracle, for
-    # small problems). The reference's block size is 10; 128 is
-    # isle_tpu's default, kept so both packages take the same Krylov
-    # blocks.
+    # default), "lanczos" (single-vector thick-restart Lanczos, the
+    # independent cross-check) or "dense" (the full dense
+    # eigendecomposition oracle, for small problems). The reference's
+    # block size is 10; 128 is isle_tpu's default, kept so both packages
+    # take the same Krylov blocks.
     eigensolver: str = "block_ks"
     block_ks_max_iters: int = 100
     block_ks_block_size: int = 128
@@ -176,6 +177,21 @@ class GpuConfig:
     # of csrc/segsum.cu: segsum_onehot and segsum_gather_rows, and so the
     # SpMM.
     seg_chunk: int = 2048
+    # Seed the eigensolver from the U of the previous run's ckpt_svd.npz
+    # in the same run directory (block_ks: the start block; lanczos: its
+    # first column), isle_tpu's TpuConfig.eigen_warm_start.
+    eigen_warm_start: bool = False
+    # Devices along the document axis, isle_tpu's TpuConfig.mesh_shape.
+    # More than one device is not ported yet: the trainers refuse it.
+    mesh_shape: Optional[Tuple[int, ...]] = None
+
+    def require_single_device(self) -> None:
+        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
+            raise NotImplementedError(
+                f"mesh_shape={self.mesh_shape}: training over several GPUs "
+                "is not ported to isle_tpu_torch yet (ROADMAP.md, \"What "
+                "remains\": multi-GPU)"
+            )
 
     def torch_device(self) -> torch.device:
         return torch.device(self.device)

@@ -319,9 +319,47 @@ __device__ __forceinline__ void put_slot(const OnehotArgs<T>& a,
   }
 }
 
+// out[i] = init[i] + src[i] (src cleared) for i in [0, cnt), the warp's
+// lanes strided, with four loads of init in flight a lane before the first
+// add. A streamed caller passes its running result as init, and in the
+// plain loop of emit each store waits for its own load of init, a round
+// trip to memory a cell: the ζ histogram's chunk launch took 10x the time
+// of the same launch without init. Counts only: the float kernel has no
+// registers to spare for it (it spilled, and its streamed uses pass no
+// init).
+template <typename T>
+__device__ __forceinline__ void store_span_init(const T* init, T* out,
+                                                T* src, bool from_buf,
+                                                int64_t cnt, int lane) {
+  int64_t i = lane;
+  for (; i + 96 < cnt; i += 128) {
+    T x0 = init[i], x1 = init[i + 32], x2 = init[i + 64], x3 = init[i + 96];
+    if (from_buf) {
+      x0 += src[i];
+      x1 += src[i + 32];
+      x2 += src[i + 64];
+      x3 += src[i + 96];
+      src[i] = src[i + 32] = src[i + 64] = src[i + 96] = T(0);
+    }
+    out[i] = x0;
+    out[i + 32] = x1;
+    out[i + 64] = x2;
+    out[i + 96] = x3;
+  }
+  for (; i < cnt; i += 32) {
+    T x = init[i];
+    if (from_buf) {
+      x += src[i];
+      src[i] = T(0);
+    }
+    out[i] = x;
+  }
+}
+
 // Stores rows [ra, min(rb, R1 + 1)) of the unit: init plus the window's
 // cells (clearing them) or plus nothing (rows without entries here).
-template <typename T, bool kVal>
+// kInit: counts with a.init given, through store_span_init.
+template <typename T, bool kVal, bool kInit>
 __device__ __forceinline__ void emit(const OnehotArgs<T>& a,
                                      const OnehotUnit& t, T* buf, int lane,
                                      int64_t ra, int64_t rb, bool from_buf) {
@@ -340,25 +378,33 @@ __device__ __forceinline__ void emit(const OnehotArgs<T>& a,
     const int64_t o = ra * a.ncols;
     const int64_t cnt = (rb - ra) * a.ncols;
     T* const src = buf + (from_buf ? (ra - t.w0) * t.cw : 0);
-    for (int64_t i = lane; i < cnt; i += 32) {
-      T x = a.init ? a.init[o + i] : T(0);
-      if (from_buf) {
-        x += src[i];
-        src[i] = T(0);
+    if constexpr (kInit) {
+      store_span_init<T>(a.init + o, a.out + o, src, from_buf, cnt, lane);
+    } else {
+      for (int64_t i = lane; i < cnt; i += 32) {
+        T x = a.init ? a.init[o + i] : T(0);
+        if (from_buf) {
+          x += src[i];
+          src[i] = T(0);
+        }
+        a.out[o + i] = x;
       }
-      a.out[o + i] = x;
     }
   } else {
     for (int64_t r = ra; r < rb; ++r) {
       const int64_t o = r * a.ncols + t.c0;
       T* const src = buf + (from_buf ? (r - t.w0) * t.cw : 0);
-      for (int cc = lane; cc < t.cw; cc += 32) {
-        T x = a.init ? a.init[o + cc] : T(0);
-        if (from_buf) {
-          x += src[cc];
-          src[cc] = T(0);
+      if constexpr (kInit) {
+        store_span_init<T>(a.init + o, a.out + o, src, from_buf, t.cw, lane);
+      } else {
+        for (int cc = lane; cc < t.cw; cc += 32) {
+          T x = a.init ? a.init[o + cc] : T(0);
+          if (from_buf) {
+            x += src[cc];
+            src[cc] = T(0);
+          }
+          a.out[o + cc] = x;
         }
-        a.out[o + cc] = x;
       }
     }
   }
@@ -509,8 +555,9 @@ __device__ __forceinline__ void stage_next(const OnehotArgs<T>& a,
   cp_async_commit();
 }
 
-// One warp per (slice, column tile) unit, persistent over units.
-template <typename T, bool kVal>
+// One warp per (slice, column tile) unit, persistent over units. kInit:
+// counts with a.init given (see emit).
+template <typename T, bool kVal, bool kInit>
 __global__ void __launch_bounds__(kOhThreads, kOhMinBlocks<kVal>)
     segsum_onehot_kernel(const OnehotArgs<T> a) {
   constexpr int kStg = kOhStage<kVal>;
@@ -564,16 +611,16 @@ __global__ void __launch_bounds__(kOhThreads, kOhMinBlocks<kVal>)
         if (beyond == 0) break;
         // the window is done: store it and the rows up to the next entry's
         const int next = __shfl_sync(kFull, s, __ffs(beyond) - 1);
-        emit<T, kVal>(a, t, m.buf, lane, t.w0, lim, true);
-        emit<T, kVal>(a, t, m.buf, lane, lim, next, false);
+        emit<T, kVal, kInit>(a, t, m.buf, lane, t.w0, lim, true);
+        emit<T, kVal, kInit>(a, t, m.buf, lane, lim, next, false);
         t.w0 = next;
         __syncwarp();  // the cleared cells, before other lanes add to them
       }
     }
     if (left <= kStg) {  // the unit's last batch
       const int64_t lim = t.w0 + a.rows;
-      emit<T, kVal>(a, t, m.buf, lane, t.w0, lim, true);
-      emit<T, kVal>(a, t, m.buf, lane, lim, t.R1 + 1, false);
+      emit<T, kVal, kInit>(a, t, m.buf, lane, t.w0, lim, true);
+      emit<T, kVal, kInit>(a, t, m.buf, lane, lim, t.R1 + 1, false);
     }
     __syncwarp();
     if (walk_next<T, kVal>(a, cur, q, r)) {
@@ -624,26 +671,38 @@ __global__ void __launch_bounds__(kOhThreads)
   }
 }
 
+template <typename T, bool kVal, bool kInit>
+cudaError_t launch_onehot_main(const OnehotArgs<T>& a, int device,
+                               cudaStream_t stream) {
+  const int64_t units = a.num_slices * a.ntiles;
+  int grid = 0;
+  const cudaError_t err = blocks_on_card(
+      reinterpret_cast<const void*>(segsum_onehot_kernel<T, kVal, kInit>),
+      kOhThreads, device, (units + kOhWarps - 1) / kOhWarps, &grid);
+  if (err != cudaSuccess) return err;
+  segsum_onehot_kernel<T, kVal, kInit><<<grid, kOhThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kVal>
 cudaError_t launch_onehot(OnehotArgs<T> a, int device, cudaStream_t stream) {
   a.ct = a.ncols < kCells ? a.ncols : kCells;
   a.ntiles = (a.ncols + a.ct - 1) / a.ct;
   a.rows = kCells / a.ct;
-  const int64_t units = a.num_slices * a.ntiles;
-  int grid = 0;
-  cudaError_t err = blocks_on_card(
-      reinterpret_cast<const void*>(segsum_onehot_kernel<T, kVal>),
-      kOhThreads, device, (units + kOhWarps - 1) / kOhWarps, &grid);
-  if (err != cudaSuccess) return err;
   const int edge_blocks =
       static_cast<int>((a.num_slices + kOhWarps - 1) / kOhWarps);
+  cudaError_t err;
   if (!kVal) {
     segsum_onehot_edges_kernel<T><<<edge_blocks, kOhThreads, 0, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  segsum_onehot_kernel<T, kVal><<<grid, kOhThreads, 0, stream>>>(a);
-  err = cudaGetLastError();
+  if constexpr (!kVal) {
+    err = a.init ? launch_onehot_main<T, kVal, true>(a, device, stream)
+                 : launch_onehot_main<T, kVal, false>(a, device, stream);
+  } else {
+    err = launch_onehot_main<T, kVal, false>(a, device, stream);
+  }
   if (err != cudaSuccess || !kVal) return err;
   segsum_onehot_edges_kernel<T><<<edge_blocks, kOhThreads, 0, stream>>>(a);
   return cudaGetLastError();

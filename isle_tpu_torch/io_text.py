@@ -7,6 +7,8 @@ the reference's, so models interoperate both ways:
     lines, 1-based ids, entries > 1e-8, topic-major
     (src/denseMatrix.cpp:153-187); the loader reads it into a word-major
     (vocab, num_topics) array (src/infer.cpp:125-249);
+  - dense model (`M_hat_avg`): one tab-separated row of vocab weights
+    per topic (src/denseMatrix.cpp:124-151);
   - top words (`TopWordsPerTopic_catch.txt`, src/trainer.cpp:855-886);
   - top topics per doc (drivers/ISLEInfer.cpp:100-111).
 """
@@ -23,6 +25,13 @@ from . import native
 def write_sparse_model(path: str, model: np.ndarray, base: int = 1) -> None:
     """model: (vocab, num_topics)."""
     native.write_sparse_model(path, model, base=base)
+
+
+def write_dense_model(path: str, model: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for t in range(model.shape[1]):
+            f.write("\t".join(f"{x:.8g}" for x in model[:, t]))
+            f.write("\n")
 
 
 def load_sparse_model(path: str, num_topics: int, vocab_size: int,

@@ -1,6 +1,8 @@
-"""Truncated symmetric eigensolver (the SVD engine): the port of
+"""Truncated symmetric eigensolvers (the SVD engine): the port of
 isle_tpu.linalg.block_ks, the host-driven thick-restart block
-Krylov-Schur loop (isle_tpu/linalg.py:116-251), and of the dense oracle.
+Krylov-Schur loop (isle_tpu/linalg.py:116-251), of lanczos_device, the
+single-vector thick-restart Lanczos kept beside it as an independent
+cross-check (isle_tpu/linalg.py:400-559), and of the dense oracle.
 
 Same shapes as the reference: block width `blk` (auto-shrunk for small
 dimensions), keep = round_up(nev, blk) Ritz pairs at restart, K = keep +
@@ -189,6 +191,139 @@ def block_ks(
         restarts=restarts,
         op_calls=op_calls,
         op_seconds=op_seconds,
+    )
+
+
+def lanczos(
+    op: Callable[[torch.Tensor], torch.Tensor],
+    dim: int,
+    nev: int,
+    draws,
+    device,
+    tol: float = 1e-4,
+    max_restarts: int = 100,
+    steps_per_restart: Optional[int] = None,
+    start_vector: Optional[torch.Tensor] = None,
+    timer=None,
+) -> EigResult:
+    """Top-`nev` eigenpairs of the symmetric PSD operator `op` by
+    single-vector thick-restart Lanczos: a three-term recurrence with two
+    full reorthogonalization passes a step, width-1 operator calls (op
+    maps (dim, 1) -> (dim, 1)), a K x K projected matrix with K = nev + s
+    (s = steps_per_restart or nev + 8), and the Wu-Simon restart keeping
+    the top nev Ritz pairs plus the border row. Convergence is block_ks's
+    rule on the border residuals, so the two solvers compare at one tol.
+
+    Host-driven: the steps of a restart are enqueued without a
+    synchronize; the host waits once a restart, for the projected matrix,
+    whose eigenproblem LAPACK solves (see block_ks). A width-1 SpMM uses
+    one lane of the gather kernel's 32-lane tile, so this is a validation
+    solver, not the production one.
+
+    The start vector comes from draws.lanczos_start(dim) unless
+    `start_vector` is given and nonzero. When the residual of a step falls
+    to the float32 noise floor of its projected column (b <= 1e-6 *
+    max(|coeffs|, 1)), normalizing it would put rounding noise into the
+    basis: the step continues with draws.lanczos_refill(j, dim),
+    orthogonalized twice against the basis, and a beta of exactly 0. A
+    step only flags its breakdown on the device; the flags come to the
+    host with the projected matrix, and the steps behind a flagged one are
+    taken again after its refill (op_calls counts each step once)."""
+    s = steps_per_restart or (nev + 8)
+    K = nev + s
+    ncv = K + 1
+    if ncv > dim:
+        raise ValueError(f"ncv={ncv} exceeds dim={dim}; use dense solver")
+    tiny = torch.finfo(torch.float32).tiny
+
+    def unit(x):
+        return x / torch.clamp(torch.linalg.norm(x), min=1e-30)
+
+    def step(V, T, j):
+        w = op(V[:, j:j + 1])[:, 0]
+        c1 = V.T @ w
+        w = w - V @ c1
+        c2 = V.T @ w
+        w = w - V @ c2
+        coeffs = c1 + c2  # alpha at j, the restart's fill-ins above it
+        b = torch.linalg.norm(w)
+        T[ncv, j] = b <= 1e-6 * torch.clamp(coeffs.abs().max(), min=1.0)
+        V[:, j + 1] = w / torch.clamp(b, min=tiny)
+        coeffs[j + 1] = b
+        T[:ncv, j] = coeffs
+
+    def refill(V, T, j):
+        V[:, j + 1:] = 0.0  # what the steps behind j left
+        rnd = draws.lanczos_refill(j, dim).to(device)
+        for _ in range(2):
+            rnd = rnd - V @ (V.T @ rnd)
+        V[:, j + 1] = unit(rnd)
+        T[j + 1, j] = 0.0
+        T[ncv, j] = 0.0
+
+    def sweep(V, T, j):
+        """Steps j..K-1; returns T on the host (rows :ncv the projected
+        matrix, row ncv the breakdown flags, all clear)."""
+        while True:
+            for i in range(j, K):
+                step(V, T, i)
+            host = T.cpu()  # the restart's one synchronize
+            broke = np.flatnonzero(host[ncv, j:].numpy())
+            if broke.size == 0:
+                return host
+            j += int(broke[0])
+            refill(V, T, j)
+            j += 1
+
+    def truncate(V, T, host):
+        Ts = host[:K, :K]
+        Ts = (Ts + Ts.T) * 0.5
+        w, W = torch.linalg.eigh(Ts)
+        order = torch.argsort(-w, stable=True)
+        w = w[order].to(device)
+        W = W[:, order].to(device)
+        resid = T[K:ncv, :K] @ W  # (1, K) border row
+        conv, is_zero = _converged_mask(w[:nev], resid[0, :nev].abs(), tol)
+        bad = np.flatnonzero(~conv.cpu().numpy())
+        nconv = int(bad[0]) if len(bad) else nev
+        Vn = torch.zeros_like(V)
+        Vn[:, :nev] = V[:, :K] @ W[:, :nev]
+        Vn[:, nev] = V[:, K]  # the residual Lanczos vector
+        Tn = torch.zeros_like(T)
+        Tn[:nev, :nev] = torch.diag(w[:nev])
+        Tn[nev, :nev] = resid[0, :nev]
+        evals = torch.where(is_zero, 0.0, w[:nev]).cpu().numpy()
+        return Vn, Tn, evals.astype(np.float32), nconv
+
+    t0 = time.perf_counter()
+    v0 = None
+    if start_vector is not None:
+        v0 = start_vector.to(device=device, dtype=torch.float32)
+        if not bool(torch.linalg.norm(v0) > 0.0):
+            v0 = None
+    if v0 is None:
+        v0 = draws.lanczos_start(dim).to(device)
+    V = torch.zeros((dim, ncv), dtype=torch.float32, device=device)
+    # the projected matrix, and one more row for the breakdown flags
+    T = torch.zeros((ncv + 1, K), dtype=torch.float32, device=device)
+    V[:, 0] = unit(v0)
+    V, T, evals, nconv = truncate(V, T, sweep(V, T, 0))
+    restarts = 0
+    while nconv < nev and restarts < max_restarts:
+        V, T, evals, nconv = truncate(V, T, sweep(V, T, nev))
+        restarts += 1
+    _sync(V)
+    seconds = time.perf_counter() - t0
+    if timer is not None:
+        timer.diag(f"lanczos: {restarts} restarts, nconv={nconv}/{nev}, "
+                   f"{seconds:.2f}s")
+    return EigResult(
+        evals=evals,
+        evecs=V[:, :nev],
+        nconv=nconv,
+        restarts=restarts,
+        op_calls=K + s * restarts,
+        op_seconds=seconds,
     )
 
 

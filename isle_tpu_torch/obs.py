@@ -3,21 +3,27 @@ accounting. The port's copy of isle_tpu/obs.py's Logger, Timer and
 OpCounter (reference include/logger.h:19-95, include/timer.h:17-122,
 include/matUtils.h:270-308).
 
-Logger channels: info and warning print unless quiet; timer
+Logger channels: info, warning and error print unless quiet; timer
 prints and goes to <run_dir>/timerLog.txt; diagnostic goes to
-<run_dir>/diagnosticLog.txt.
+<run_dir>/diagnosticLog.txt. add_sink hands a channel's messages to a
+callback as well (the handle API's log sinks).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 
 class Logger:
+    CHANNELS = ("info", "warning", "error", "timer", "diagnostic")
+
     def __init__(self, run_dir: Optional[str] = None, quiet: bool = False):
         self.quiet = quiet
+        self.sinks: Dict[str, List[Callable[[str], None]]] = {
+            c: [] for c in self.CHANNELS
+        }
         self._files = {}
         if run_dir:
             os.makedirs(run_dir, exist_ok=True)
@@ -26,14 +32,20 @@ class Logger:
             self._files["diagnostic"] = open(
                 os.path.join(run_dir, "diagnosticLog.txt"), "a")
 
+    def add_sink(self, channel: str, fn: Callable[[str], None]) -> None:
+        self.sinks[channel].append(fn)
+
     def log(self, channel: str, msg: str) -> None:
         line = msg if msg.endswith("\n") else msg + "\n"
-        if not self.quiet and channel in ("info", "warning", "timer"):
+        if not self.quiet and channel in ("info", "warning", "error",
+                                          "timer"):
             print(line, end="", flush=True)
         f = self._files.get(channel)
         if f:
             f.write(line)
             f.flush()
+        for fn in self.sinks[channel]:
+            fn(msg)
 
     def info(self, msg: str) -> None:
         self.log("info", msg)
@@ -43,6 +55,11 @@ class Logger:
 
     def diag(self, msg: str) -> None:
         self.log("diagnostic", msg)
+
+    def close(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files.clear()
 
 
 class Timer:

@@ -2,7 +2,8 @@
 
 isle_tpu draws randomness with jax.random in these places: the document
 sampling uniforms (isle_tpu/bmatrix.py:59), the Krylov start block
-(isle_tpu/linalg.py:63) and the seedings of isle_tpu/kmeans.py: each
+(isle_tpu/linalg.py:63), the Lanczos start vector and refill directions
+(isle_tpu/linalg.py:521, :472) and the seedings of isle_tpu/kmeans.py: each
 rep's first center (:50-51, :197, :365), the k-means++ dice (:101-102),
 the k-means|| round uniforms (:209), the weighted k-means++ picks of
 k-means|| (:248, :258) and the AFK-MC^2 proposals (:304, :315). The port
@@ -44,6 +45,16 @@ class Draws:
     def krylov_start(self, dim: int, blk: int) -> torch.Tensor:
         """(dim, blk) float32 standard normals."""
         return torch.randn(dim, blk, generator=self._eig, dtype=torch.float32)
+
+    def lanczos_start(self, dim: int) -> torch.Tensor:
+        """(dim,) float32 standard normals: the Lanczos start vector."""
+        return torch.randn(dim, generator=self._eig, dtype=torch.float32)
+
+    def lanczos_refill(self, j: int, dim: int) -> torch.Tensor:
+        """(dim,) float32 standard normals: the direction Lanczos step `j`
+        continues with when its recurrence breaks down. Called for those
+        steps only, in step order."""
+        return torch.randn(dim, generator=self._eig, dtype=torch.float32)
 
     def seeding_first(self, num_docs: int) -> int:
         """First center of a seeding rep, uniform over [0, num_docs).

@@ -15,7 +15,7 @@ src/trainer.cpp:1118-1168).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +71,18 @@ def _contribution_weights(mass: torch.Tensor, thr: torch.Tensor,
     return W
 
 
+def has_catchwords(cw_topic: torch.Tensor, num_topics: int) -> torch.Tensor:
+    """(num_topics,) bool: the topic owns at least one catchword."""
+    owned = cw_topic[cw_topic >= 0].long()
+    return torch.bincount(owned, minlength=num_topics)[:num_topics] > 0
+
+
+def l1_normalize_columns(model: torch.Tensor) -> torch.Tensor:
+    """Each nonzero column divided by its sum."""
+    sums = torch.sum(model, dim=0)
+    return torch.where(sums[None, :] != 0.0, model / sums[None, :], model)
+
+
 def construct_topic_model(
     A: DocSparse,
     cw_topic: torch.Tensor,  # (vocab,) int32 owning topic, -1 else
@@ -81,17 +93,53 @@ def construct_topic_model(
     seg_chunk: int = DEFAULT_CHUNK,
 ):
     """Returns (Model (vocab, k) l1-normalized, (t1, t2, valid) or None)."""
-    owned = cw_topic[cw_topic >= 0].long()
-    has_cw = torch.bincount(owned, minlength=num_topics)[:num_topics] > 0
+    has_cw = has_catchwords(cw_topic, num_topics)
     mass = doc_topic_mass(A, cw_topic, num_topics, seg_chunk)
     thr = model_thresholds(mass, has_cw, rank_threshold)
     pairs = top_two_topics(mass) if want_top_pairs else None
     W = _contribution_weights(mass, thr, cluster_of_doc)
     del mass
-    model = b_y(A, W, seg_chunk)
-    sums = torch.sum(model, dim=0)
-    model = torch.where(sums[None, :] != 0.0, model / sums[None, :], model)
-    return model, pairs
+    return l1_normalize_columns(b_y(A, W, seg_chunk)), pairs
+
+
+def construct_edge_topics_v1(
+    A: DocSparse,
+    t1: np.ndarray,
+    t2: np.ndarray,
+    valid: np.ndarray,
+    original_doc_ids: Optional[np.ndarray],
+    num_topics: int,
+    max_edge_topics: int,
+    min_docs: int = 1,
+    seg_chunk: int = DEFAULT_CHUNK,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Edge topics v1, the doc-average variant (src/trainer.cpp:1042-1114):
+    an edge vector is the mean of the normalized counts of the docs whose
+    top-two pair selected it. t1/t2/valid are per doc, indexed like A's
+    docs unless original_doc_ids maps them. The pairs are selected as in
+    v2; one SpMM (sparse.b_y at width n_edges) gives all edge vectors.
+    Returns (edge_model (vocab, n_edges), selected pairs (n_edges, 3))."""
+    k = num_topics
+    keys = t1.astype(np.int64) * k + t2.astype(np.int64)
+    doc_ids = (np.arange(len(t1)) if original_doc_ids is None
+               else original_doc_ids)
+    keys_v, docs_v = keys[valid], doc_ids[valid]
+    counts = np.bincount(keys_v, minlength=k * k)
+    cand = np.nonzero(counts >= max(min_docs, 1))[0]
+    order = np.lexsort((cand % k, cand // k, -counts[cand]))
+    cand = cand[order][:max_edge_topics]
+    edge_of_pair = np.full(k * k, -1, np.int64)
+    edge_of_pair[cand] = np.arange(len(cand))
+    e = edge_of_pair[keys_v]  # the doc's edge topic, -1 for none
+    picked = e >= 0
+    W = np.zeros((A.num_docs, len(cand)), np.float32)
+    W[docs_v[picked], e[picked]] = 1.0 / counts[cand][e[picked]]
+    edge = b_y(A, torch.from_numpy(W).to(A.device), seg_chunk).cpu().numpy()
+    sel = np.stack(
+        [(cand // k).astype(np.int32), (cand % k).astype(np.int32),
+         counts[cand].astype(np.int32)], axis=1,
+    )
+    return edge.astype(np.float32), sel
 
 
 def construct_edge_topics_v2(

@@ -19,7 +19,7 @@ JAX trainer wrote (and the other way round).
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,13 +29,16 @@ from .bmatrix import threshold_and_copy
 from .catchwords import catchword_topic_map, find_catchwords, rth_highest
 from .config import GpuConfig, TrainConfig
 from .corpus import Corpus, EntryFeeder, read_vocab_file
-from .diagnostics import topic_coherence, topic_diversity
+from .preprocessed import load_preprocessed
+from .diagnostics import count_distinct_top_five, log_combinatorial, \
+    topic_coherence, topic_diversity
 from .elkans import run_elkans
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
-from .linalg import block_ks, dense_topk_eigh
+from .linalg import block_ks, dense_topk_eigh, lanczos
 from .obs import Logger, OpCounter, Timer
 from .rng import Draws
+from .segsum import launch_counts
 from .sparse import DocSparse, b_y, bt_x, frobenius_sq, gram_x, \
     spmm_flops, to_dense
 from .thresholds import compute_thresholds
@@ -44,15 +47,11 @@ from .topic_model import construct_edge_topics_v2, construct_topic_model, \
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for the options this port does not cover
-    yet (ROADMAP.md lists them), ValueError for settings isle_tpu refuses
-    as well."""
+    """Raise ValueError for the settings isle_tpu refuses as well. Every
+    single-device option of isle_tpu's trainer is covered."""
     hp = cfg.hyper
-    if hp.eigensolver not in ("block_ks", "dense"):
-        raise NotImplementedError(
-            f"not ported to isle_tpu_torch yet: eigensolver="
-            f"{hp.eigensolver!r}"
-        )
+    if hp.eigensolver not in ("dense", "block_ks", "lanczos"):
+        raise ValueError(f"unknown eigensolver {hp.eigensolver!r}")
     if hp.kmeans_init_method not in ("kmeanspp", "kmeansbb", "kmeansmcmc"):
         raise ValueError(
             f"unknown kmeans_init_method {hp.kmeans_init_method!r}")
@@ -81,13 +80,17 @@ def state_from_numpy(ck: dict, device) -> dict:
 
 
 def solve_gram_eigens(B: DocSparse, V: int, k: int, cfg: TrainConfig,
-                      draws, chunk: int, timer=None, logger=None):
-    """Top-k eigenpairs of B B^T: block Krylov-Schur, or the dense oracle
-    when asked for or when k is too close to V for a Krylov space.
+                      draws, chunk: int, timer=None, logger=None,
+                      start_block: Optional[torch.Tensor] = None):
+    """Top-k eigenpairs of B B^T by hyper.eigensolver, shared by the
+    in-core and the streamed trainer: block Krylov-Schur, Lanczos, or the
+    dense oracle when asked for or when k is too close to V for a Krylov
+    space. `start_block` (a previous run's U) seeds block_ks's start block
+    and, by its first column, Lanczos's start vector.
     Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
     for the dense oracle and (EigResult, op width) otherwise."""
     hp = cfg.hyper
-    eigensolver = hp.eigensolver
+    eigensolver = hp.eigensolver  # validated by check_supported
     if eigensolver != "dense" and 2 * k + 2 >= V:
         if logger:
             logger.warning(
@@ -100,22 +103,34 @@ def solve_gram_eigens(B: DocSparse, V: int, k: int, cfg: TrainConfig,
         w, U = dense_topk_eigh(Bd @ Bd.T, k)
         U = torch.as_tensor(U, dtype=torch.float32).to(B.device)
         return w.astype(np.float32), U, None
-    res = block_ks(
-        lambda X: gram_x(B, X, chunk), V, k, draws, B.device,
-        blk=hp.block_ks_block_size, tol=hp.block_ks_tolerance,
-        max_restarts=hp.block_ks_max_iters, timer=timer,
-    )
+
+    def op(X):
+        return gram_x(B, X, chunk)
+
+    common = dict(tol=hp.block_ks_tolerance,
+                  max_restarts=hp.block_ks_max_iters, timer=timer)
+    if eigensolver == "lanczos":
+        op_width = 1
+        res = lanczos(
+            op, V, k, draws, B.device, **common,
+            start_vector=None if start_block is None else start_block[:, 0],
+        )
+    else:
+        op_width = hp.block_ks_block_size
+        res = block_ks(op, V, k, draws, B.device, blk=op_width, **common,
+                       start_block=start_block)
     if res.nconv < k:
         if hp.block_ks_strict:
             raise RuntimeError(
-                f"block_ks converged only {res.nconv}/{k} eigenpairs within "
-                f"{hp.block_ks_max_iters} restarts (block_ks_strict=True; "
-                f"evals head {res.evals[:4].tolist()})"
+                f"{eigensolver} converged only {res.nconv}/{k} eigenpairs "
+                f"within {hp.block_ks_max_iters} restarts "
+                f"(block_ks_strict=True; evals head "
+                f"{res.evals[:4].tolist()})"
             )
         if logger:
             logger.warning(
-                f"block_ks converged only {res.nconv}/{k} eigenpairs")
-    return res.evals, res.evecs, (res, hp.block_ks_block_size)
+                f"{eigensolver} converged only {res.nconv}/{k} eigenpairs")
+    return res.evals, res.evecs, (res, op_width)
 
 
 class Trainer:
@@ -138,6 +153,8 @@ class Trainer:
         self.logger = Logger(self.run_dir, quiet=quiet)
         self.timer = Timer(self.logger)
         self.op_counter = OpCounter("gram SpMM")
+        # (stage, segsum.launch_counts() at its end), one per _mark
+        self.stage_launches: List[tuple] = []
         self.vocab_file = vocab_file
         self.corpus: Optional[Corpus] = None
         self.vocab_words: List[str] = []
@@ -191,6 +208,14 @@ class Trainer:
         self._post_ingest()
         self.timer.next("finalize data")
 
+    def load_preprocessed(self, prefix: str) -> None:
+        """The binary sidecar artifacts of preprocessed.py
+        (src/trainer.cpp:296-362)."""
+        self.corpus = load_preprocessed(prefix)
+        self.A = None
+        self._post_ingest()
+        self.timer.next("load preprocessed data")
+
     def load_corpus(self, corpus: Corpus) -> None:
         """Train on an already assembled corpus.Corpus (or any object with
         its arrays, isle_tpu.corpus.Corpus among them)."""
@@ -212,15 +237,45 @@ class Trainer:
         )
 
     def _mark(self, label: str) -> None:
-        """Close a timed stage once the device has finished its work."""
+        """Close a timed stage once the device has finished its work, and
+        note the kernels' launch counts as they stand at its end."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timer.next(label)
+        self.stage_launches.append((label, launch_counts()))
 
     def _device_A(self) -> DocSparse:
+        """The corpus on the device: training and the reports
+        (output_doc_topic, output_avg_topic_coherence, compute_input_svd)
+        share one upload."""
         if self.A is None:
             self.A = DocSparse.from_corpus(self.corpus, self.device)
         return self.A
+
+    def _warm_start_block(self, V: int) -> Optional[torch.Tensor]:
+        """GpuConfig.eigen_warm_start: the U of the previous run's
+        ckpt_svd.npz in this run directory, to seed the eigensolver; None
+        (a cold start) without the flag, without the file, or when its
+        vocab differs."""
+        if not self.gpu.eigen_warm_start:
+            return None
+        path = os.path.join(self.run_dir, "ckpt_svd.npz")
+        try:
+            with np.load(path) as z:
+                U = z["U"]
+        except (OSError, KeyError):
+            return None
+        if U.shape[0] != V:
+            self.logger.warning(
+                f"eigen_warm_start: checkpointed U has vocab {U.shape[0]} "
+                f"!= {V}; cold-starting"
+            )
+            return None
+        self.logger.info(
+            f"eigen_warm_start: seeding the eigensolver from checkpointed "
+            f"U {U.shape}"
+        )
+        return torch.as_tensor(U, dtype=torch.float32).to(self.device)
 
     # ------------------------------------------------------------------
     # Training
@@ -232,6 +287,7 @@ class Trainer:
         if self.corpus is None:
             raise RuntimeError("load data first")
         check_supported(self.config)
+        self.gpu.require_single_device()
         cfg = self.config
         hp = cfg.hyper
         k = cfg.num_topics
@@ -313,7 +369,7 @@ class Trainer:
         else:
             self.evalues, U, stats = solve_gram_eigens(
                 B, V, k, cfg, self.draws, chunk, timer=self.timer,
-                logger=self.logger,
+                logger=self.logger, start_block=self._warm_start_block(V),
             )
             if stats is not None:
                 res, op_width = stats
@@ -535,6 +591,91 @@ class Trainer:
         self.logger.info(f"Average topic diversity: {div:.6f}")
         self.timer.next("calculating diversity")
         return div
+
+    def output_avg_topic_coherence(self) -> Tuple[float, np.ndarray]:
+        """Coherence of the catchword-free cluster-average model
+        (src/trainer.cpp:705-748): construct_topic_model with no
+        catchwords (every topic takes its cluster average), coherence over
+        its top words, the dense dump M_hat_avg and
+        TopWordsPerTopic_avg.txt. Returns (avg coherence, per-topic
+        coherences)."""
+        self._require_trained()
+        cfg = self.config
+        k = cfg.num_topics
+        nw = cfg.hyper.coherence_num_words
+        cwt = torch.full((self.corpus.vocab_size,), -1, dtype=torch.int32,
+                         device=self.device)
+        avg_model, _ = construct_topic_model(
+            self._device_A(), cwt,
+            torch.as_tensor(self.cluster_of_doc, dtype=torch.int32).to(
+                self.device),
+            k, cfg.hyper.model_rank_threshold(self.corpus.num_docs, k),
+            seg_chunk=self.gpu.seg_chunk,
+        )
+        avg_model = avg_model.cpu().numpy()
+        coherences = topic_coherence(self.corpus, avg_model, nw,
+                                     cfg.hyper.coherence_eps)
+        avg = float(np.mean(coherences))
+        self.logger.info(f"Avg coherence without catchwords: {avg:.6f}")
+        self._mark("computing coherence without catchwords")
+        io_text.write_dense_model(
+            os.path.join(self.run_dir, "M_hat_avg"), avg_model)
+        self.timer.next("writing Mhat to file")
+        io_text.write_top_words(
+            os.path.join(self.run_dir, "TopWordsPerTopic_avg.txt"),
+            avg_model, self.vocab_words, max(nw, 10),
+        )
+        self.timer.next("writing top words to file")
+        return avg, coherences
+
+    def compute_input_svd(self) -> np.ndarray:
+        """Spectrum of the normalized matrix A, the reference's diagnostic
+        dump (src/trainer.cpp:409-423): block_ks on A A^T with the draws
+        of seed + 1. Writes A_squared_spectrum.txt and returns the squared
+        singular values."""
+        A = self._device_A()
+        hp, k = self.config.hyper, self.config.num_topics
+        res = block_ks(
+            lambda X: gram_x(A, X, self.gpu.seg_chunk),
+            self.corpus.vocab_size, k, Draws(self.config.seed + 1),
+            self.device, blk=hp.block_ks_block_size,
+            tol=hp.block_ks_tolerance, max_restarts=hp.block_ks_max_iters,
+        )
+        path = os.path.join(self.run_dir, "A_squared_spectrum.txt")
+        with open(path, "w") as f:
+            for v in res.evals:
+                f.write(f"{v:.8g}\n")
+        self._print_eigen_data(res.evals, k)
+        self._mark("input SVD diagnostic")
+        return res.evals
+
+    def print_log_combinatorial(self) -> None:
+        """LogCombinatorial.txt: the per-doc log multinomial statistic
+        (src/trainer.cpp:378-389)."""
+        path = os.path.join(self.run_dir, "LogCombinatorial.txt")
+        with open(path, "w") as f:
+            for v in log_combinatorial(self.corpus):
+                f.write(f"{v:.6g}\n")
+        self.timer.next("print log combinatorial")
+
+    def print_distinct_top_five_sets(self) -> None:
+        """Distinct top-5-word multiset counts (src/trainer.cpp:393-407)."""
+        counts = [
+            count_distinct_top_five(self.corpus, m)
+            for m in (2, 5, 10, 20, 50, 100, 200, 500)
+        ]
+        self.logger.info(
+            "Distinct top five sets: " + " ".join(str(c) for c in counts)
+        )
+        self.timer.next("distinct top-5 words")
+
+    def get_model(self) -> np.ndarray:
+        """The (vocab, k) model, GetBasicModel of the handle API."""
+        self._require_trained()
+        return self.model
+
+    def get_edge_model(self) -> Optional[np.ndarray]:
+        return self.edge_model
 
     def output_cluster_summary(self) -> None:
         """Catchwords, top words, cluster details, coherence, topic

@@ -19,6 +19,13 @@ staging the entries and storing the rows cost beyond moving the bytes.
 The doc norms take no column array; their masked run reads one (4 bytes
 an entry more).
 
+Last, the word-keyed streamed uses by slice length (what
+streaming.word_slice_len chooses from): the middle chunk of the corpus in
+chunks of chip_smoke.STREAM_CHUNK_ENTRIES, with the carries of the chunks
+before it, through the ζ histogram with and without `init` and through
+segsum_gather_rows's model accumulation with `init`, at 128 to 4096
+entries a slice.
+
     python3 onehot_probe.py [--docs N] [--seed S]
 
 Prints the card's line, one line per use and a JSON line of the numbers;
@@ -94,6 +101,37 @@ def probe_use(use, seg, col, val, S, nc) -> dict:
     return r
 
 
+SLICE_LENGTHS = (128, 256, 512, 1024, 2048, 4096)
+
+
+def slice_sweep(tr, corpus) -> list:
+    from isle_tpu_torch import segsum
+    from isle_tpu_torch.streaming import ChunkLoader
+
+    c = cs.middle_chunk(
+        tr, corpus, ChunkLoader(corpus, cs.STREAM_CHUNK_ENTRIES, "cuda"))
+    ncols = c.F + 1
+    print(f"chunk {c.index}: docs [{c.lo}, {c.hi}), {c.w.numel()} entries; "
+          f"streaming.word_slice_len takes {c.word_slice}")
+    rows = []
+    for n in SLICE_LENGTHS:
+        r = dict(
+            slice_len=n,
+            histogram_init_ms=cs.time_ms(lambda: segsum.segsum_onehot(
+                c.hs, c.hr, None, c.V, ncols, init=c.hist, chunk=n)),
+            histogram_ms=cs.time_ms(lambda: segsum.segsum_onehot(
+                c.hs, c.hr, None, c.V, ncols, chunk=n)),
+            model_init_ms=cs.time_ms(lambda: segsum.segsum_gather_rows(
+                c.ms, c.md, c.mv, c.table, c.V, init=c.model, chunk=n)),
+        )
+        rows.append(r)
+        print(f"  slice length {n}: histogram with init "
+              f"{r['histogram_init_ms']:.3f} ms, without init "
+              f"{r['histogram_ms']:.3f} ms; model accumulation with init "
+              f"{r['model_init_ms']:.3f} ms")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=cs.NYT["docs"])
@@ -136,7 +174,8 @@ def main() -> int:
               f"{r['read_ms']:.4f} ms + write {r['write_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms; trace per call: {kern}; device "
               f"busy share {busy}")
-    print(json.dumps({"card": card, "uses": rows}))
+    sweep = slice_sweep(tr, corpus)
+    print(json.dumps({"card": card, "uses": rows, "slice_sweep": sweep}))
     return 0
 
 

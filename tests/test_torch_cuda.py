@@ -306,15 +306,11 @@ def test_spmm_on_the_card_matches_plain(dev):
         assert bool(((got.double() - ref).abs() <= 1e-5 * bound).all())
 
 
-def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
-    """The whole slice on the card (both kernels launched) against the same
-    slice on the CPU with the plain versions. Every doc's counts add up to
-    64, the corpus's average, so each normalized value is its count and
-    each catchword mass an integer sum, exact in float32 whatever the
-    order of the sum: the card's masses equal the CPU's bit for bit, two
-    topics that tie tie on both and both take the first (argmax), so the
-    top-two topics and the edge topics must match."""
-    from isle_tpu_torch import Corpus, GpuConfig, TrainConfig, Trainer
+def _exact_corpus():
+    """(corpus, k): every doc's counts add up to 64, the corpus's average,
+    so each normalized value is its count and each catchword mass an
+    integer sum, exact in float32 whatever the order of the sum."""
+    from isle_tpu_torch import Corpus
 
     rng = np.random.default_rng(0)
     V, D, k = 300, 600, 5
@@ -331,6 +327,18 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
     corpus = Corpus.from_entries(d, w, counts, vocab_size=V, num_docs=D)
     assert corpus.avg_doc_sz == 64
     np.testing.assert_array_equal(corpus.vals, counts)
+    return corpus, k
+
+
+def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The whole slice on the card (both kernels launched) against the same
+    slice on the CPU with the plain versions, on the corpus of exact
+    masses: the card's masses equal the CPU's bit for bit, two topics
+    that tie tie on both and both take the first (argmax), so the top-two
+    topics and the edge topics must match."""
+    from isle_tpu_torch import GpuConfig, TrainConfig, Trainer
+
+    corpus, k = _exact_corpus()
     cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
                       max_edge_topics=8)
     runs = {}
@@ -380,3 +388,210 @@ def test_mwu_on_the_card_matches_the_cpu(dev):
         np.testing.assert_array_equal(g[1], c[1])
         for a, b in zip((g[0], g[2], g[3]), (c[0], c[2], c[3])):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+def _doc_ordered_chunks(n, S, rows, seed, pieces=5):
+    """A stream in doc order whose word-keyed sums cross every chunk: the
+    segments (words) of each piece are sorted on their own, as the streamed
+    passes sort a chunk by word. Returns a list of (seg, idx, val)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for part in np.array_split(np.arange(n), pieces):
+        seg = np.sort(np.minimum(
+            (np.exp(rng.random(part.size) * np.log(S)) - 1).astype(np.int64),
+            S - 1)).astype(np.int32)
+        idx = rng.integers(0, rows, part.size).astype(np.int32)
+        val = (rng.random(part.size) + 0.5).astype(np.float32)
+        out.append((seg, idx, val))
+    return out
+
+
+@pytest.mark.parametrize("with_val", [False, True])
+def test_onehot_init_carried_over_chunks(dev, with_val):
+    """The streamed histogram's use: each chunk's launch takes the running
+    result as init. Over five chunks the counts equal one plain pass over
+    the whole stream exactly, float sums within rtol 1e-5 of float64, and
+    a second accumulation is bit-equal; init is never written."""
+    S, ncols = 3_000, 37
+    chunks = _doc_ordered_chunks(100_000, S, ncols, 21)
+
+    def accumulate():
+        acc = torch.zeros((S + 1, ncols), device=dev,
+                          dtype=torch.float32 if with_val else torch.int32)
+        for seg, col, val in chunks:
+            s, c, v = _cuda(dev, seg, col, val if with_val else None)
+            prev, keep = acc, acc.clone()
+            acc = segsum.segsum_onehot(s, c, v, S, ncols, init=acc)
+            assert acc.data_ptr() != prev.data_ptr()
+            assert torch.equal(prev, keep)
+        return acc
+
+    got = accumulate()
+    seg, col, val = (np.concatenate(x) for x in zip(*chunks))
+    s, c, v = _cuda(dev, seg, col, val)
+    if with_val:
+        ref = segsum.segsum_onehot_plain(s, c, v.double(), S, ncols)
+        torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got, segsum.segsum_onehot_plain(s, c, None, S,
+                                                           ncols))
+    assert torch.equal(got, accumulate())
+
+
+@pytest.mark.parametrize("W", [1, 100])
+def test_gather_rows_init_carried_over_chunks(dev, W):
+    """The streamed model accumulation's use: five word-sorted chunks added
+    into a running (S + 1, W) result through init."""
+    S, rows = 3_000, 2_000
+    chunks = _doc_ordered_chunks(100_000, S, rows, 22)
+    table = torch.from_numpy(np.random.default_rng(23).random(
+        (rows, W)).astype(np.float32)).to(dev)
+
+    def accumulate():
+        acc = torch.zeros((S + 1, W), device=dev)
+        for seg, idx, val in chunks:
+            prev, keep = acc, acc.clone()
+            acc = segsum.segsum_gather_rows(*_cuda(dev, seg, idx, val), table,
+                                            S, init=acc)
+            assert torch.equal(prev, keep)
+        return acc
+
+    got = accumulate()
+    seg, idx, val = (np.concatenate(x) for x in zip(*chunks))
+    s, i, v = _cuda(dev, seg, idx, val)
+    ref = segsum.segsum_gather_rows_plain(s, i, v.double(), table.double(),
+                                          S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, accumulate())
+
+
+def test_gram_operator_at_width_one(dev):
+    """The Lanczos matvec: sparse.gram_x on a (V, 1) vector of mixed signs
+    launches the gather kernel twice at W = 1 and equals the plain version
+    in float64 within 1e-5 |B| |B^T| |x|."""
+    from isle_tpu_torch import sparse
+
+    corpus, _ = _exact_corpus()
+    A = sparse.DocSparse.from_corpus(corpus, dev)
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(A.vocab, 1)).astype(np.float32)).to(dev)
+    before = segsum.segsum_gather_rows.launches
+    got = sparse.gram_x(A, x)
+    assert segsum.segsum_gather_rows.launches == before + 2
+
+    def plain(vec):
+        y = segsum.segsum_gather_rows_plain(
+            A.d_doc, A.d_word, A.d_val.double(), vec, A.num_docs)
+        return segsum.segsum_gather_rows_plain(
+            A.w_word, A.w_doc, A.w_val.double(), y[:A.num_docs],
+            A.vocab)[:A.vocab]
+
+    ref, bound = plain(x.double()), plain(x.double().abs())
+    torch.cuda.synchronize()
+    assert got.shape == (A.vocab, 1)
+    assert bool(((got.double() - ref).abs() <= 1e-5 * bound).all())
+
+
+def test_chunk_loader_on_the_card(dev):
+    """Every chunk arrives on the card as the corpus holds it, through the
+    two staging slots, whether the caller takes the chunks one after the
+    other or loads a range on its own; the copies are accounted for."""
+    from isle_tpu_torch.streaming import ChunkLoader
+
+    corpus, _ = _exact_corpus()
+    loader = ChunkLoader(corpus, 1500, dev)
+    assert len(loader.ranges) >= 5 and len(loader._slots) == 2
+    docs = corpus.doc_ids()
+    for _ in range(2):  # a second pass reuses the buffers
+        seen = 0
+        for lo, hi, w, v, d in loader.chunks():
+            a, b = int(corpus.offsets[lo]), int(corpus.offsets[hi])
+            assert a == seen and w.is_cuda and v.is_cuda and d.is_cuda
+            np.testing.assert_array_equal(w.cpu().numpy(), corpus.rows[a:b])
+            np.testing.assert_array_equal(v.cpu().numpy(), corpus.vals[a:b])
+            np.testing.assert_array_equal(d.cpu().numpy(), docs[a:b])
+            seen = b
+        assert seen == corpus.nnz
+    lo, hi = loader.ranges[2]
+    w, v, d = loader.load(lo, hi)
+    a, b = int(corpus.offsets[lo]), int(corpus.offsets[hi])
+    np.testing.assert_array_equal(w.cpu().numpy(), corpus.rows[a:b])
+    assert loader.bytes_copied == (
+        corpus.offsets.nbytes + 8 * (2 * corpus.nnz + b - a))
+    assert loader.copy_wait_ms() >= 0.0 and loader.host_wait_seconds >= 0.0
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_streamed_trainer_on_the_card(dev, tmp_path, sampled):
+    """The out-of-core trainer on the card against the in-core trainer on
+    the card, same seed: ζ, B's docs, clusters, catchwords and top-two
+    topics exactly (the corpus's masses are exact in float32), the model
+    within rtol 1e-4; every streamed accumulation launched a kernel."""
+    from isle_tpu_torch import GpuConfig, TrainConfig, Trainer
+    from isle_tpu_torch.streaming import StreamedTrainer
+
+    corpus, k = _exact_corpus()
+    cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
+                      max_edge_topics=8, sample_docs=sampled,
+                      sample_rate=0.6 if sampled else 0.0)
+    gpu = GpuConfig(device="cuda")
+    ref = Trainer(cfg, output_dir=str(tmp_path / "incore"), quiet=True,
+                  gpu=gpu)
+    ref.load_corpus(corpus)
+    ref.train()
+    got = StreamedTrainer(cfg, output_dir=str(tmp_path / "streamed"),
+                          chunk_entries=1500, gpu=gpu)
+    got.load_corpus(corpus)
+    segsum.reset_launch_counts()
+    got.train()
+    counts = segsum.launch_counts()
+    chunks = len(got.loader.ranges)
+    assert chunks >= 5
+    # the histogram and the mass (and the sampling weights) a chunk each
+    assert counts["segsum_onehot"] >= (3 if sampled else 2) * chunks, counts
+    # the model accumulation a chunk each, besides the SpMMs
+    assert counts["segsum_gather_rows"] >= chunks + 2, counts
+    np.testing.assert_array_equal(got.original_cols, ref.original_cols)
+    np.testing.assert_array_equal(got.cluster_of_doc, ref.cluster_of_doc)
+    for a, b in zip(got.catchwords, ref.catchwords):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got.top_pairs, ref.top_pairs):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(got.evalues, ref.evalues, rtol=1e-4)
+    np.testing.assert_allclose(got.model, ref.model, rtol=1e-4, atol=1e-6)
+    # and the in-core trainer finishes the streamed run's checkpoints
+    import os
+    os.remove(os.path.join(got.run_dir, "ckpt_model.npz"))
+    back = Trainer(cfg, output_dir=str(tmp_path / "streamed"), quiet=True,
+                   gpu=gpu)
+    back.load_corpus(corpus)
+    back.train(resume=True)
+    np.testing.assert_allclose(back.model, got.model, rtol=1e-5, atol=1e-7)
+
+
+def test_lanczos_on_the_card_matches_the_cpu(dev, tmp_path):
+    """eigensolver="lanczos" on the card (width-1 launches of the gather
+    kernel) against the CPU: eigenvalues within rtol 1e-4, the same
+    clusters."""
+    from isle_tpu_torch import GpuConfig, HyperParams, TrainConfig, Trainer
+
+    corpus, k = _exact_corpus()
+    cfg = TrainConfig(num_topics=k, seed=2,
+                      hyper=HyperParams(eigensolver="lanczos"))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(cfg, output_dir=str(tmp_path / device), quiet=True,
+                     gpu=GpuConfig(device=device))
+        tr.load_corpus(corpus)
+        before = segsum.segsum_gather_rows.launches
+        tr.train()
+        if device == "cuda":
+            assert segsum.segsum_gather_rows.launches - before >= \
+                2 * tr.op_counter.calls
+        runs[device] = tr
+    g, c = runs["cuda"], runs["cpu"]
+    assert g.op_counter.calls == c.op_counter.calls > 0
+    np.testing.assert_allclose(g.evalues, c.evalues, rtol=1e-4)
+    np.testing.assert_array_equal(g.cluster_of_doc, c.cluster_of_doc)
+    np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)

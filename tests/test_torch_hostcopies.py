@@ -1,5 +1,6 @@
 """The port's own copies of isle_tpu's host modules (config, corpus,
-native, io_text, diagnostics) and of bench.py's synthetic corpus, held
+native, io_text, diagnostics, preprocessed, obs's Logger) and of
+bench.py's synthetic corpus, held
 against the originals on the same inputs: the same fields and defaults,
 equal arrays, byte-identical files."""
 
@@ -15,8 +16,10 @@ from isle_tpu import corpus as jcorpus
 from isle_tpu import diagnostics as jdiag
 from isle_tpu import io_text as jio
 from isle_tpu import native as jnative
+from isle_tpu import obs as jobs
+from isle_tpu import preprocessed as jpre
 from isle_tpu_torch import config, corpus, diagnostics, io_text, native, \
-    synth
+    obs, preprocessed, synth
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -143,8 +146,8 @@ def _write_both(tmp_path, name, write):
 
 
 @pytest.mark.parametrize("writer", [
-    "sparse_model", "top_words", "top_topics", "edge_composition",
-    "float_triples", "int_triples",
+    "sparse_model", "dense_model", "top_words", "top_topics",
+    "edge_composition", "float_triples", "int_triples",
 ])
 def test_writers_are_byte_identical(tmp_path, writer):
     model = _model(4)
@@ -157,6 +160,7 @@ def test_writers_are_byte_identical(tmp_path, writer):
     words = [f"w{i}" for i in range(60)]
     write = {
         "sparse_model": lambda p, io, nv: io.write_sparse_model(p, model),
+        "dense_model": lambda p, io, nv: io.write_dense_model(p, model),
         "top_words": lambda p, io, nv: io.write_top_words(p, model, words, 7),
         "top_topics": lambda p, io, nv: io.write_top_topics(
             p, weights, conv, doc_begin=11, top_n=3),
@@ -190,6 +194,78 @@ def test_diagnostics_match():
                           jdiag.topic_coherence(ref, model, 5))
     assert diagnostics.topic_diversity(model) == \
         jdiag.topic_diversity(model)
+
+
+def _diag_corpora(seed):
+    d, w, c = _entries(seed, n=3000, V=60, D=150)
+    return (corpus.Corpus.from_entries(d, w, c, vocab_size=60),
+            jcorpus.Corpus.from_entries(d, w, c, vocab_size=60))
+
+
+@pytest.mark.parametrize("seed", [7, 9])
+def test_report_diagnostics_match(seed):
+    """log_combinatorial, count_distinct_top_five, doc_frequency and
+    joint_doc_frequency, the functions behind the diagnostic reports."""
+    ours, ref = _diag_corpora(seed)
+    got, want = diagnostics.log_combinatorial(ours), \
+        jdiag.log_combinatorial(ref)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    counts = [(diagnostics.count_distinct_top_five(ours, m),
+               jdiag.count_distinct_top_five(ref, m)) for m in (0, 1, 2, 5)]
+    assert all(a == b for a, b in counts) and counts[0][0] > 0
+    words = np.array([0, 3, 17, 59])
+    assert np.array_equal(diagnostics.doc_frequency(ours, words),
+                          jdiag.doc_frequency(ref, words))
+    J = diagnostics.joint_doc_frequencies(ours, words)
+    for i, a in enumerate(words):
+        for j, b in enumerate(words):
+            n = diagnostics.joint_doc_frequency(ours, int(a), int(b))
+            assert n == jdiag.joint_doc_frequency(ref, int(a), int(b))
+            assert n == J[i, j]
+    empty = corpus.Corpus.from_entries(
+        np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.int64),
+        vocab_size=5, num_docs=3)
+    assert diagnostics.count_distinct_top_five(empty, 0) == 0
+    ours.counts = None
+    with pytest.raises(ValueError, match="raw counts"):
+        diagnostics.log_combinatorial(ours)
+
+
+def test_preprocessed_files_are_byte_identical(tmp_path):
+    ours, ref = _diag_corpora(11)
+    preprocessed.save_preprocessed(ours, str(tmp_path / "ours"))
+    jpre.save_preprocessed(ref, str(tmp_path / "ref"))
+    for ext in ("_tr.info", "_tr.csr", "_tr.col", "_tr.off", ".csr", ".col",
+                ".off"):
+        a = (tmp_path / ("ours" + ext)).read_bytes()
+        assert a == (tmp_path / ("ref" + ext)).read_bytes() and a, ext
+    got = preprocessed.load_preprocessed(str(tmp_path / "ref"))
+    want = jpre.load_preprocessed(str(tmp_path / "ours"))
+    assert got.counts is None and want.counts is None
+    got.counts = want.counts = ours.counts
+    _same_corpus(got, want)
+    _same_corpus(got, ours)
+
+
+def test_logger_sinks_and_close(tmp_path):
+    """The handle API's log sinks: both Loggers hand the same messages to
+    a sink and write the same files."""
+    seen = {}
+    for tag, mod in (("ours", obs), ("ref", jobs)):
+        log = mod.Logger(str(tmp_path / tag), quiet=True)
+        seen[tag] = []
+        for ch in ("info", "warning", "error"):
+            log.add_sink(ch, seen[tag].append)
+        log.info("a")
+        log.warning("b")
+        log.diag("c")
+        mod.Timer(log).diag("d")
+        log.close()
+        log.close()
+    assert seen["ours"] == seen["ref"] == ["a", "WARNING: b"]
+    for name in ("diagnosticLog.txt", "timerLog.txt"):
+        assert (tmp_path / "ours" / name).read_bytes() == \
+            (tmp_path / "ref" / name).read_bytes()
 
 
 @pytest.mark.parametrize("seed", [0, 5])

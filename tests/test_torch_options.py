@@ -85,14 +85,25 @@ def test_option_matches_jax_trainer(tmp_path, option):
 
 
 def test_check_supported_rejects_only_lanczos():
+    """The name is from when Lanczos was the one option not ported:
+    check_supported now accepts every eigensolver isle_tpu's single-device
+    trainer accepts, and refuses what that refuses, as ValueError."""
     for option in OPTIONS:
         check_supported(_config(option))
-    with pytest.raises(NotImplementedError, match="lanczos"):
+    for eig in ("block_ks", "dense", "lanczos"):
         check_supported(TrainConfig(
-            num_topics=4, hyper=HyperParams(eigensolver="lanczos")))
+            num_topics=4, hyper=HyperParams(eigensolver=eig)))
+    with pytest.raises(ValueError, match="unknown eigensolver 'arpack'"):
+        check_supported(TrainConfig(
+            num_topics=4, hyper=HyperParams(eigensolver="arpack")))
     with pytest.raises(ValueError, match="seed docs"):
         check_supported(TrainConfig(num_topics=4, hyper=HyperParams(
             enable_kmeans_on_lowd=False, kmeans_init_method="kmeansbb")))
+    for bad in (dict(kmeans_init_method="random"),
+                dict(kmeans_algo_for_sparse="hamerly")):
+        with pytest.raises(ValueError, match="unknown kmeans"):
+            check_supported(TrainConfig(num_topics=4,
+                                        hyper=HyperParams(**bad)))
 
 
 def _port_of(J):

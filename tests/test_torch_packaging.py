@@ -48,6 +48,8 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch", "isle_tpu_torch.mwu", "isle_tpu_torch.inferencer",
     "isle_tpu_torch.cli.infer", "isle_tpu_torch.cli.train",
     "isle_tpu_torch.trainer", "isle_tpu_torch.elkans",
+    "isle_tpu_torch.streaming", "isle_tpu_torch.capi",
+    "isle_tpu_torch.preprocessed",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
@@ -71,7 +73,8 @@ def test_import_pulls_in_no_jax(module):
 def test_trains_and_infers_with_jax_isle_tpu_and_bench_blocked(tmp_path):
     """A meta-path finder refuses jax, isle_tpu and bench; the port still
     builds a corpus, trains it on the CPU with edge topics, writes the
-    model, loads it back and infers the corpus."""
+    model and two reports, trains it again out of core, loads the model
+    back and infers the corpus."""
     code = f"""
 import sys
 
@@ -101,6 +104,15 @@ tr.load_corpus(corpus)
 tr.train()
 tr.train_edge_topics()
 tr.write_model_to_file()
+tr.output_avg_topic_coherence()
+tr.compute_input_svd()
+from isle_tpu_torch.streaming import StreamedTrainer
+st = StreamedTrainer(tr.config, output_dir=os.path.join({str(tmp_path)!r}, "s"),
+                     chunk_entries=400, gpu=cpu)
+st.load_corpus(corpus)
+st.train()
+assert np.array_equal(st.cluster_of_doc, tr.cluster_of_doc)
+assert np.allclose(st.model, tr.model, rtol=1e-5, atol=1e-7)
 model_file = os.path.join(tr.run_dir, "M_hat_catch_sparse")
 inf = Inferencer(InferConfig(num_topics=3, vocab_size=60),
                  model_file=model_file, output_dir={str(tmp_path)!r},

@@ -24,7 +24,9 @@ REFERENCE_TPU = TpuConfig(
 class JaxDraws:
     """isle_tpu_torch.rng.Draws replaying isle_tpu's key schedule:
     PRNGKey(seed) split once for B (trainer.py:377; the sampling
-    uniforms, bmatrix.py:59), once for the eigensolver (:433) and once for
+    uniforms, bmatrix.py:59), once for the eigensolver (:433; Lanczos draws
+    its start vector from that key and each step's refill direction from
+    the key folded with the step index, linalg.py:521, :472) and once for
     k-means (:478). kmeans.py:156 splits per seeding rep; every seeding
     splits the rep key for its first center (:50, :196, :364) and then
     draws from the rest of it: k-means++ and k-means|| split it for each
@@ -33,9 +35,14 @@ class JaxDraws:
     it for each chain (:393) and that again for its proposals and
     uniforms (:303)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, streamed_sampling: bool = False):
+        """streamed_sampling: the schedule of isle_tpu's StreamedTrainer
+        with sample_docs, which splits once more between the sampling and
+        the eigensolver (streaming.py:1204, :1215)."""
         key = jax.random.PRNGKey(seed)
         key, self._b = jax.random.split(key)
+        if streamed_sampling:
+            key, _ = jax.random.split(key)
         key, self._eig = jax.random.split(key)
         key, self._km = jax.random.split(key)
 
@@ -55,6 +62,14 @@ class JaxDraws:
 
     def krylov_start(self, dim, blk):
         return _to_torch(jax.random.normal(self._eig, (dim, blk), jnp.float32))
+
+    def lanczos_start(self, dim):
+        return _to_torch(jax.random.normal(self._eig, (dim,), jnp.float32))
+
+    def lanczos_refill(self, j, dim):
+        # linalg.py:472: the key folded with the step index
+        return _to_torch(jax.random.normal(
+            jax.random.fold_in(self._eig, j), (dim,), jnp.float32))
 
     def seeding_first(self, num_docs):
         self._km, rep = jax.random.split(self._km)
