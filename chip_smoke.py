@@ -19,10 +19,14 @@ stay) and says so on its own line. Phases, in order:
      equal but where the doc's catchword masses tie (check_tiny);
   4. the main path: Trainer.train() + train_edge_topics() at the NYTimes
      shape with the launch counts reset just before and read just after;
-     then a second training run of the same corpus and seed: its wall,
-     and whether its catchword count, edge-topic count, clusters, model
-     and doc-topic mass equal the first run's (printed, not required:
-     Lloyd's near ties meet the projected Lloyd's index_add_ atomics);
+     then three more training runs of the same corpus and seed: their
+     walls, and each one's clusters, catchwords, doc-topic mass, centers,
+     model and edge model REQUIRED equal to the first run's, bit for bit
+     (no float atomics are left on the path, the projected Lloyd's sums
+     by a one-hot matmul, and k-means++ takes its cumulative sum on the
+     host); beside them, how many distinct results torch.cumsum gives on
+     the card for 200 launches on one vector of the corpus's doc count
+     (printed: it is why that sum left the card);
   5. kernel against plain version on the main path's streams, each use
      timed with CUDA events beside its bound (bytes: the stream, the
      table and the output once, at 3.35 TB/s; operations at 67 TFLOP/s
@@ -69,6 +73,27 @@ stay) and says so on its own line. Phases, in order:
 
 Between 7 and 8, with the in-core corpus off the card:
 
+  M1. the sharded trainer (Trainer with a sharding.Mesh) at world size 1
+     over a one-rank NCCL group whose rendezvous is a file under the
+     output directory (if torch.distributed has no NCCL the line says so
+     and the mesh has no group), at the NYTimes shape with edge topics,
+     launch counts reset just before and read just after, torch's
+     library SpMM and sparse constructors made to raise meanwhile: ζ,
+     original_cols, clusters and catchword sets equal phase 4's exactly,
+     the model within 1e-6; every stage's launches (Trainer.stage_launches)
+     equal the in-core stage's; wall, stage walls, peak device memory, the
+     collectives' count and the time inside them;
+  M2. doc-parallel inference over the same group on the first 20,000 docs
+     against the single-device Inferencer: convergence flags equal,
+     weights within rtol 2e-5;
+  M3. the C shim (isle_tpu_torch/csrc/isle_capi_torch.cpp) built with g++
+     and native/capi_smoke.c run against it with ISLE_CAPI_DEVICE=cuda;
+  M4. one more in-core run with GpuConfig.profile_dir: the Chrome trace
+     must exist and hold CUDA kernel events and a marker for every stage;
+     from it, how the eigensolve's time splits into the SpMM kernels, QR,
+     the orthogonalization matmuls, other kernels, copies and idle device
+     time, with the host's time in the Ritz eigh and in synchronizes;
+
   S1. streamed training (isle_tpu_torch.streaming.StreamedTrainer) of the
      same corpus at full width, chunk_entries 2^22 (12 chunks), launch
      counts reset just before and read just after: ζ, original_cols and
@@ -107,7 +132,7 @@ Between 7 and 8, with the in-core corpus off the card:
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
-"launches_by_path"), max error, and the sums of ms, plain_ms, bound_ms
+"launches_by_path", the sharded and the traced run among them), max error, and the sums of ms, plain_ms, bound_ms
 and library_ms over the uses that a driven path launched, every use
 listed under "uses"), the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
@@ -117,6 +142,9 @@ CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
+import datetime
 import json
 import os
 import shutil
@@ -184,14 +212,14 @@ def make_corpus(entries, shape: dict, normalize_to_one: bool = False):
 
 
 def train(corpus, shape: dict, seed: int, device: str, out: str,
-          hyper=None, **cfg_kw):
+          hyper=None, mesh=None, profile_dir: str = "", **cfg_kw):
     from isle_tpu_torch import GpuConfig, HyperParams, TrainConfig, Trainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
                       compute_edge_topics=True, max_edge_topics=shape["edges"],
                       hyper=HyperParams(**(hyper or {})), **cfg_kw)
-    tr = Trainer(cfg, output_dir=out, quiet=True,
-                 gpu=GpuConfig(device=device))
+    tr = Trainer(cfg, output_dir=out, quiet=True, mesh=mesh,
+                 gpu=GpuConfig(device=device, profile_dir=profile_dir))
     tr.load_corpus(corpus)
     tr.train()
     tr.train_edge_topics()
@@ -646,9 +674,32 @@ def run_mass(tr) -> torch.Tensor:
     return doc_topic_mass(tr.A, catchword_topics(tr), len(tr.catchwords))
 
 
+def cumsum_probe(n: int, launches: int = 200) -> None:
+    """How reproducible torch.cumsum is on the card: distinct results of
+    `launches` launches on one vector of n floats (beside torch.sum and a
+    float32 matmul reduced over n, which the path still runs there)."""
+    g = torch.Generator().manual_seed(0)
+    x = ((torch.rand(n, generator=g) ** 4) * 50).cuda()
+    a = torch.randn((100, n), generator=g).cuda()
+
+    def distinct(fn):
+        seen = []
+        for _ in range(launches):
+            out = fn()
+            if not any(torch.equal(out, s) for s in seen):
+                seen.append(out)
+        return len(seen)
+
+    print(f"reproducibility on the card, {launches} launches on one input "
+          f"of {n} floats: torch.cumsum {distinct(lambda: torch.cumsum(x, 0))}"
+          f" distinct results, torch.sum {distinct(lambda: torch.sum(x))}, "
+          f"float32 matmul (100 x {n}) @ ({n} x 100) "
+          f"{distinct(lambda: a @ a.T)}")
+
+
 def train_again(corpus, shape, seed, out, first) -> None:
-    """A second training run of the same corpus and seed: its wall, and
-    whether its results equal the first run's (printed, not required)."""
+    """One more training run of the same corpus and seed: its wall, and
+    its results required equal to the first run's, bit for bit."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr = train(corpus, shape, seed, "cuda", out)
@@ -656,15 +707,23 @@ def train_again(corpus, shape, seed, out, first) -> None:
     wall = time.perf_counter() - t0
     n_cw = [sum(len(c) for c in t.catchwords) for t in (first, tr)]
     n_edge = [t.edge_model.shape[1] for t in (first, tr)]
-    print(f"second training run: {wall:.2f} s wall; catchwords {n_cw[1]} "
+    same = {
+        "clusters": np.array_equal(tr.cluster_of_doc, first.cluster_of_doc),
+        "catchwords": all(np.array_equal(a, b) for a, b in
+                          zip(tr.catchwords, first.catchwords)),
+        "doc-topic mass": bool(torch.equal(run_mass(tr), run_mass(first))),
+        "eigenvalues": np.array_equal(tr.evalues, first.evalues),
+        "centers": np.array_equal(tr.centers, first.centers),
+        "model": np.array_equal(tr.model, first.model),
+        "edge model": np.array_equal(tr.edge_model, first.edge_model),
+    }
+    print(f"repeated training run: {wall:.2f} s wall; catchwords {n_cw[1]} "
           f"(first {n_cw[0]}), edge topics {n_edge[1]} (first {n_edge[0]}); "
-          f"clusters equal: "
-          f"{np.array_equal(tr.cluster_of_doc, first.cluster_of_doc)}, "
-          f"doc-topic mass equal: "
-          f"{bool(torch.equal(run_mass(tr), run_mass(first)))}, "
-          f"model equal: {np.array_equal(tr.model, first.model)}, edge "
-          f"model equal: {np.array_equal(tr.edge_model, first.edge_model)}")
+          + ", ".join(f"{name} equal: {ok}" for name, ok in same.items()))
     tr.A = None
+    differ = [name for name, ok in same.items() if not ok]
+    assert not differ, \
+        f"a repeated run of one tree differs from the first in {differ}"
 
 
 def print_uses(uses: dict, path: str) -> None:
@@ -1092,6 +1151,344 @@ def reports_phase(gpu, cpu) -> None:
           f"{np.abs(g[2] - c[2]).max():.2e})")
 
 
+INFER_SLICE_DOCS = 20_000
+# the sharded trainer's stage labels beside the in-core stage each stands for
+SHARDED_STAGES = {
+    "upload A to device (sharded)": "upload A to device",
+    "computing thresholds": "computing thresholds",
+    "creating thresholded and scaled matrix (sharded)":
+        "creating thresholded and scaled matrix",
+    "eigen solve (B B^T, sharded)": "eigen solve (B B^T)",
+    "project docs": "project docs",
+    "k-means seeds initialization": "k-means seeds initialization",
+    "converging Lloyds k-means on B_k": "converging Lloyds k-means on B_k",
+    "k-means on B (sharded)": "k-means on B",
+    "collecting word freqs in clusters (sharded)":
+        "collecting word freqs in clusters",
+    "finding catchwords for clusters": "finding catchwords for clusters",
+    "constructing topic vectors (sharded)": "constructing topic vectors",
+}
+
+
+@contextlib.contextmanager
+def no_library_spmm():
+    """torch's sparse product and sparse constructors raise inside: a run
+    that passes took every product through the port's kernels."""
+    def refuse(*a, **kw):
+        raise AssertionError("the port called a torch.sparse routine")
+
+    names = ("mm", "addmm", "sum")
+    saved = {n: getattr(torch.sparse, n) for n in names}
+    ctors = {n: getattr(torch, n) for n in
+             ("sparse_coo_tensor", "sparse_csr_tensor")}
+    for n in names:
+        setattr(torch.sparse, n, refuse)
+    for n in ctors:
+        setattr(torch, n, refuse)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.sparse, n, fn)
+        for n, fn in ctors.items():
+            setattr(torch, n, fn)
+
+
+def one_rank_mesh(out: str):
+    """A sharding.Mesh of this process alone: over a one-rank NCCL group
+    (rendezvous: a file under `out`) where torch.distributed has NCCL,
+    else without a group. Returns (mesh, the line that says which)."""
+    import torch.distributed as dist
+
+    from isle_tpu_torch.sharding import Mesh
+
+    if not (dist.is_available() and dist.is_nccl_available()):
+        return Mesh("cuda"), ("torch.distributed has no NCCL on this host: "
+                              "the mesh has NO process group, every "
+                              "collective is the identity")
+    os.makedirs(out, exist_ok=True)
+    rendezvous = os.path.join(out, "nccl_rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rendezvous}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = Mesh.from_process_group("cuda")
+    # the first collective makes NCCL's communicator: outside every timing
+    mesh.all_reduce(torch.zeros(8, device="cuda"))
+    torch.cuda.synchronize()
+    return mesh, (f"one-rank NCCL group (world size {mesh.world}, rank "
+                  f"{mesh.rank}), made and warmed in "
+                  f"{time.perf_counter() - t0:.2f} s")
+
+
+def sharded_phase(corpus, shape, seed, out, tr, mesh, per_incore) -> tuple:
+    """Phase M1. Returns (the sharded trainer, its launch counts, its
+    launches by stage)."""
+    from isle_tpu_torch import segsum
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0, sec0 = mesh.collective_calls, mesh.collective_seconds()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    with no_library_spmm():
+        sh = train(corpus, shape, seed, "cuda", os.path.join(out, "nyt_m"),
+                   mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    coll_s = mesh.collective_seconds() - sec0
+    per = stage_launches(sh)
+    print(f"sharded path, world size {mesh.world}: train + edge topics "
+          f"{wall:.2f} s wall, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
+          f"launches {launches}; {mesh.collective_calls - calls0} "
+          f"collectives, {coll_s:.4f} s inside them ({coll_s / wall:.2%} of "
+          f"the wall); {card_line()}")
+    for label, w, _ in sh.timer.phases:
+        print(f"  sharded stage {label}: {w:.3f} s")
+    assert sh.mesh is mesh and sh.A is None
+    ours, ref = run_dir_arrays(sh, "svd"), run_dir_arrays(tr, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"]), "sharded zetas"
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    assert np.array_equal(sh.cluster_of_doc, tr.cluster_of_doc), \
+        "sharded clusters differ from the in-core run's"
+    for t, (a, b) in enumerate(zip(sh.catchwords, tr.catchwords)):
+        assert np.array_equal(a, b), f"sharded run: catchwords of topic {t}"
+    np.testing.assert_allclose(sh.evalues, tr.evalues, rtol=1e-4)
+    np.testing.assert_allclose(sh.model, tr.model, rtol=0, atol=1e-6)
+    for a, b in zip(sh.top_pairs, tr.top_pairs):
+        assert np.array_equal(a, b), "sharded run: top-two topics"
+    assert np.array_equal(sh.edge_pairs, tr.edge_pairs)
+    # stage by stage the launches of the in-core run: each rank's local
+    # products are the same wrappers. The in-core B stage also logs
+    # Frob(B), one more launch of the doc norms.
+    for stage, counts in per.items():
+        want = dict(per_incore[SHARDED_STAGES.get(stage, stage)])
+        if stage.startswith("creating thresholded"):
+            want[ONEHOT] -= 1
+        assert counts == want, \
+            f"sharded stage {stage!r} launched {counts}, in core {want}"
+    assert per["eigen solve (B B^T, sharded)"][GATHER] == \
+        2 * sh.op_counter.calls
+    print("sharded checks: zetas, original_cols, clusters, catchwords, "
+          "top-two topics and edge pairs equal the in-core run's; model max "
+          f"abs diff {np.abs(sh.model - tr.model).max():.3e} (bit-equal: "
+          f"{np.array_equal(sh.model, tr.model)}), eigenvalues bit-equal: "
+          f"{np.array_equal(sh.evalues, tr.evalues)}; no torch.sparse call; "
+          "launches by stage (segsum_onehot, segsum_gather_rows): "
+          + "; ".join(f"{stage} ({c[ONEHOT]}, {c[GATHER]})"
+                      for stage, c in per.items()))
+    return sh, launches, per
+
+
+def sharded_infer_phase(tr, entries, shape, out, mesh) -> None:
+    """Phase M2: the first INFER_SLICE_DOCS docs inferred on one device
+    and doc-parallel over the mesh."""
+    from isle_tpu_torch import GpuConfig, InferConfig, Inferencer
+
+    d, w, c = entries
+    n = min(INFER_SLICE_DOCS, shape["docs"])
+    keep = d < n
+    sub = make_corpus((d[keep], w[keep], c[keep]), dict(shape, docs=n),
+                      normalize_to_one=True)
+    V, k = tr.model.shape
+    res, walls = {}, {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        inf = Inferencer(InferConfig(num_topics=k, vocab_size=V),
+                         model=tr.model, quiet=True, mesh=m,
+                         output_dir=os.path.join(out, f"infer_m_{name}"),
+                         gpu=GpuConfig(device="cuda"))
+        calls0 = mesh.collective_calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = inf.infer_corpus(sub, top_n=5)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if m is not None and mesh.group is not None:
+            assert mesh.collective_calls > calls0, "no gather at the end"
+    g, r = res["mesh"], res["single"]
+    assert np.array_equal(g.converged, r.converged), \
+        "doc-parallel inference: convergence flags differ"
+    np.testing.assert_allclose(g.weights, r.weights, rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(g.llh_per_doc, r.llh_per_doc, rtol=2e-5,
+                               atol=1e-5)
+    print(f"doc-parallel inference, world size {mesh.world}, {n} docs: "
+          f"{walls['mesh']:.3f} s wall (single device {walls['single']:.3f} "
+          f"s), {g.num_converged} converged, weights bit-equal to the "
+          f"single-device run: {np.array_equal(g.weights, r.weights)}")
+
+
+def capi_phase(out: str) -> None:
+    """Phase M3: the C shim built from the checkout and the plain-C smoke
+    host of native/ run against it on the card."""
+    from isle_tpu_torch import _build_capi
+
+    t0 = time.perf_counter()
+    lib = _build_capi.build_shim()
+    smoke = os.path.join(out, "capi_smoke")
+    os.makedirs(out, exist_ok=True)
+    subprocess.run(
+        [shutil.which("cc") or "gcc", "-O2", "-Wall", "-o", smoke,
+         os.path.join(ROOT, "native", "capi_smoke.c"), "-ldl", "-lm"],
+        check=True, capture_output=True, text=True, timeout=300)
+    built = time.perf_counter() - t0
+    env = dict(os.environ, ISLE_CAPI_DEVICE="cuda", ISLE_CAPI_EDGE_TOPICS="6",
+               PYTHONPATH=os.pathsep.join([ROOT] + [p for p in sys.path
+                                                    if p]))
+    t0 = time.perf_counter()
+    run = subprocess.run([smoke, lib], env=env, capture_output=True,
+                         text=True, timeout=600, cwd=out)
+    assert run.returncode == 0 and "CAPI SMOKE OK" in run.stdout, \
+        f"capi_smoke failed ({run.returncode}):\n{run.stdout}{run.stderr}"
+    print(f"C shim: {os.path.relpath(lib)} built with g++ and the smoke "
+          f"host with cc in {built:.2f} s; native/capi_smoke.c on cuda in "
+          f"{time.perf_counter() - t0:.2f} s: {run.stdout.strip()}")
+
+
+def _union_seconds(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, end = 0.0, -1.0
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def eigensolve_split(events: list) -> dict:
+    """Where the eigensolve's time went, from the events of a
+    GpuConfig.profile_dir trace: the stage's window is cut by the
+    trainer's stage markers; a kernel belongs to the operator whose
+    CPU-side call launched it (by the trace's correlation ids).
+    Milliseconds."""
+    from isle_tpu_torch.obs import STAGE_MARK
+
+    events = [e for e in events if e.get("ph") == "X"]
+    marks = sorted((e["ts"], e["name"][len(STAGE_MARK):]) for e in events
+                   if e.get("name", "").startswith(STAGE_MARK))
+    labels = [name for _, name in marks]
+    assert "eigen solve (B B^T)" in labels, labels
+    i = labels.index("eigen solve (B B^T)")
+    lo, hi = marks[i - 1][0], marks[i][0]
+
+    def inside(e):
+        return lo <= e["ts"] < hi
+
+    def spans(name):
+        ops = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "cpu_op" and e["name"] == name
+                     and inside(e))
+        return ops, [a for a, _ in ops]
+
+    qr_ops, qr_starts = spans("aten::linalg_qr")
+    mm_ops, mm_starts = spans("aten::mm")
+
+    def within(ops, starts, ts):
+        j = bisect.bisect_right(starts, ts) - 1
+        return j >= 0 and ts < ops[j][1]
+
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    device = {"SpMM kernels (segsum_gather_rows)": 0.0,
+              "QR (kernels launched by aten::linalg_qr)": 0.0,
+              "matmuls (kernels launched by aten::mm)": 0.0,
+              "other kernels": 0.0, "copies": 0.0}
+    busy = []
+    n_kernels = 0
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset") or not inside(e):
+            continue
+        busy.append((e["ts"], e["ts"] + e["dur"]))
+        ts = launch_ts.get(e.get("args", {}).get("correlation"), e["ts"])
+        if cat != "kernel":
+            key = "copies"
+        elif "segsum" in e["name"]:
+            key = "SpMM kernels (segsum_gather_rows)"
+        elif within(qr_ops, qr_starts, ts):
+            key = "QR (kernels launched by aten::linalg_qr)"
+        elif within(mm_ops, mm_starts, ts):
+            key = "matmuls (kernels launched by aten::mm)"
+        else:
+            key = "other kernels"
+        n_kernels += cat == "kernel"
+        device[key] += e["dur"] / 1e3
+    window = (hi - lo) / 1e3
+    host = {}
+    for name in ("aten::linalg_eigh", "aten::linalg_qr", "aten::mm"):
+        host[name] = sum(e["dur"] for e in events if e.get("cat") == "cpu_op"
+                         and e["name"] == name and inside(e)) / 1e3
+    host["synchronizes and blocking copies (cuda runtime)"] = sum(
+        e["dur"] for e in events if e.get("cat") == "cuda_runtime"
+        and inside(e) and ("Synchronize" in e["name"]
+                           or e["name"].startswith("cudaMemcpy"))) / 1e3
+    return dict(window_ms=window, device_ms=device,
+                device_idle_ms=window - _union_seconds(busy) / 1e3,
+                host_ms=host, kernels=n_kernels,
+                qr_calls=len(qr_ops), mm_calls=len(mm_ops))
+
+
+def traced_phase(corpus, shape, seed, out, tr) -> tuple:
+    """Phase M4. Returns (launch counts, launches by stage) of the traced
+    run."""
+    from isle_tpu_torch import segsum
+    from isle_tpu_torch.obs import STAGE_MARK
+
+    profile_dir = os.path.join(out, "profile")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    traced = train(corpus, shape, seed, "cuda", os.path.join(out, "nyt_p"),
+                   profile_dir=profile_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    traced.A = None
+    assert np.array_equal(traced.cluster_of_doc, tr.cluster_of_doc) and \
+        np.array_equal(traced.model, tr.model), \
+        "the traced run differs from the untraced one"
+    files = os.listdir(profile_dir)
+    assert len(files) == 1 and files[0].endswith(".json"), files
+    path = os.path.join(profile_dir, files[0])
+    t0 = time.perf_counter()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels, "the trace holds no CUDA kernel event"
+    assert any("segsum" in e["name"] for e in kernels), \
+        "the trace holds none of the port's kernels"
+    marks = [e["name"][len(STAGE_MARK):] for e in events
+             if e.get("name", "").startswith(STAGE_MARK)]
+    assert marks == [label for label, _ in traced.stage_launches], marks
+    n_events = len(events)
+    del kernels
+    split = eigensolve_split(events)
+    del events
+    stage = dict((label, w) for label, w, _ in traced.timer.phases)[
+        "eigen solve (B B^T)"]
+    print(f"traced run (GpuConfig.profile_dir): train + edge topics "
+          f"{wall:.2f} s wall with the profiler on (trace export "
+          f"included), trace {os.path.getsize(path) / 2**20:.1f} MiB, "
+          f"{n_events} events, read in {time.perf_counter() - t0:.1f} s; "
+          f"results equal the untraced run's; {card_line()}")
+    print(f"  eigensolve under the profiler: stage {stage:.3f} s, window "
+          f"between its markers {split['window_ms']:.1f} ms, "
+          f"{split['kernels']} kernels, {split['qr_calls']} QR calls, "
+          f"{split['mm_calls']} mm calls; device: "
+          + "; ".join(f"{name} {ms:.1f} ms"
+                      for name, ms in split["device_ms"].items())
+          + f"; device idle {split['device_idle_ms']:.1f} ms; host: "
+          + "; ".join(f"{name} {ms:.1f} ms"
+                      for name, ms in split["host_ms"].items()))
+    return launches, stage_launches(traced)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=NYT["docs"])
@@ -1147,13 +1544,16 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = segsum.launch_counts()
+    per_incore = stage_launches(tr)
     print(f"main path: train + edge topics {wall:.2f} s wall, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"kernel launches {launches}")
     for label, w, _ in tr.timer.phases:
         print(f"  stage {label}: {w:.3f} s")
 
-    train_again(corpus, shape, args.seed, os.path.join(out, "nyt2"), tr)
+    for again in ("nyt2", "nyt3", "nyt4"):
+        train_again(corpus, shape, args.seed, os.path.join(out, again), tr)
+    cumsum_probe(shape["docs"])
 
     uses = compare_kernels(tr, launches, args.seed)
     print_uses(uses, "main path")
@@ -1209,9 +1609,48 @@ def main() -> int:
 
     reports_phase(tiny_tr, tiny_cpu)
 
-    # S1-S3: out of core. The in-core corpus leaves the card first.
+    # M1-M4: the sharded trainer and doc-parallel inference at world size
+    # 1, the C shim, the traced run. The in-core corpus leaves the card
+    # first.
     tr.A = None
     torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    mesh, mesh_line = one_rank_mesh(out)
+    print(f"sharded phases: {mesh_line}")
+    try:
+        sh, m_launches, m_per = sharded_phase(corpus, shape, args.seed, out,
+                                              tr, mesh, per_incore)
+        sharded_calls, sharded_reps = sh.op_counter.calls, lloyds_reps(sh)
+        del sh
+        torch.cuda.empty_cache()
+        sharded_infer_phase(tr, entries, shape, out, mesh)
+    finally:
+        if mesh.group is not None:
+            dist.destroy_process_group()
+    capi_phase(os.path.join(out, "capi"))
+    p_launches, _ = traced_phase(corpus, shape, args.seed, out, tr)
+    torch.cuda.empty_cache()
+    # each use's launches on the sharded run, beside the main path's
+    sharded_use_launches = {
+        "zeta histogram": 1, "r-th group counts": 1, "doc-topic mass": 1,
+        "doc norms of B": 1, "model SpMM B W": 1,
+        "eigensolver B^T X": sharded_calls, "eigensolver B Y": sharded_calls,
+        "Lloyd's B^T C (+ projection)": sharded_reps + 1,
+        "Lloyd's B onehot": sharded_reps,
+    }
+    for rows in uses.values():
+        for u in rows:
+            u["launches_sharded"] = sharded_use_launches[u["use"]]
+    assert m_launches[ONEHOT] == sum(
+        u["launches_sharded"] for u in uses[ONEHOT])
+    assert m_launches[GATHER] == sum(
+        u["launches_sharded"] for u in uses[GATHER])
+    print("launches on the sharded run by use: " + "; ".join(
+        f"{u['use']} {u['launches_sharded']}"
+        for rows in uses.values() for u in rows))
+
+    # S1-S3: out of core.
     st, s_launches, s_per, B = streamed_phase(corpus, shape, args.seed, out,
                                               tr)
     r_launches = streamed_resume_phase(corpus, shape, args.seed, out, tr,
@@ -1229,6 +1668,8 @@ def main() -> int:
         uses[name] += s_uses[name]
     uses[GATHER] += l_uses
     by_path = {name: {"in-core": launches[name],
+                      "sharded, world size 1": m_launches[name],
+                      "in-core, traced": p_launches[name],
                       "streamed": s_launches[name],
                       "streamed, resumed": r_launches[name],
                       "streamed, sampled": ss_launches[name],

@@ -1,6 +1,9 @@
-"""isle-tpu-torch: the PyTorch + CUDA port of isle_tpu's single-device
-in-core training path and its MWU inference, for one NVIDIA Hopper card
-(H100).
+"""isle-tpu-torch: the PyTorch + CUDA port of isle_tpu for NVIDIA Hopper
+cards (H100): training in core (Trainer), out of core (StreamedTrainer)
+and over several cards, one process a card on torch.distributed
+(Trainer with GpuConfig.mesh_shape, sharding.py), MWU inference
+(Inferencer, doc-parallel over the same ranks), the reports, both CLIs
+and the handle API behind a C shim (capi.py, csrc/isle_capi_torch.cpp).
 
 The package keeps isle_tpu's module names so each counterpart is easy to
 find (isle_tpu/thresholds.py -> isle_tpu_torch/thresholds.py, ...). Its
@@ -15,8 +18,10 @@ and synth.py holds the synthetic NYTimes-shape corpus of chip_smoke.py.
 Public surface:
     GpuConfig, HyperParams, TrainConfig  — configuration (config.py)
     InferConfig                          — inference configuration
-    Corpus                               — host ingest (corpus.py)
-    Trainer                              — in-core training (trainer.py)
+    Corpus, EntryFeeder                  — host ingest (corpus.py)
+    Trainer                              — training (trainer.py)
+    StreamedTrainer                      — out-of-core training
+                                           (streaming.py)
     Inferencer                           — MWU inference (inferencer.py)
 
 TF32: importing the package turns TF32 off for float32 matmuls and
@@ -28,13 +33,14 @@ projections and Lloyd's steps need full float32.
 import torch
 
 from .config import GpuConfig, HyperParams, InferConfig, TrainConfig
-from .corpus import Corpus
+from .corpus import Corpus, EntryFeeder
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["Corpus", "GpuConfig", "HyperParams", "InferConfig", "Inferencer",
-           "TrainConfig", "Trainer"]
+__all__ = ["Corpus", "EntryFeeder", "GpuConfig", "HyperParams",
+           "InferConfig", "Inferencer", "StreamedTrainer", "TrainConfig",
+           "Trainer"]
 
 
 def __getattr__(name):
@@ -42,6 +48,10 @@ def __getattr__(name):
         from .trainer import Trainer
 
         return Trainer
+    if name == "StreamedTrainer":
+        from .streaming import StreamedTrainer
+
+        return StreamedTrainer
     if name == "Inferencer":
         from .inferencer import Inferencer
 

@@ -76,15 +76,31 @@ def threshold_and_copy(
     resumed run rebuilds the selection it checkpointed, drawn by whichever
     source wrote it, instead of drawing anew."""
     zetas = zetas.to(device=A.device, dtype=torch.float32)
-    keep_d = torch.floor(A.d_val + 0.5) >= zetas[A.d_word]
-    keep_w = torch.floor(A.w_val + 0.5) >= zetas[A.w_word]
     sel = None
     if docs is not None:
-        sel = torch.zeros(A.num_docs, dtype=torch.bool, device=A.device)
-        sel[torch.as_tensor(np.asarray(docs), dtype=torch.long).to(
-            A.device)] = True
+        sel = docs_mask(docs, A.num_docs, A.device)
     elif sample_rate is not None:
+        keep_d = torch.floor(A.d_val + 0.5) >= zetas[A.d_word]
         sel = sample_select(A, keep_d, zetas, sample_rate, uniforms)
+    return copy_kept(A, zetas, sel)
+
+
+def docs_mask(docs: np.ndarray, num_docs: int, device) -> torch.Tensor:
+    """(num_docs,) bool on `device`: True at the doc ids `docs`."""
+    sel = torch.zeros(num_docs, dtype=torch.bool, device=device)
+    sel[torch.as_tensor(np.asarray(docs), dtype=torch.long).to(device)] = True
+    return sel
+
+
+def copy_kept(A: DocSparse, zetas: torch.Tensor,
+              sel: Optional[torch.Tensor] = None
+              ) -> Tuple[DocSparse, np.ndarray]:
+    """B from the entries of A that reach their word's ζ, of the docs
+    where `sel` (a (num_docs,) bool mask; None: every doc) is True.
+    Returns (B, original_cols): the docs left non-empty, renumbered in
+    order."""
+    keep_d = torch.floor(A.d_val + 0.5) >= zetas[A.d_word]
+    keep_w = torch.floor(A.w_val + 0.5) >= zetas[A.w_word]
     if sel is not None:
         keep_d &= sel[A.d_doc]
         keep_w &= sel[A.w_doc]

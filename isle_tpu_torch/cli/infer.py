@@ -6,7 +6,10 @@ ISLEInfer and of isle_tpu.cli.infer (ISLEInfer.cpp:10-36):
         <min_doc_id> <max_doc_id> <nnzs_in_infer_file>
         <nnzs_in_sparse_model_file> <iters|0> <Lf|0> [--device D]
 
---device is the torch device (default cuda; cpu runs on the host).
+--device is the torch device (default cuda; cpu runs on the host). Under
+`torchrun --nproc_per_node=N -m isle_tpu_torch.cli.infer ...` the docs of
+every block are split over the N processes, one a card, and rank 0 writes
+the report (see isle_tpu_torch.cli.train).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main(argv=None) -> int:
 
     from isle_tpu_torch.config import GpuConfig, InferConfig
     from isle_tpu_torch.inferencer import Inferencer
+    from isle_tpu_torch.sharding import mesh_from_env
 
     (
         model_file,
@@ -57,8 +61,11 @@ def main(argv=None) -> int:
         iters=int(iters),
         Lf=float(Lf),
     )
+    device, mesh = mesh_from_env(device)
+    gpu = GpuConfig(device=device,
+                    mesh_shape=None if mesh is None else (mesh.world,))
     inf = Inferencer(cfg, model_file=model_file, output_dir=output_dir,
-                     gpu=GpuConfig(device=device))
+                     gpu=gpu, mesh=mesh)
     inf.infer_file(
         infer_file,
         doc_begin=int(doc_begin),

@@ -8,6 +8,15 @@ ISLETrain and of isle_tpu.cli.train:
 
 --device is the torch device (default cuda; cpu runs the plain PyTorch
 versions of the kernels). sample=1 samples documents at sample_rate.
+
+Over several GPUs of one host, one process a card:
+
+    torchrun --nproc_per_node=N -m isle_tpu_torch.cli.train <the same>
+
+Each process reads WORLD_SIZE, RANK and LOCAL_RANK, joins the process
+group (NCCL; gloo with --device cpu), binds to cuda:LOCAL_RANK and trains
+with mesh_shape=(WORLD_SIZE,); rank 0 writes the run directory. Started
+alone the CLI runs on one device.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ def main(argv=None) -> int:
         return 1
 
     from isle_tpu_torch.config import GpuConfig, TrainConfig
+    from isle_tpu_torch.sharding import mesh_from_env
     from isle_tpu_torch.trainer import Trainer, check_supported
 
     (
@@ -79,10 +89,15 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    device, mesh = mesh_from_env(device)
+    gpu = GpuConfig(device=device,
+                    mesh_shape=None if mesh is None else (mesh.world,))
     trainer = Trainer(cfg, output_dir=output_dir, vocab_file=vocab_file,
-                      gpu=GpuConfig(device=device))
+                      gpu=gpu, mesh=mesh)
     trainer.load_data_from_file(tdf_file)
     trainer.train()
+    if not trainer.is_writer:  # rank 0 writes for all
+        return 0
     trainer.output_cluster_summary()
     trainer.write_model_to_file()
     trainer.output_doc_topic()

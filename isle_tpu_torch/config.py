@@ -181,16 +181,28 @@ class GpuConfig:
     # in the same run directory (block_ks: the start block; lanczos: its
     # first column), isle_tpu's TpuConfig.eigen_warm_start.
     eigen_warm_start: bool = False
-    # Devices along the document axis, isle_tpu's TpuConfig.mesh_shape.
-    # More than one device is not ported yet: the trainers refuse it.
+    # Devices along the document axis, isle_tpu's TpuConfig.mesh_shape:
+    # one process a card on torch.distributed, as many ranks as the shape
+    # asks for (sharding.py). Trainer and Inferencer shard over them;
+    # StreamedTrainer does not yet.
     mesh_shape: Optional[Tuple[int, ...]] = None
+    # When set, Trainer.train() and StreamedTrainer.train() run inside a
+    # torch.profiler trace (CPU and, on the card, CUDA activities) whose
+    # Chrome trace is written into this directory: isle_tpu's
+    # TpuConfig.profile_dir.
+    profile_dir: str = ""
+
+    def mesh_devices(self) -> int:
+        """Total devices asked for by mesh_shape (1 = a single device)."""
+        return math.prod(self.mesh_shape) if self.mesh_shape else 1
 
     def require_single_device(self) -> None:
-        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
+        if self.mesh_devices() > 1:
             raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape}: training over several GPUs "
-                "is not ported to isle_tpu_torch yet (ROADMAP.md, \"What "
-                "remains\": multi-GPU)"
+                f"mesh_shape={self.mesh_shape}: out-of-core training over "
+                "several GPUs (isle_tpu/streaming_sharded.py) is not ported "
+                "to isle_tpu_torch yet; Trainer shards in core "
+                "(ROADMAP.md, \"What remains\")"
             )
 
     def torch_device(self) -> torch.device:

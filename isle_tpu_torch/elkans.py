@@ -61,12 +61,16 @@ def _half_center_dists(centers: torch.Tensor) -> torch.Tensor:
 
 
 def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
-               timer=None, chunk: int = DEFAULT_CHUNK
+               timer=None, chunk: int = DEFAULT_CHUNK,
+               update_centers=update_centers_full, unchanged=torch.equal
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (centers (k, vocab), assignment int64 (num_docs,)). The
     same fixpoint as Lloyd's up to exact-tie ordering (module
     docstring); stops when a rep reproduces the previous rep's
-    assignment."""
+    assignment. `update_centers` and `unchanged` are the hooks of
+    kmeans.run_lloyds_full, where elkans_sharded meets the other ranks;
+    the bounds, the filter and the exact distances of the flagged docs
+    stay with the rank that holds the docs."""
     k = centers.shape[0]
     D = sp.num_docs
     docs_l2 = doc_l2sq(sp, chunk)
@@ -76,7 +80,7 @@ def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
     lb = dist
     prev = None
     for rep in range(max_reps):
-        centers_new = update_centers_full(sp, assign, k, chunk)
+        centers_new = update_centers(sp, assign, k, chunk)
         move = torch.linalg.norm(centers_new - centers, dim=1)  # (k,)
         centers = centers_new
         s = _half_center_dists(centers)
@@ -95,11 +99,11 @@ def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
             assign_next[ids] = torch.argmin(dmini, dim=1)
             ub[ids] = dmini.amin(dim=1)  # ub and lb are fresh tensors
             lb[ids] = dmini
-        if prev is not None and torch.equal(assign_next, prev):
+        if prev is not None and unchanged(assign_next, prev):
             assign = assign_next
             if timer is not None:
                 timer.diag(f"elkans converged at rep {rep}")
             break
         prev = assign_next
         assign = assign_next
-    return update_centers_full(sp, assign, k, chunk), assign
+    return update_centers(sp, assign, k, chunk), assign

@@ -1,8 +1,8 @@
 """Inference orchestration: load a sparse model, normalize held-out docs to
-unit mass, run batched MWU on one device, and write the per-doc
-top-topic report plus the convergence / log-likelihood aggregates. The
-port of isle_tpu/inferencer.py (ISLEInfer.cpp:10-190,
-src/infer.cpp:327-493) without the mesh."""
+unit mass, run batched MWU on one device or doc-parallel over the ranks
+of a mesh, and write the per-doc top-topic report plus the convergence /
+log-likelihood aggregates. The port of isle_tpu/inferencer.py
+(ISLEInfer.cpp:10-190, src/infer.cpp:327-493)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from .config import GpuConfig, InferConfig
 from .corpus import Corpus
 from .mwu import build_infer_batch, infer_all
 from .obs import Logger, Timer
+from .sharding import Mesh, default_mesh, require_mesh
 
 
 @dataclasses.dataclass
@@ -40,12 +41,23 @@ class Inferencer:
         output_dir: str = ".",
         quiet: bool = False,
         gpu: Optional[GpuConfig] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """`mesh` (or a GpuConfig.mesh_shape of more than one device, on
+        an initialised torch.distributed) infers doc-parallel over its
+        ranks: every rank holds the model and the corpus and returns the
+        whole result; rank 0 alone writes the output directory."""
         self.config = config
-        self.device = (gpu or GpuConfig()).torch_device()
+        self.gpu = gpu or GpuConfig()
+        self.device = self.gpu.torch_device()
+        self.mesh = mesh if mesh is not None else default_mesh(
+            self.gpu, self.device)
+        self.is_writer = self.mesh is None or self.mesh.rank == 0
         self.output_dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
-        self.logger = Logger(output_dir, quiet=quiet)
+        if self.is_writer:
+            os.makedirs(output_dir, exist_ok=True)
+        self.logger = Logger(output_dir if self.is_writer else None,
+                             quiet=quiet or not self.is_writer)
         self.timer = Timer(self.logger)
         if model is None:
             if model_file is None:
@@ -73,8 +85,12 @@ class Inferencer:
         count — even when the file holds fewer entries
         (ISLEInfer.cpp:183)."""
         cfg = self.config
+        require_mesh(self.gpu, self.mesh)
         batch = build_infer_batch(corpus, self.model_mass)
         self.timer.next("pack inference batch")
+        if self.mesh is not None:
+            self.logger.info(
+                f"sharded inference on {self.mesh.world} rank(s)")
         weights, conv, llh_doc, llh_w = infer_all(
             self.model,
             batch,
@@ -83,6 +99,7 @@ class Inferencer:
             max_guesses=cfg.hyper.infer_max_guesses,
             top_n=top_n,
             device=self.device,
+            mesh=self.mesh,
         )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -133,7 +150,7 @@ class Inferencer:
         self.timer.next("load inference data")
         # The file report needs only the top-5 topics per doc.
         result = self.infer_corpus(corpus, top_n=5, max_entries=max_entries)
-        if write_outputs:
+        if write_outputs and self.is_writer:
             # One output file per 1M-doc block, as the reference's parallel
             # inference path does (ISLEInfer.cpp:66-84).
             block = 1_000_000

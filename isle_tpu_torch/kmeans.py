@@ -13,8 +13,9 @@ iteration stops when memberships repeat (that rep still updates centers)
 or after max_reps.
 
 The k-means++ rounds run as a host loop: per round one device pass for
-min-dist and its cumulative sum, a searchsorted of the round's dice, and a
-sequential accept loop over the (at most ~12) candidates on the host.
+min-dist, its cumulative sum and a searchsorted of the round's dice on the
+host (a sequential float sum, the same on every run), and a sequential
+accept loop over the (at most ~12) candidates.
 k-means|| and AFK-MC^2 keep isle_tpu's deviations from the reference
 (documented in their docstrings); AFK-MC^2's accept/reject chain is
 sequential and runs on the host in float32 over the chain's batch.
@@ -65,7 +66,11 @@ def kmeanspp_on_projected(P: torch.Tensor, k: int, draws
             C = P[:, torch.tensor(fresh, device=dev)]
             min_dist = torch.minimum(min_dist,
                                      _dists_to(P, docs_l2, C).amin(dim=1))
-        cumul = torch.cumsum(min_dist, 0)
+        # The cumulative sum runs on the host, in order: a float scan on
+        # the card adds its tiles' partial sums in an order that changes
+        # from run to run, and one ulp moves a draw that falls on a
+        # boundary to the next doc, a whole clustering with it.
+        cumul = torch.cumsum(min_dist.cpu(), 0)
         total = cumul[-1]
         if float(total) <= 0.0:
             # Every distinct doc is already a center (duplicate-doc
@@ -74,9 +79,9 @@ def kmeanspp_on_projected(P: torch.Tensor, k: int, draws
             centers += [(centers[0] + s) % D for s in range(len(centers), k)]
             break
         nb = int(math.ceil(1.0 + math.sqrt(max(len(centers) - 5, 0))))
-        dice = draws.uniform(nb_max).to(dev) * total
+        dice = draws.uniform(nb_max) * total
         cand = torch.clamp(torch.searchsorted(cumul, dice, right=True),
-                           max=D - 1).cpu().numpy()
+                           max=D - 1).numpy()
         fresh = []
         for i in range(min(nb, nb_max)):
             c = int(cand[i])
@@ -86,7 +91,7 @@ def kmeanspp_on_projected(P: torch.Tensor, k: int, draws
                 fresh.append(c)
     # Residual as the reference reports it: cumulative min-dist through the
     # second-to-last doc (src/sparseMatrix.cpp:2207 reads dist_cumul[D-1]).
-    residual = float(torch.cumsum(min_dist, 0)[-2]) if D > 1 else 0.0
+    residual = float(torch.cumsum(min_dist.cpu(), 0)[-2]) if D > 1 else 0.0
     return torch.tensor(centers, dtype=torch.int64, device=dev), residual
 
 
@@ -125,9 +130,8 @@ def kmeansbb_on_projected(P: torch.Tensor, k: int, draws, timer=None
     closest = torch.argmin(
         docs_l2[:, None] + torch.sum(Pc * Pc, dim=0)[None, :]
         - 2.0 * (P.T @ Pc), dim=1)
-    weights = torch.zeros(len(cand), dtype=torch.float32,
-                          device=P.device).index_add_(
-        0, closest, torch.ones(D, dtype=torch.float32, device=P.device))
+    # integer counts: their sum does not depend on the order of adding
+    weights = torch.bincount(closest, minlength=len(cand)).to(torch.float32)
     centers = _weighted_kmeanspp(Pc, weights, k, draws.fork())
     centers, residual = _weighted_lloyds(Pc, weights, centers, reps=10)
     if timer is not None:
@@ -162,11 +166,7 @@ def _weighted_lloyds(P: torch.Tensor, w: torch.Tensor, centers: torch.Tensor,
                  - 2.0 * (P.T @ centers.T))
         assign = torch.argmin(dists, dim=1)
         residual = torch.sum(torch.clamp(dists.amin(dim=1), min=0.0) * w)
-        sums = torch.zeros((k, P.shape[0]), dtype=torch.float32,
-                           device=P.device).index_add_(0, assign,
-                                                       (P * w[None, :]).T)
-        counts = torch.zeros(k, dtype=torch.float32,
-                             device=P.device).index_add_(0, assign, w)
+        sums, counts = _cluster_sums(P * w[None, :], assign, k, w)
         centers = torch.where(counts[:, None] > 0, sums / counts[:, None],
                               0.0)
     return centers, residual
@@ -276,6 +276,23 @@ def _means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
                        sums / torch.clamp(counts, min=1.0)[:, None], 0.0)
 
 
+def _cluster_sums(P: torch.Tensor, assign: torch.Tensor, k: int,
+                  weights=None):
+    """(sums (k, kdim), counts (k,)) of the columns of P (kdim, D) by
+    cluster, as the one-hot product isle_tpu.kmeans takes. A matmul sums
+    in an order the input fixes, where index_add_ on the card adds with
+    float atomics in an order that changes from run to run. The product
+    accumulates in float64 and is rounded to float32 once, so the result
+    does not depend on the library's order of summation either: the card
+    and the CPU give the same centers, and Lloyd's the same near ties.
+    `weights` (D,) are summed into the counts in place of ones."""
+    onehot = torch.nn.functional.one_hot(assign, k).to(torch.float64)
+    counts = (onehot.sum(dim=0) if weights is None
+              else onehot.T @ weights.to(torch.float64))
+    sums = onehot.T @ P.T.to(torch.float64)
+    return sums.to(torch.float32), counts.to(torch.float32)
+
+
 def run_lloyds_projected(P: torch.Tensor, centers: torch.Tensor,
                          max_reps: int, timer=None):
     """Lloyd's on the projected docs P (kdim, D) from centers (k, kdim).
@@ -283,16 +300,11 @@ def run_lloyds_projected(P: torch.Tensor, centers: torch.Tensor,
     k = centers.shape[0]
     D = P.shape[1]
     docs_l2 = torch.sum(P * P, dim=0)
-    ones = torch.ones(D, dtype=torch.float32, device=P.device)
     assign = torch.full((D,), -1, dtype=torch.int64, device=P.device)
     reps = 0
     for reps in range(1, max_reps + 1):
         prev, assign = assign, _assign(P.T @ centers.T, docs_l2, centers)
-        sums = torch.zeros((k, P.shape[0]), dtype=torch.float32,
-                           device=P.device).index_add_(0, assign, P.T)
-        counts = torch.zeros(k, dtype=torch.float32,
-                             device=P.device).index_add_(0, assign, ones)
-        centers = _means(sums, counts)
+        centers = _means(*_cluster_sums(P, assign, k))
         if torch.equal(assign, prev):
             break
     if timer is not None:
@@ -309,9 +321,16 @@ def update_centers_full(sp: DocSparse, assign: torch.Tensor, k: int,
 
 
 def run_lloyds_full(sp: DocSparse, centers: torch.Tensor, max_reps: int,
-                    timer=None, chunk: int = DEFAULT_CHUNK):
+                    timer=None, chunk: int = DEFAULT_CHUNK,
+                    update_centers=update_centers_full,
+                    unchanged=torch.equal):
     """Lloyd's on B in the full vocab space from centers (k, vocab).
-    Returns (centers, assignment int64 (num_docs,))."""
+    Returns (centers, assignment int64 (num_docs,)).
+
+    The two hooks are where a run over several ranks meets the others
+    (sharding.sharded_run_lloyds_full): `update_centers(sp, assign, k,
+    chunk)` gives the cluster means and `unchanged(assign, prev)` says
+    whether Lloyd's may stop. `sp` then holds this rank's docs."""
     k = centers.shape[0]
     docs_l2 = doc_l2sq(sp, chunk)
     assign = torch.full((sp.num_docs,), -1, dtype=torch.int64,
@@ -320,8 +339,8 @@ def run_lloyds_full(sp: DocSparse, centers: torch.Tensor, max_reps: int,
     for reps in range(1, max_reps + 1):
         prev, assign = assign, _assign(
             bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
-        centers = update_centers_full(sp, assign, k, chunk)
-        if torch.equal(assign, prev):
+        centers = update_centers(sp, assign, k, chunk)
+        if unchanged(assign, prev):
             break
     if timer is not None:
         timer.diag(f"full lloyds ran {reps} reps (max {max_reps})")

@@ -1,5 +1,6 @@
 """Batched multiplicative-weight-update (MWU) inference: the port of
-isle_tpu/mwu.py (build_infer_batch, _mwu_core, infer_all) for one device.
+isle_tpu/mwu.py (build_infer_batch, _mwu_core, infer_all), on one device
+or doc-parallel over the ranks of a sharding.Mesh.
 
 Reference semantics (src/infer.cpp:364-493):
   - per doc, words whose total model mass is <= 1e-10 are dropped from the
@@ -147,6 +148,23 @@ def top_n_rows(w: torch.Tensor, n: int):
     return vals[:, :n], idx[:, :n]
 
 
+def _gather_rows(mesh, mine, weights, conv, s_all) -> None:
+    """Fill every rank's rows of the three result arrays, in place, with
+    the values of the rank that inferred them (the rows `mine` are this
+    rank's)."""
+    dev = mesh.device
+    docs = (np.concatenate(mine) if mine else np.zeros(0, np.int64))
+
+    def everyone(a):
+        return mesh.all_gather_rows(
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)).cpu().numpy()
+
+    all_docs = everyone(docs.astype(np.int64))
+    weights[all_docs] = everyone(weights[docs])
+    conv[all_docs] = everyone(conv[docs].astype(np.uint8)).astype(bool)
+    s_all[all_docs] = everyone(s_all[docs])
+
+
 def infer_all(
     model: np.ndarray,  # (vocab, k) column-l1-normalized topic model
     batch: InferBatch,
@@ -156,6 +174,7 @@ def infer_all(
     max_guesses: int = 10,
     top_n: int = 0,
     device="cpu",
+    mesh=None,
 ):
     """Run MWU over every doc on `device`. Returns (weights (D, k),
     converged (D,), llh_per_doc (D,), llh_weighted (D,)) as numpy.
@@ -164,7 +183,14 @@ def infer_all(
 
     With top_n > 0 only each doc's top_n weights come back from the
     device; the rest of each converged row is 0.0 filler (below the
-    `> 1/k` report cut), as in isle_tpu."""
+    `> 1/k` report cut), as in isle_tpu.
+
+    With `mesh` (a sharding.Mesh) each rank takes a contiguous share of
+    every block's rows, with the model on every rank: the form of the
+    reference's parallel-for over doc blocks (ISLEInfer.cpp:64-117) for
+    one process a card. MWU is row-parallel, so the loop holds no
+    collective; at the end every rank gathers the others' rows and
+    returns the whole result."""
     device = torch.device(device)
     V, k = model.shape
     D, L = batch.word_idx.shape
@@ -181,6 +207,7 @@ def infer_all(
     kept = (batch.word_idx < V).sum(axis=1)
     fine = [64, 128, 192, 256, 320, 384, 448, 512, 1024, 2048, 8192]
     edges = [e for e in fine if e < L] + [L]
+    mine = []  # the docs this rank inferred, block by block
     prev = -1
     for edge in edges:
         sel = np.flatnonzero((kept > prev) & (kept <= edge))
@@ -192,16 +219,22 @@ def infer_all(
             # keep the gathered block under ~2 GiB
             bs_cap = max(1, min(len(sel), (1 << 29) // max(edge * k, 1)))
             bs_cap = int(2 ** math.floor(math.log2(bs_cap)))
+        # the rows of a block that one rank takes
+        cap = bs_cap if mesh is None else -(-bs_cap // mesh.world)
         for lo in range(0, len(sel), bs_cap):
             idx = sel[lo:lo + bs_cap]
+            if mesh is not None:  # this rank's rows of the block
+                idx = idx[mesh.row_slice(len(idx))]
             bs = len(idx)
+            if bs == 0:
+                continue
             wi = batch.word_idx[idx, :edge]
             av = batch.a[idx, :edge]
-            if bs < bs_cap:  # pad the tail block to the block shape
+            if bs < cap:  # pad the tail block to the block shape
                 wi = np.concatenate(
-                    [wi, np.full((bs_cap - bs, edge), V, np.int32)])
+                    [wi, np.full((cap - bs, edge), V, np.int32)])
                 av = np.concatenate(
-                    [av, np.zeros((bs_cap - bs, edge), np.float32)])
+                    [av, np.zeros((cap - bs, edge), np.float32)])
             w, c, s = mwu_core(
                 Mw, torch.from_numpy(wi).to(device),
                 torch.from_numpy(av).to(device), iters, Lf, max_guesses,
@@ -215,6 +248,9 @@ def infer_all(
                 weights[idx] = w[:bs].cpu().numpy()
             conv[idx] = c[:bs].cpu().numpy()
             s_all[idx] = s[:bs].cpu().numpy()
+            mine.append(idx)
+    if mesh is not None:
+        _gather_rows(mesh, mine, weights, conv, s_all)
     llh_doc = np.where(conv, s_all * np.float32(batch.avg_doc_sz), 0.0)
     llh_weighted = np.where(conv, s_all * batch.words_in_doc, 0.0)
     weights = np.where(conv[:, None], weights, np.float32(1.0 / k))

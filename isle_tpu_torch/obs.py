@@ -11,6 +11,7 @@ callback as well (the handle API's log sinks).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -94,6 +95,54 @@ class Timer:
         if self.logger:
             self.logger.log("timer", f"Total time for {label}: {t:.3f}s wall")
         return t
+
+
+STAGE_MARK = "isle stage end: "  # the name of a trace's stage markers
+
+
+@contextlib.contextmanager
+def profiler_trace(profile_dir: str, logger: Logger, on_card: bool):
+    """GpuConfig.profile_dir: run the body inside a torch.profiler trace
+    (CPU activities and, on the card, CUDA ones) and write its Chrome
+    trace to <profile_dir>/train_<pid>_<time>.json, as isle_tpu's trainer
+    wraps its pipeline in a jax.profiler trace (isle_tpu/trainer.py:
+    286-298). Where the profiler cannot start, a warning is logged and the
+    body runs untraced. With an empty profile_dir nothing of the profiler
+    is imported. Yields the trace's path, or None when untraced."""
+    if not profile_dir:
+        yield None
+        return
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(profile_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if on_card:
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.__enter__()
+    except Exception as e:  # whatever the profiler's back end raises
+        logger.warning(f"torch profiler unavailable: {e}")
+        yield None
+        return
+    path = os.path.join(
+        profile_dir,
+        f"train_{os.getpid()}_{time.strftime('%Y%m%d_%H%M%S')}.json")
+    try:
+        yield path
+    finally:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(path)
+        logger.info(f"profiler trace written to {path}")
+
+
+def mark_stage_in_trace(label: str) -> None:
+    """A zero-length annotation at a stage's end, so that a reader of the
+    trace can cut it into the trainer's stages."""
+    import torch
+
+    with torch.profiler.record_function(STAGE_MARK + label):
+        pass
 
 
 class OpCounter:

@@ -48,19 +48,26 @@ class DocSparse:
 
     @staticmethod
     def from_corpus(corpus, device) -> "DocSparse":
-        """From a corpus.Corpus, whose CSC arrays are doc-sorted;
-        the word-sorted copy is made on the device by one sort of
-        word * (D + 1) + doc."""
-        D = corpus.num_docs
-        dw = torch.as_tensor(np.asarray(corpus.rows, np.int32)).to(device)
-        dd = torch.as_tensor(np.asarray(corpus.doc_ids(), np.int32)).to(device)
-        dv = torch.as_tensor(np.asarray(corpus.vals, np.float32)).to(device)
+        """From a corpus.Corpus, whose CSC arrays are doc-sorted."""
+        return DocSparse.from_doc_sorted(
+            corpus.rows, corpus.doc_ids(), corpus.vals, corpus.vocab_size,
+            corpus.num_docs, device)
+
+    @staticmethod
+    def from_doc_sorted(words, docs, vals, vocab: int, num_docs: int,
+                        device) -> "DocSparse":
+        """From host COO arrays sorted by (doc, word); the word-sorted
+        copy is made on the device by one sort of word * (D + 1) + doc."""
+        D = int(num_docs)
+        dw = torch.as_tensor(np.asarray(words, np.int32)).to(device)
+        dd = torch.as_tensor(np.asarray(docs, np.int32)).to(device)
+        dv = torch.as_tensor(np.asarray(vals, np.float32)).to(device)
         key = dw.long() * (D + 1) + dd.long()
         perm = torch.sort(key, stable=True).indices
         return DocSparse(
             d_word=dw, d_doc=dd, d_val=dv,
             w_word=dw[perm], w_doc=dd[perm], w_val=dv[perm],
-            vocab=int(corpus.vocab_size), num_docs=int(D),
+            vocab=int(vocab), num_docs=D,
         )
 
     @staticmethod

@@ -403,6 +403,9 @@ class StreamedTrainer:
                           **trainer_kw)
         self.chunk_entries = chunk_entries
         self.loader: Optional[ChunkLoader] = None
+        # output_doc_topic's mass comes from chunks too: a corpus that
+        # needed this trainer does not fit the card for its report either
+        self._t._doc_topic_mass = self._streamed_doc_topic_mass
 
     def __getattr__(self, name):
         return getattr(self._t, name)
@@ -415,14 +418,26 @@ class StreamedTrainer:
             self.loader = ChunkLoader(t.corpus, self.chunk_entries, t.device)
         return self.loader
 
+    def _streamed_doc_topic_mass(self, cw_topic: torch.Tensor
+                                 ) -> torch.Tensor:
+        t = self._t
+        return streamed_doc_topic_mass(
+            t.corpus, cw_topic, t.config.num_topics, self._chunk_loader(),
+            t.gpu.seg_chunk)
+
     def train(self, resume: bool = False) -> None:
         """Run the streamed pipeline; with resume=True, completed stages
-        restore from the run directory's checkpoints (Trainer's files)."""
+        restore from the run directory's checkpoints (Trainer's files).
+        GpuConfig.profile_dir traces the run as it does Trainer.train."""
         t = self._t
         if t.corpus is None:
             raise RuntimeError("load data first")
         check_supported(t.config)
         t.gpu.require_single_device()
+        t.run_traced(lambda: self._train_inner(resume))
+
+    def _train_inner(self, resume: bool) -> None:
+        t = self._t
         cfg = t.config
         hp = cfg.hyper
         k = cfg.num_topics

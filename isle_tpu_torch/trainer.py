@@ -1,7 +1,9 @@
-"""Training orchestration on one device: the port of isle_tpu.trainer's
-single-device in-core path (Trainer._train_inner + _finish_train,
-isle_tpu/trainer.py:300-582) in the COO layout, with train_edge_topics,
-the stage checkpoints and the writers the training CLI calls.
+"""Training orchestration: the port of isle_tpu.trainer's in-core paths in
+the COO layout, on one device (Trainer._train_inner + _finish_train,
+isle_tpu/trainer.py:300-582) and over several, one process a card
+(_train_sharded + _finish_train_sharded, :588-875, on sharding.py), with
+train_edge_topics, the stage checkpoints and the writers the training CLI
+calls.
 
 Stage order (reference src/trainer.cpp:425-654):
   ingest -> ζ thresholds -> B = threshold + sqrt-scale [+ document
@@ -36,14 +38,17 @@ from .elkans import run_elkans
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
 from .linalg import block_ks, dense_topk_eigh, lanczos
-from .obs import Logger, OpCounter, Timer
+from .obs import Logger, OpCounter, Timer, mark_stage_in_trace, \
+    profiler_trace
 from .rng import Draws
 from .segsum import launch_counts
+from .sharding import Mesh, default_mesh, require_mesh
 from .sparse import DocSparse, b_y, bt_x, frobenius_sq, gram_x, \
     spmm_flops, to_dense
 from .thresholds import compute_thresholds
-from .topic_model import construct_edge_topics_v2, construct_topic_model, \
-    doc_topic_mass
+from .topic_model import _contribution_weights, construct_edge_topics_v2, \
+    construct_topic_model, doc_topic_mass, has_catchwords, \
+    l1_normalize_columns, model_thresholds, top_two_topics
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -79,14 +84,18 @@ def state_from_numpy(ck: dict, device) -> dict:
     }
 
 
-def solve_gram_eigens(B: DocSparse, V: int, k: int, cfg: TrainConfig,
+def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
                       draws, chunk: int, timer=None, logger=None,
-                      start_block: Optional[torch.Tensor] = None):
+                      start_block: Optional[torch.Tensor] = None,
+                      op=None, dense_gram=None):
     """Top-k eigenpairs of B B^T by hyper.eigensolver, shared by the
-    in-core and the streamed trainer: block Krylov-Schur, Lanczos, or the
-    dense oracle when asked for or when k is too close to V for a Krylov
-    space. `start_block` (a previous run's U) seeds block_ks's start block
-    and, by its first column, Lanczos's start vector.
+    in-core, the streamed and the sharded trainer: block Krylov-Schur,
+    Lanczos, or the dense oracle when asked for or when k is too close to
+    V for a Krylov space. `start_block` (a previous run's U) seeds
+    block_ks's start block and, by its first column, Lanczos's start
+    vector. For a DocSparse B the operator is sparse.gram_x; the sharded
+    trainer hands in `op` (X -> (B B^T) X on every rank) and `dense_gram`
+    (-> the (V, V) float64 Gram matrix on the host).
     Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
     for the dense oracle and (EigResult, op width) otherwise."""
     hp = cfg.hyper
@@ -99,13 +108,18 @@ def solve_gram_eigens(B: DocSparse, V: int, k: int, cfg: TrainConfig,
             )
         eigensolver = "dense"
     if eigensolver == "dense":
-        Bd = to_dense(B)
-        w, U = dense_topk_eigh(Bd @ Bd.T, k)
+        if dense_gram is None:
+            Bd = to_dense(B)
+            gram = Bd @ Bd.T
+        else:
+            gram = dense_gram()
+        w, U = dense_topk_eigh(gram, k)
         U = torch.as_tensor(U, dtype=torch.float32).to(B.device)
         return w.astype(np.float32), U, None
 
-    def op(X):
-        return gram_x(B, X, chunk)
+    if op is None:
+        def op(X):
+            return gram_x(B, X, chunk)
 
     common = dict(tol=hp.block_ks_tolerance,
                   max_restarts=hp.block_ks_max_iters, timer=timer)
@@ -142,15 +156,28 @@ class Trainer:
         quiet: bool = False,
         gpu: Optional[GpuConfig] = None,
         draws=None,
+        mesh: Optional[Mesh] = None,
     ):
+        """`mesh` (sharding.Mesh) trains over its ranks, every rank
+        running this same trainer on the whole host corpus; without it,
+        a GpuConfig.mesh_shape of more than one device takes the mesh of
+        the initialised torch.distributed. Only rank 0 writes the run
+        directory (logs, checkpoints, a trace), and only it should call
+        the writers below."""
         self.config = config
         self.gpu = gpu or GpuConfig()
         self.device = self.gpu.torch_device()
+        self.mesh = mesh if mesh is not None else default_mesh(
+            self.gpu, self.device)
+        mesh = self.mesh
+        self.is_writer = mesh is None or mesh.rank == 0
         self.draws = draws if draws is not None else Draws(config.seed)
         self.output_dir = output_dir
         self.run_dir = os.path.join(output_dir, config.log_dir_name())
-        os.makedirs(self.run_dir, exist_ok=True)
-        self.logger = Logger(self.run_dir, quiet=quiet)
+        if self.is_writer:
+            os.makedirs(self.run_dir, exist_ok=True)
+        self.logger = Logger(self.run_dir if self.is_writer else None,
+                             quiet=quiet or not self.is_writer)
         self.timer = Timer(self.logger)
         self.op_counter = OpCounter("gram SpMM")
         # (stage, segsum.launch_counts() at its end), one per _mark
@@ -161,6 +188,7 @@ class Trainer:
         self._feeder: Optional[EntryFeeder] = None
         self.is_training_complete = False
         self.A: Optional[DocSparse] = None  # the corpus on the device
+        self._tracing = False  # inside a GpuConfig.profile_dir trace
 
         # Results (host numpy, as isle_tpu.trainer.Trainer keeps them)
         self.model: Optional[np.ndarray] = None  # (vocab, k)
@@ -243,6 +271,8 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         self.timer.next(label)
         self.stage_launches.append((label, launch_counts()))
+        if self._tracing:
+            mark_stage_in_trace(label)
 
     def _device_A(self) -> DocSparse:
         """The corpus on the device: training and the reports
@@ -251,6 +281,13 @@ class Trainer:
         if self.A is None:
             self.A = DocSparse.from_corpus(self.corpus, self.device)
         return self.A
+
+    def _doc_topic_mass(self, cw_topic: torch.Tensor) -> torch.Tensor:
+        """The (num_docs, k) catchword mass for output_doc_topic, from the
+        corpus on the device. StreamedTrainer puts its chunked pass here,
+        so that its report never uploads the whole corpus."""
+        return doc_topic_mass(self._device_A(), cw_topic,
+                              self.config.num_topics, self.gpu.seg_chunk)
 
     def _warm_start_block(self, V: int) -> Optional[torch.Tensor]:
         """GpuConfig.eigen_warm_start: the U of the previous run's
@@ -287,7 +324,24 @@ class Trainer:
         if self.corpus is None:
             raise RuntimeError("load data first")
         check_supported(self.config)
-        self.gpu.require_single_device()
+        require_mesh(self.gpu, self.mesh)
+        inner = (self._train_inner if self.mesh is None
+                 else self._train_sharded)
+        self.run_traced(lambda: inner(resume))
+
+    def run_traced(self, body) -> None:
+        """body() inside the trace GpuConfig.profile_dir asks for (rank 0
+        only), with the stage ends marked in it; plainly without one."""
+        profile_dir = self.gpu.profile_dir if self.is_writer else ""
+        with profiler_trace(profile_dir, self.logger,
+                            self.device.type == "cuda") as path:
+            self._tracing = path is not None
+            try:
+                body()
+            finally:
+                self._tracing = False
+
+    def _train_inner(self, resume: bool = False) -> None:
         cfg = self.config
         hp = cfg.hyper
         k = cfg.num_topics
@@ -488,6 +542,266 @@ class Trainer:
         )
         self.is_training_complete = True
 
+    # ------------------------------------------------------------------
+    # Training over several ranks (GpuConfig.mesh_shape, sharding.Mesh)
+    # ------------------------------------------------------------------
+
+    def _train_sharded(self, resume: bool = False) -> None:
+        """The same pipeline with every stage that streams the nonzeros
+        sharded over the mesh's ranks (isle_tpu/trainer.py:588-810): ζ and
+        the r-th highest statistic by word range, everything else by doc
+        range, the eigensolver's operator, the center updates and the
+        model SpMM ending in an all-reduce. k- and vocab-sized state is
+        replicated. Every rank runs this method on the whole host corpus,
+        cuts its own ranges from it, and ends with the same results.
+
+        The stages, their checkpoint files and the three draw streams are
+        the single-device path's, so a run may resume on another world
+        size. Stages that every rank computes alone from replicated
+        floats (the eigensolve, the seeding, the projected Lloyd's, the
+        catchwords, the model thresholds, the top-two topics) are
+        followed by a broadcast of rank 0's result: no rank decides a
+        branch that holds a collective on a float that only it computed.
+        Rank 0 alone reads and writes the run directory."""
+        from .elkans_sharded import sharded_run_elkans
+        from .sharding import compact_doc_rows, pad_doc_rows, \
+            shard_by_word, shard_doc_sparse, sharded_b_y, sharded_bt_x, \
+            sharded_gram_x, sharded_run_lloyds_full, sharded_spmm_flops, \
+            sharded_threshold_and_copy, sharded_thresholds
+
+        mesh = self.mesh
+        cfg = self.config
+        hp = cfg.hyper
+        k = cfg.num_topics
+        V = self.corpus.vocab_size
+        D = self.corpus.num_docs
+        chunk = self.gpu.seg_chunk
+        dev = self.device
+        self.logger.info(f"sharded training on {mesh.world} rank(s)")
+
+        ck = mesh.broadcast_object(
+            self._load_checkpoints() if resume and self.is_writer else {})
+        if self._restore_model_checkpoint(ck):
+            return
+        st = state_from_numpy(ck, dev)
+
+        doc_ids = self.corpus.doc_ids()
+        ssp_A = shard_doc_sparse(self.corpus.rows, doc_ids, self.corpus.vals,
+                                 V, D, mesh)
+        ws_A = shard_by_word(self.corpus.rows, doc_ids, self.corpus.vals,
+                             V, D, mesh)
+        del doc_ids
+        self._mark("upload A to device (sharded)")
+
+        # 1. thresholds, by word range
+        if "svd" in ck:
+            zetas = st["svd"]["zetas"]
+            self.original_cols = ck["svd"]["original_cols"]
+            self.logger.info("resumed thresholds from 'svd' checkpoint")
+        else:
+            zetas, new_nnz = sharded_thresholds(
+                ws_A, self.corpus.avg_doc_sz, self.corpus.nz_docs, k, hp,
+                mesh, chunk)
+            self.logger.info(f"Entries above threshold: {new_nnz}")
+            self._mark("computing thresholds")
+
+        if "kmeans" in ck:
+            self.centers = ck["kmeans"]["centers"]
+            cluster_of_doc = ck["kmeans"]["cluster_of_doc"]
+            self.cluster_of_doc = cluster_of_doc
+            if "svd" in ck:
+                self.evalues = ck["svd"]["evalues"]
+            sizes = np.bincount(
+                cluster_of_doc[cluster_of_doc >= 0], minlength=k
+            ).astype(np.int32)
+            self.logger.info("resumed clustering from 'kmeans' checkpoint")
+            self._finish_train_sharded(ssp_A, ws_A, cluster_of_doc, sizes)
+            return
+
+        # 2-3. B, by doc range (+ importance sampling of documents); on
+        # resume, the checkpointed docs, which U was computed on
+        if "svd" in ck:
+            B, original_cols = sharded_threshold_and_copy(
+                ssp_A, zetas, mesh, docs=self.original_cols)
+            if not np.array_equal(original_cols, self.original_cols):
+                raise ValueError(
+                    f"checkpoint 'svd' in {self.run_dir}: its original_cols "
+                    "do not match its zetas on this corpus"
+                )
+        else:
+            sample = cfg.sample_rate if cfg.sample_docs else None
+            B, original_cols = sharded_threshold_and_copy(
+                ssp_A, zetas, mesh, sample_rate=sample,
+                uniforms=None if sample is None
+                else self.draws.doc_sample_uniforms(D),
+            )
+        self.original_cols = original_cols
+        self.logger.info(
+            f"Columns remaining after thresholding: {B.num_docs}  "
+            f"nnz(B): {B.nnz}  per-rank docs: {B.doc_counts}"
+        )
+        self._mark("creating thresholded and scaled matrix (sharded)")
+        if B.nnz == 0 or B.num_docs == 0:
+            raise ValueError(
+                "thresholding dropped every entry (nnz(B)=0): the corpus "
+                "is too sparse for these hyperparameters — check the "
+                "few_samples_threshold_drop / bad_threshold_drop flags "
+                "and eps2/eps3/w0_c"
+            )
+
+        # 4-5. truncated SVD of B B^T: the operator ends in an all-reduce
+        if "svd" in ck:
+            self.evalues = ck["svd"]["evalues"]
+            U = st["svd"]["U"]
+            self.logger.info("resumed eigenvectors from 'svd' checkpoint")
+        else:
+            start = self._warm_start_block(V) if self.is_writer else None
+            start = mesh.broadcast_object(
+                None if start is None else start.cpu())
+
+            def dense_gram():
+                Bd = to_dense(B.local)
+                gram = torch.from_numpy(Bd @ Bd.T).to(dev)
+                return mesh.all_reduce(gram).cpu().numpy()
+
+            evalues, U, stats = solve_gram_eigens(
+                B, V, k, cfg, self.draws, chunk, timer=self.timer,
+                logger=self.logger,
+                start_block=None if start is None else start.to(dev),
+                op=lambda X: sharded_gram_x(B, X, mesh, chunk),
+                dense_gram=dense_gram,
+            )
+            U = mesh.broadcast(U.contiguous())
+            self.evalues = mesh.broadcast(
+                torch.from_numpy(evalues).to(dev)).cpu().numpy()
+            if stats is not None:
+                res, op_width = stats
+                self.op_counter.add(
+                    res.op_seconds,
+                    sharded_spmm_flops(B, op_width) * res.op_calls,
+                    res.op_calls,
+                )
+                self.logger.info(self.op_counter.summary())
+        self._print_eigen_data(self.evalues, k)
+        self._mark("eigen solve (B B^T, sharded)")
+        if "svd" not in ck:
+            self._checkpoint("svd", U=U.cpu().numpy(), evalues=self.evalues,
+                             zetas=zetas.cpu().numpy(),
+                             original_cols=original_cols)
+
+        # 6. projected docs P = U^T B, replicated (k x D_B: small)
+        P = compact_doc_rows(sharded_bt_x(B, U, mesh, chunk), mesh).T
+        self._mark("project docs")
+
+        # 7. seeding + Lloyd's in the projected space: replicated dense
+        # work from the same draws, then rank 0's result everywhere
+        seeds, centers_lowd, init_residual = kmeans_init_on_projected(
+            P, k, hp.kmeans_init_reps, self.draws,
+            method=hp.kmeans_init_method, timer=self.timer,
+            mcmc_sample_size=hp.kmeansmcmc_sample_size,
+        )
+        self.logger.info(f"Best k-means init residual: {init_residual:.4f}")
+        self._mark("k-means seeds initialization")
+        if hp.enable_kmeans_on_lowd:
+            centers_lowd, _ = run_lloyds_projected(
+                P, centers_lowd, hp.max_kmeans_lowd_reps, timer=self.timer
+            )
+            centers_full = mesh.broadcast(centers_lowd.contiguous()) @ U.T
+            self._mark("converging Lloyds k-means on B_k")
+        else:  # the seed docs' columns of B
+            seeds = mesh.broadcast(seeds.contiguous())
+            onehot = torch.nn.functional.one_hot(seeds, B.num_docs)
+            centers_full = sharded_b_y(
+                B, pad_doc_rows(onehot.T.to(torch.float32), B).contiguous(),
+                mesh, chunk).T
+        del P
+
+        # 8. Lloyd's or Elkan's on B in the full vocab space
+        full_kmeans = (sharded_run_elkans
+                       if hp.kmeans_algo_for_sparse == "elkans"
+                       else sharded_run_lloyds_full)
+        centers_full, assign_h = full_kmeans(
+            B, centers_full, hp.max_kmeans_reps, mesh, timer=self.timer,
+            chunk=chunk)
+        self.centers = centers_full.cpu().numpy()
+        self._mark("k-means on B (sharded)")
+
+        # 9. remap cluster membership to original doc ids
+        cluster_of_doc = np.full(D, -1, np.int32)
+        cluster_of_doc[original_cols] = assign_h
+        self.cluster_of_doc = cluster_of_doc
+        sizes = np.bincount(assign_h, minlength=k).astype(np.int32)
+        self._checkpoint("kmeans", centers=self.centers,
+                         cluster_of_doc=cluster_of_doc)
+        del B
+        self._finish_train_sharded(ssp_A, ws_A, cluster_of_doc, sizes)
+
+    def _finish_train_sharded(self, ssp_A, ws_A, cluster_of_doc: np.ndarray,
+                              sizes: np.ndarray) -> None:
+        """Stages 10-12 on the mesh (isle_tpu/trainer.py:812-874): the
+        catchword statistic by word range, the doc-topic mass by doc
+        range, the model SpMM all-reduced."""
+        from .sharding import compact_doc_rows, pad_doc_rows, sharded_b_y, \
+            sharded_doc_topic_mass, sharded_rth_highest
+
+        mesh = self.mesh
+        cfg = self.config
+        hp = cfg.hyper
+        k, D = cfg.num_topics, self.corpus.num_docs
+        chunk = self.gpu.seg_chunk
+        dev = self.device
+        cluster_t = torch.as_tensor(cluster_of_doc, dtype=torch.int32).to(dev)
+
+        # 10. r-th highest element per (word, topic)
+        r = hp.catchword_rank(
+            D, k, cfg.sample_rate if cfg.sample_docs else None)
+        if r < 1:
+            self.logger.warning(
+                f"catchword rank r={r} < 1 (tiny corpus); clamping to 1"
+            )
+            r = 1
+        thr = sharded_rth_highest(
+            ws_A, cluster_t,
+            torch.as_tensor(sizes, dtype=torch.int32).to(dev), k, r, mesh,
+            chunk)
+        self.catchword_thresholds = thr.cpu().numpy()
+        self._mark("collecting word freqs in clusters (sharded)")
+
+        # 11. catchwords
+        is_cw_h = mesh.broadcast(find_catchwords(thr, hp.rho)).cpu().numpy()
+        cwt = catchword_topic_map(is_cw_h)
+        self.catchwords = [np.flatnonzero(is_cw_h[t]) for t in range(k)]
+        self._mark("finding catchwords for clusters")
+
+        # 12. topic model (+ top-2 pairs for edge topics): the (D, k) mass
+        # is gathered, its per-topic thresholds and the top-two topics are
+        # rank 0's, and each rank weighs its own docs for the model SpMM
+        cwt_t = torch.as_tensor(cwt).to(dev)
+        mass = compact_doc_rows(
+            sharded_doc_topic_mass(ssp_A, cwt_t, k, mesh, chunk), mesh)
+        thr_m = mesh.broadcast(model_thresholds(
+            mass, has_catchwords(cwt_t, k), hp.model_rank_threshold(D, k)))
+        extra = {}
+        if cfg.compute_edge_topics:
+            self.top_pairs = tuple(
+                mesh.broadcast(x).cpu().numpy() for x in top_two_topics(mass))
+            extra = dict(t1=self.top_pairs[0], t2=self.top_pairs[1],
+                         valid=self.top_pairs[2])
+        W = _contribution_weights(pad_doc_rows(mass, ssp_A), thr_m,
+                                  pad_doc_rows(cluster_t, ssp_A))
+        del mass
+        model = l1_normalize_columns(sharded_b_y(ssp_A, W, mesh, chunk))
+        self.model = model.cpu().numpy()
+        self._mark("constructing topic vectors (sharded)")
+        self._checkpoint(
+            "model",
+            model=self.model,
+            is_cw=is_cw_h,
+            catchword_thresholds=self.catchword_thresholds,
+            **extra,
+        )
+        self.is_training_complete = True
+
     def train_edge_topics(self) -> None:
         """Edge (compound) topics (src/trainer.cpp:673-685)."""
         if not self.is_training_complete:
@@ -557,10 +871,8 @@ class Trainer:
             os.path.join(self.run_dir, "DocCatchword.tsv"),
             self.corpus.doc_ids()[mask], rows[mask], self.corpus.vals[mask],
         )
-        mass = doc_topic_mass(
-            self._device_A(), torch.as_tensor(cwt).to(self.device), k,
-            self.gpu.seg_chunk,
-        ).cpu().numpy()
+        mass = self._doc_topic_mass(
+            torch.as_tensor(cwt).to(self.device)).cpu().numpy()
         dd, tt = np.nonzero(mass)
         vv = mass[dd, tt]
         order = np.lexsort((-vv, tt))
@@ -777,6 +1089,8 @@ class Trainer:
         return out
 
     def _checkpoint(self, stage: str, **arrays) -> None:
+        if not self.is_writer:
+            return
         path = os.path.join(self.run_dir, f"ckpt_{stage}.npz")
         arrays = {k: v for k, v in arrays.items() if v is not None}
         arrays["corpus_stamp"] = self._corpus_stamp()

@@ -365,6 +365,60 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
                                atol=1e-6)
 
 
+def test_sharded_trainer_on_the_card_matches_the_single_device_one(
+        dev, tmp_path):
+    """The sharded trainer at world size 1 (a mesh without a group) on the
+    card: each stage launches exactly what the single-device stage
+    launches, and the results are its results bit for bit."""
+    from isle_tpu_torch import GpuConfig, TrainConfig, Trainer
+    from isle_tpu_torch.sharding import Mesh
+
+    corpus, k = _exact_corpus()
+    cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
+                      max_edge_topics=8)
+    runs = {}
+    for name, mesh in (("single", None), ("sharded", Mesh("cuda"))):
+        segsum.reset_launch_counts()
+        tr = Trainer(cfg, output_dir=str(tmp_path / name), quiet=True,
+                     gpu=GpuConfig(device="cuda"), mesh=mesh)
+        tr.load_corpus(corpus)
+        tr.train()
+        runs[name] = (tr, segsum.launch_counts())
+    (g, g_counts), (c, c_counts) = runs["sharded"], runs["single"]
+    # the single-device B stage also logs Frob(B): one more doc-norm launch
+    assert g_counts["segsum_gather_rows"] == c_counts["segsum_gather_rows"]
+    assert g_counts["segsum_onehot"] == c_counts["segsum_onehot"] - 1
+    np.testing.assert_array_equal(g.original_cols, c.original_cols)
+    np.testing.assert_array_equal(g.cluster_of_doc, c.cluster_of_doc)
+    np.testing.assert_array_equal(g.evalues, c.evalues)
+    np.testing.assert_array_equal(g.model, c.model)
+    for a, b in zip(g.top_pairs, c.top_pairs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_kmeanspp_seeds_are_reproducible_on_the_card(dev):
+    """k-means++ on 300,000 projected docs, the same draws five times: the
+    same seeds and residual each time. torch.cumsum on the card adds its
+    tiles in an order that changes from launch to launch, which is why
+    the seeding takes its cumulative sum on the host; and the projected
+    Lloyd's from those seeds ends in the same centers, bit for bit."""
+    from isle_tpu_torch import kmeans
+    from isle_tpu_torch.rng import Draws
+
+    g = torch.Generator().manual_seed(3)
+    P = torch.randn((8, 300_000), generator=g).to(dev)
+    runs = []
+    for _ in range(5):
+        idx, centers, residual = kmeans.kmeans_init_on_projected(
+            P, 50, 1, Draws(7))
+        centers, assign = kmeans.run_lloyds_projected(P, centers, 3)
+        runs.append((idx, residual, centers, assign))
+    for idx, residual, centers, assign in runs[1:]:
+        assert torch.equal(idx, runs[0][0]) and residual == runs[0][1]
+        assert torch.equal(centers, runs[0][2])
+        assert torch.equal(assign, runs[0][3])
+
+
 def test_mwu_on_the_card_matches_the_cpu(dev):
     """MWU inference (plain PyTorch on the card: isle_tpu's MWU is XLA,
     not Pallas) against the same call on the CPU, with a tiny Lf on half

@@ -282,3 +282,65 @@ def test_kmeans_matches_jax():
     np.testing.assert_array_equal(a.numpy(), np.asarray(ref_a))
     np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), rtol=1e-5,
                                atol=1e-6)
+
+
+def _projected_case(seed, k=12, kdim=6, D=240):
+    rng = np.random.default_rng(seed)
+    mus = rng.standard_normal((k, kdim)) * 3
+    P = (mus[rng.integers(0, k, D)] + rng.standard_normal((D, kdim))).T
+    return np.ascontiguousarray(P, np.float32), rng
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_projected_lloyds_sums_in_a_fixed_order(seed):
+    """The projected Lloyd's takes its cluster sums as a one-hot product,
+    as isle_tpu does, and holds no index_add_ (float atomics on the card,
+    whose order changes from run to run): two runs are bit-equal, and the
+    result is isle_tpu's."""
+    import inspect
+
+    P, rng = _projected_case(seed)
+    k = 12
+    C0 = P[:, rng.choice(P.shape[1], k, replace=False)].T.copy()
+    runs = [kmeans.run_lloyds_projected(torch.from_numpy(P),
+                                        torch.from_numpy(C0), 10)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    ref_c, ref_a = jkm.run_lloyds_projected(jnp.asarray(P), jnp.asarray(C0),
+                                            10)
+    np.testing.assert_array_equal(runs[0][1].numpy(), np.asarray(ref_a))
+    np.testing.assert_allclose(runs[0][0].numpy(), np.asarray(ref_c),
+                               rtol=1e-5, atol=1e-5)
+    for fn in (kmeans.run_lloyds_projected, kmeans._weighted_lloyds,
+               kmeans.kmeansbb_on_projected, kmeans._cluster_sums):
+        body = inspect.getsource(fn).split('"""')[-1]
+        assert "index_add" not in body, fn.__name__
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_weighted_lloyds_sums_in_a_fixed_order(seed):
+    """The weighted Lloyd's of k-means||: bit-equal from run to run, equal
+    to a float64 loop over the clusters, and to isle_tpu's."""
+    P, rng = _projected_case(seed, D=90)
+    k = 5
+    w = rng.integers(1, 9, P.shape[1]).astype(np.float32)
+    C0 = P[:, rng.choice(P.shape[1], k, replace=False)].T.copy()
+    args = (torch.from_numpy(P), torch.from_numpy(w), torch.from_numpy(C0))
+    (c1, r1), (c2, r2) = (kmeans._weighted_lloyds(*args, reps=1)
+                          for _ in range(2))
+    assert torch.equal(c1, c2) and torch.equal(r1, r2)
+    P64, C64 = P.astype(np.float64), C0.astype(np.float64)
+    d = ((P64.T[:, None, :] - C64[None]) ** 2).sum(axis=2)
+    a = d.argmin(axis=1)
+    want = np.stack([
+        (P64[:, a == t] * w[a == t]).sum(axis=1) / max(w[a == t].sum(), 1e-30)
+        if (a == t).any() else np.zeros(P.shape[0]) for t in range(k)])
+    np.testing.assert_allclose(c1.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    ref_c, ref_r = jkm._weighted_lloyds(jnp.asarray(P), jnp.asarray(w),
+                                        jnp.asarray(C0), reps=3)
+    got_c, got_r = kmeans._weighted_lloyds(*args, reps=3)
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(got_r), float(ref_r), rtol=1e-5)

@@ -49,7 +49,8 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch.cli.infer", "isle_tpu_torch.cli.train",
     "isle_tpu_torch.trainer", "isle_tpu_torch.elkans",
     "isle_tpu_torch.streaming", "isle_tpu_torch.capi",
-    "isle_tpu_torch.preprocessed",
+    "isle_tpu_torch.preprocessed", "isle_tpu_torch.sharding",
+    "isle_tpu_torch.elkans_sharded", "isle_tpu_torch._build_capi",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
@@ -58,7 +59,7 @@ def test_import_pulls_in_no_jax(module):
         "import importlib, sys\n"
         f"m = importlib.import_module({module!r})\n"
         "if m.__name__ == 'isle_tpu_torch':\n"
-        "    m.Inferencer, m.InferConfig, m.Trainer\n"
+        "    m.Inferencer, m.InferConfig, m.Trainer, m.StreamedTrainer\n"
         "assert not [n for n in sys.modules if n.split('.')[0] == 'jax'], "
         "'jax imported'\n"
         "assert not [n for n in sys.modules\n"
@@ -131,3 +132,43 @@ print("OK")
                          text=True, timeout=300, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+def test_exports_cover_the_reference_package():
+    """isle_tpu_torch exports what isle_tpu exports and the port has
+    (TpuConfig's counterpart is GpuConfig), each name resolves, and the
+    docstring names the trainers it holds. isle_tpu/__init__.py is read
+    as text: importing it would not tell what it exports lazily."""
+    import isle_tpu_torch
+
+    src = (ROOT / "isle_tpu" / "__init__.py").read_text()
+    block = src[src.index("__all__ = ["):]
+    ref = set(re.findall(r'"(\w+)"', block[:block.index("]")]))
+    assert {"StreamedTrainer", "EntryFeeder", "Trainer"} <= ref
+    want = (ref - {"TpuConfig"}) | {"GpuConfig"}
+    assert set(isle_tpu_torch.__all__) == want
+    assert isle_tpu_torch.__all__ == sorted(isle_tpu_torch.__all__)
+    for name in isle_tpu_torch.__all__:
+        assert getattr(isle_tpu_torch, name).__name__ == name
+    from isle_tpu_torch.corpus import EntryFeeder
+    from isle_tpu_torch.streaming import StreamedTrainer
+    assert isle_tpu_torch.StreamedTrainer is StreamedTrainer
+    assert isle_tpu_torch.EntryFeeder is EntryFeeder
+    with pytest.raises(AttributeError):
+        isle_tpu_torch.TpuConfig
+    doc = isle_tpu_torch.__doc__
+    assert "StreamedTrainer" in doc and "EntryFeeder" in doc
+    assert "single-device in-core training path" not in " ".join(doc.split())
+
+
+def test_pyproject_ships_the_c_shim():
+    meta = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    data = meta["tool"]["setuptools"]["package-data"]["isle_tpu_torch"]
+    assert "csrc/*.cpp" in data
+    src = (PKG / "csrc" / "isle_capi_torch.cpp").read_text()
+    assert 'PyImport_ImportModule("isle_tpu_torch.capi")' in src
+    assert "isle_tpu.capi" not in src and "import jax" not in src
+    for name in ("CreateTrainer", "DestroyTrainer", "feedData",
+                 "finalizeData", "Train", "GetBasicModel",
+                 "GetNumEdgeTopics", "GetEdgeModel"):
+        assert re.search(rf"\b{name}\(", src), name

@@ -183,3 +183,75 @@ print("OK")
                          text=True, timeout=120, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
+
+
+def _trace_events(profile_dir):
+    import json
+
+    files = os.listdir(profile_dir)
+    assert len(files) == 1 and files[0].endswith(".json"), files
+    with open(os.path.join(profile_dir, files[0])) as f:
+        return json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("kind", ["incore", "streamed"])
+def test_profile_dir_writes_a_trace(tmp_path, kind):
+    """GpuConfig.profile_dir: train() runs inside a torch.profiler trace, a
+    Chrome trace lands in the directory, it holds operator events and one
+    marker at the end of every timed stage, and the run's results are
+    those of an untraced run."""
+    from isle_tpu_torch.obs import STAGE_MARK
+    from isle_tpu_torch.streaming import StreamedTrainer
+
+    corpus = biting_corpus()
+    cfg = _config(4, seed=1)
+    make = (Trainer if kind == "incore" else
+            lambda *a, **kw: StreamedTrainer(*a, chunk_entries=2048, **kw))
+    prof = str(tmp_path / "prof")
+    plain = make(cfg, output_dir=str(tmp_path / "plain"), quiet=True, gpu=CPU)
+    traced = make(cfg, output_dir=str(tmp_path / "traced"), quiet=True,
+                  gpu=GpuConfig(device="cpu", profile_dir=prof))
+    for tr in (plain, traced):
+        tr.load_corpus(corpus)
+        tr.train()
+    assert not os.path.exists(str(tmp_path / "plain" / "prof"))
+    np.testing.assert_array_equal(traced.cluster_of_doc, plain.cluster_of_doc)
+    np.testing.assert_array_equal(traced.model, plain.model)
+    events = _trace_events(prof)
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    marks = [e["name"][len(STAGE_MARK):] for e in events
+             if e.get("name", "").startswith(STAGE_MARK)]
+    staged = [label for label, _ in traced.stage_launches]
+    assert marks == staged and len(marks) >= 5
+    assert traced._tracing is False
+
+
+def test_profile_dir_without_a_profiler_warns_and_trains(tmp_path,
+                                                         monkeypatch):
+    """Where the profiler cannot start, a warning is logged and the run
+    goes on untraced, as isle_tpu's trainer does."""
+    import torch.profiler
+
+    def broken(*a, **kw):
+        raise RuntimeError("no profiler on this back end")
+
+    monkeypatch.setattr(torch.profiler, "profile", broken)
+    prof = str(tmp_path / "prof")
+    tr = Trainer(_config(4, seed=1), output_dir=str(tmp_path), quiet=True,
+                 gpu=GpuConfig(device="cpu", profile_dir=prof))
+    logs = []
+    tr.logger.add_sink("warning", logs.append)
+    tr.load_corpus(biting_corpus())
+    tr.train()
+    assert tr.is_training_complete and os.listdir(prof) == []
+    assert any("torch profiler unavailable" in m for m in logs), logs
+
+
+def test_profiler_is_not_imported_without_profile_dir():
+    """An untraced run pays nothing for the option: torch.profiler's
+    machinery is reached only inside profiler_trace with a directory."""
+    from isle_tpu_torch.obs import Logger, profiler_trace
+
+    with profiler_trace("", Logger(None, quiet=True), False) as path:
+        assert path is None
+    assert GpuConfig().profile_dir == ""

@@ -75,3 +75,31 @@ def gather_case(seed, n=8 * CHUNK, S=300, rows=90, W=5):
 
 def t(x):
     return None if x is None else torch.from_numpy(x)
+
+
+def dead_tail_entries(seed=0, V=200, D=400, k=4, nc=12, dead_from=300):
+    """(docs, words, counts) of tests/torch_parity.biting_corpus with a
+    dead tail: thresholding bites (the nc common words get ζ well above 1
+    and every 20th doc is dropped), and the docs from `dead_from` on hold
+    each common word once, so every one of them falls under ζ: the ranks
+    that own only such docs keep none of them in B."""
+    rng = np.random.default_rng(seed)
+    docs, words, counts = [], [], []
+    for d in range(D):
+        if d % 20 == 19 or d >= dead_from:
+            ws, c = np.arange(nc), np.ones(nc, np.int64)
+        else:
+            band = d % k
+            n = int(rng.integers(6, 20))
+            ws = np.unique(np.concatenate([
+                np.flatnonzero(rng.random(nc) < 0.8),
+                nc + rng.integers(band * 40, band * 40 + 40, n // 2),
+                rng.integers(nc, V, n - n // 2),
+            ]))
+            c = rng.integers(1, 4, len(ws))
+            common = ws < nc
+            c[common] = rng.geometric(0.06, int(common.sum()))
+        docs += [d] * len(ws)
+        words += ws.tolist()
+        counts += c.tolist()
+    return np.array(docs), np.array(words), np.array(counts)
