@@ -128,11 +128,24 @@ Between 7 and 8, with the in-core corpus off the card:
      with restarts, operator calls, wall and the width-1 launches' times;
   S4. the reports on the small corpus, card against CPU:
      A_squared_spectrum.txt within rtol 1e-4, M_hat_avg within 1e-5, edge
-     topics v1 within 1e-5 with the same selected pairs.
+     topics v1 within 1e-5 with the same selected pairs;
+  S5. out of core over the mesh: a StreamedTrainer with M1's one-rank
+     NCCL mesh (isle_tpu_torch/streaming_sharded.py: the rank streams its
+     doc range, the histogram and the model are all-reduced, the model
+     thresholds come from the distributed rank selection) at the NYTimes
+     shape with edge topics, chunk_entries 2^22, launch counts reset just
+     before and read just after, torch's library SpMM made to raise: ζ,
+     original_cols, the rank's B (both sort orders), clusters, catchword
+     sets and top-two topics equal S1's exactly, the model and the edge
+     model within 1e-6 (bit-equality printed); every streamed pass
+     launched its kernel exactly once a chunk and the middle's stages
+     launched what S1's did; wall, stage walls, peak device memory, bytes
+     copied, the copy-wait share and the collectives' count and time.
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
-"launches_by_path", the sharded and the traced run among them), max error, and the sums of ms, plain_ms, bound_ms
+"launches_by_path", the sharded, the sharded streamed and the traced run
+among them), max error, and the sums of ms, plain_ms, bound_ms
 and library_ms over the uses that a driven path launched, every use
 listed under "uses"), the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
@@ -750,7 +763,7 @@ def run_dir_arrays(tr, stage: str) -> dict:
         return dict(z)
 
 
-def streamed_trainer(corpus, shape, seed, out, **cfg_kw):
+def streamed_trainer(corpus, shape, seed, out, mesh=None, **cfg_kw):
     from isle_tpu_torch import GpuConfig, TrainConfig
     from isle_tpu_torch.streaming import StreamedTrainer
 
@@ -759,7 +772,7 @@ def streamed_trainer(corpus, shape, seed, out, **cfg_kw):
                       max_edge_topics=shape["edges"], **cfg_kw)
     st = StreamedTrainer(cfg, output_dir=out, quiet=True,
                          chunk_entries=STREAM_CHUNK_ENTRIES,
-                         gpu=GpuConfig(device="cuda"))
+                         gpu=GpuConfig(device="cuda"), mesh=mesh)
     st.load_corpus(corpus)
     return st
 
@@ -777,7 +790,8 @@ def stage_launches(tr) -> dict:
 def check_streamed_launches(per: dict, chunks: int, label: str) -> None:
     """Every streamed pass of a run launched its kernel exactly once a
     chunk (the catchword pass: one launch for the group counts), by the
-    counts read at the end of each stage."""
+    counts read at the end of each stage (a sharded streamed stage is
+    held to the streamed stage of its label)."""
     want = {
         "streamed thresholds": (chunks, 0),  # the ζ histogram
         "streamed doc sampling": (chunks, 0),  # the doc weights
@@ -787,10 +801,11 @@ def check_streamed_launches(per: dict, chunks: int, label: str) -> None:
         "streamed topic model": (chunks, chunks),
     }
     for stage, counts in per.items():
-        if stage in want:
-            assert (counts[ONEHOT], counts[GATHER]) == want[stage], \
+        need = want.get(stage.replace(" (sharded)", ""))
+        if need is not None:
+            assert (counts[ONEHOT], counts[GATHER]) == need, \
                 f"{label}: stage {stage!r} launched {counts}, expected " \
-                f"(onehot, gather) = {want[stage]} with {chunks} chunks"
+                f"(onehot, gather) = {need} with {chunks} chunks"
     print(f"{label}: launches by stage (segsum_onehot, segsum_gather_rows): "
           + "; ".join(f"{stage} ({c[ONEHOT]}, {c[GATHER]})"
                       for stage, c in per.items()))
@@ -984,6 +999,104 @@ def streamed_sampling_phase(corpus, shape, seed, out, tr) -> tuple:
           + f"; {sum(len(c) for c in st.catchwords)} catchwords, "
           f"{st.edge_model.shape[1]} edge topics")
     return launches, per
+
+
+# the sharded streamed trainer's stage labels beside S1's
+SHARDED_STREAMED_STAGES = {
+    "streamed thresholds (sharded)": "streamed thresholds",
+    "streamed B construction (sharded)": "streamed B construction",
+    "eigen solve (B B^T, sharded)": "eigen solve (B B^T)",
+    "k-means (sharded)": "k-means",
+    "streamed catchwords (sharded)": "streamed catchwords",
+    "streamed topic model (sharded)": "streamed topic model",
+}
+
+
+def sharded_streamed_phase(corpus, shape, seed, out, st, B, mesh,
+                           s_per) -> dict:
+    """Phase S5: StreamedTrainer over the mesh against S1's streamed run
+    `st` (B: S1's B on the card, s_per: its launches by stage). Returns
+    the run's launch counts."""
+    from isle_tpu_torch.streaming_sharded import sharded_streamed_build_b
+
+    ss = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_ms"),
+                          mesh=mesh)
+    calls0, sec0 = mesh.collective_calls, mesh.collective_seconds()
+    with no_library_spmm():
+        wall, peak, launches, per = run_streamed(ss)
+    coll_s = mesh.collective_seconds() - sec0
+    loader = ss.loader
+    label = f"sharded streamed path, world size {mesh.world}"
+    print_streamed_run(label, ss, wall, peak, launches)
+    print(f"  {label}: {mesh.collective_calls - calls0} collectives, "
+          f"{coll_s:.4f} s inside them ({coll_s / wall:.2%} of the wall); "
+          f"{card_line()}")
+    assert ss.mesh is mesh and loader.doc_range == (0, shape["docs"])
+    check_streamed_launches(per, len(loader.ranges), label)
+    assert set(per) == set(SHARDED_STREAMED_STAGES), per
+    for stage, counts in per.items():
+        want = s_per[SHARDED_STREAMED_STAGES[stage]]
+        assert counts == want, \
+            f"sharded streamed stage {stage!r} launched {counts}, S1 {want}"
+
+    ours, ref = run_dir_arrays(ss, "svd"), run_dir_arrays(st, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"]), "sharded zetas"
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    assert np.array_equal(ss.cluster_of_doc, st.cluster_of_doc), \
+        "sharded streamed clusters differ from S1's"
+    for t, (a, b) in enumerate(zip(ss.catchwords, st.catchwords)):
+        assert np.array_equal(a, b), f"sharded streamed: catchwords of {t}"
+    for a, b in zip(ss.top_pairs, st.top_pairs):
+        assert np.array_equal(a, b), "sharded streamed: top-two topics"
+    np.testing.assert_allclose(ss.model, st.model, rtol=0, atol=1e-6)
+    assert np.array_equal(ss.edge_pairs, st.edge_pairs)
+    np.testing.assert_allclose(ss.edge_model, st.edge_model, rtol=0,
+                               atol=1e-6)
+    # the rank's B, rebuilt by the stage the run took, against S1's
+    z = torch.from_numpy(ref["zetas"]).cuda()
+    SB, cols = sharded_streamed_build_b(corpus, z, None, loader, mesh)
+    assert np.array_equal(cols, ref["original_cols"])
+    assert SB.doc_counts == (B.num_docs,) and SB.nnz == B.nnz
+    assert_same_b(SB.local, B)
+    del SB
+    print(f"sharded streamed checks: zetas, original_cols, B ({B.nnz} nnz), "
+          "clusters, catchwords, top-two topics and edge pairs equal S1's; "
+          f"model max abs diff {np.abs(ss.model - st.model).max():.3e} "
+          f"(bit-equal: {np.array_equal(ss.model, st.model)}), edge model "
+          f"bit-equal: {np.array_equal(ss.edge_model, st.edge_model)}; no "
+          "torch.sparse call; launches by stage equal S1's")
+
+    # the two steps the single-device stages do otherwise, on the run's
+    # inputs, timed beside them: the rank selection of the model
+    # thresholds (31 counting steps against a sort of the mass) and the
+    # word shard of the clustered entries (an exchange against a sort)
+    from isle_tpu_torch import streaming, topic_model
+    from isle_tpu_torch.streaming_sharded import \
+        sharded_model_thresholds, sharded_streamed_filter_clustered
+
+    k, D = shape["k"], shape["docs"]
+    cwt = catchword_topics(ss)
+    mass = streaming.streamed_doc_topic_mass(corpus, cwt, k, loader)
+    has_cw = topic_model.has_catchwords(cwt, k)
+    r = ss.config.hyper.model_rank_threshold(D, k)
+    thr = sharded_model_thresholds(mass, has_cw, r, D, mesh)
+    assert torch.equal(thr, topic_model.model_thresholds(mass, has_cw, r))
+    select_ms = time_ms(
+        lambda: sharded_model_thresholds(mass, has_cw, r, D, mesh))
+    sort_ms = time_ms(lambda: topic_model.model_thresholds(mass, has_cw, r))
+    del mass
+    cluster = torch.from_numpy(ss.cluster_of_doc).cuda()
+    exchange_ms = time_ms(lambda: sharded_streamed_filter_clustered(
+        corpus, cluster, loader, mesh))
+    single_ms = time_ms(lambda: streaming.streamed_filter_clustered(
+        corpus, cluster, loader))
+    print(f"  rank selection of the model thresholds ({r}-th largest of "
+          f"{D} x {k}): {select_ms:.3f} ms, equal to model_thresholds' "
+          f"sort, {sort_ms:.3f} ms; clustered entries to their word's rank "
+          f"({len(loader.ranges)}-chunk pass): {exchange_ms:.3f} ms, the "
+          f"single-device "
+          f"filter {single_ms:.3f} ms")
+    return launches
 
 
 def middle_chunk(tr, corpus, loader) -> SimpleNamespace:
@@ -1625,38 +1738,41 @@ def main() -> int:
         del sh
         torch.cuda.empty_cache()
         sharded_infer_phase(tr, entries, shape, out, mesh)
+        capi_phase(os.path.join(out, "capi"))
+        p_launches, _ = traced_phase(corpus, shape, args.seed, out, tr)
+        torch.cuda.empty_cache()
+        # each use's launches on the sharded run, beside the main path's
+        sharded_use_launches = {
+            "zeta histogram": 1, "r-th group counts": 1,
+            "doc-topic mass": 1, "doc norms of B": 1, "model SpMM B W": 1,
+            "eigensolver B^T X": sharded_calls,
+            "eigensolver B Y": sharded_calls,
+            "Lloyd's B^T C (+ projection)": sharded_reps + 1,
+            "Lloyd's B onehot": sharded_reps,
+        }
+        for rows in uses.values():
+            for u in rows:
+                u["launches_sharded"] = sharded_use_launches[u["use"]]
+        assert m_launches[ONEHOT] == sum(
+            u["launches_sharded"] for u in uses[ONEHOT])
+        assert m_launches[GATHER] == sum(
+            u["launches_sharded"] for u in uses[GATHER])
+        print("launches on the sharded run by use: " + "; ".join(
+            f"{u['use']} {u['launches_sharded']}"
+            for rows in uses.values() for u in rows))
+
+        # S1-S3 and S5: out of core, on one device and over the mesh.
+        st, s_launches, s_per, B = streamed_phase(corpus, shape, args.seed,
+                                                  out, tr)
+        r_launches = streamed_resume_phase(corpus, shape, args.seed, out, tr,
+                                           st.loader)
+        ss_launches, ss_per = streamed_sampling_phase(corpus, shape,
+                                                      args.seed, out, tr)
+        ms_launches = sharded_streamed_phase(corpus, shape, args.seed, out,
+                                             st, B, mesh, s_per)
     finally:
         if mesh.group is not None:
             dist.destroy_process_group()
-    capi_phase(os.path.join(out, "capi"))
-    p_launches, _ = traced_phase(corpus, shape, args.seed, out, tr)
-    torch.cuda.empty_cache()
-    # each use's launches on the sharded run, beside the main path's
-    sharded_use_launches = {
-        "zeta histogram": 1, "r-th group counts": 1, "doc-topic mass": 1,
-        "doc norms of B": 1, "model SpMM B W": 1,
-        "eigensolver B^T X": sharded_calls, "eigensolver B Y": sharded_calls,
-        "Lloyd's B^T C (+ projection)": sharded_reps + 1,
-        "Lloyd's B onehot": sharded_reps,
-    }
-    for rows in uses.values():
-        for u in rows:
-            u["launches_sharded"] = sharded_use_launches[u["use"]]
-    assert m_launches[ONEHOT] == sum(
-        u["launches_sharded"] for u in uses[ONEHOT])
-    assert m_launches[GATHER] == sum(
-        u["launches_sharded"] for u in uses[GATHER])
-    print("launches on the sharded run by use: " + "; ".join(
-        f"{u['use']} {u['launches_sharded']}"
-        for rows in uses.values() for u in rows))
-
-    # S1-S3: out of core.
-    st, s_launches, s_per, B = streamed_phase(corpus, shape, args.seed, out,
-                                              tr)
-    r_launches = streamed_resume_phase(corpus, shape, args.seed, out, tr,
-                                       st.loader)
-    ss_launches, ss_per = streamed_sampling_phase(corpus, shape, args.seed,
-                                                  out, tr)
     s_uses = streamed_uses(st, corpus, {
         "histogram": s_per["streamed thresholds"][ONEHOT],
         "mass": s_per["streamed topic model"][ONEHOT],
@@ -1673,6 +1789,7 @@ def main() -> int:
                       "streamed": s_launches[name],
                       "streamed, resumed": r_launches[name],
                       "streamed, sampled": ss_launches[name],
+                      "sharded_streamed": ms_launches[name],
                       "lanczos": l_launches[name]} for name in uses}
     del st, B
 

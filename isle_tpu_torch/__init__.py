@@ -1,7 +1,8 @@
 """isle-tpu-torch: the PyTorch + CUDA port of isle_tpu for NVIDIA Hopper
 cards (H100): training in core (Trainer), out of core (StreamedTrainer)
 and over several cards, one process a card on torch.distributed
-(Trainer with GpuConfig.mesh_shape, sharding.py), MWU inference
+(Trainer or StreamedTrainer with GpuConfig.mesh_shape, sharding.py,
+streaming_sharded.py), MWU inference
 (Inferencer, doc-parallel over the same ranks), the reports, both CLIs
 and the handle API behind a C shim (capi.py, csrc/isle_capi_torch.cpp).
 

@@ -173,7 +173,7 @@ def infer_all(
     block_size: int = 0,
     max_guesses: int = 10,
     top_n: int = 0,
-    device="cpu",
+    device="cuda",
     mesh=None,
 ):
     """Run MWU over every doc on `device`. Returns (weights (D, k),

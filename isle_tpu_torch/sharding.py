@@ -180,6 +180,28 @@ class Mesh:
             dist.all_gather(out, pad, group=self.group)
         return torch.cat([o[:c] for o, c in zip(out, counts)])
 
+    def all_to_all_rows(self, t: torch.Tensor,
+                        send_counts: List[int]) -> torch.Tensor:
+        """Rows [sum(send_counts[:j]), sum(send_counts[:j + 1])) of `t` go
+        to rank j; returns the rows every rank sent here, joined in rank
+        order. The splits may be ragged (a rank may send or receive none):
+        the counts go round first."""
+        if self.group is None:
+            return t
+        send = torch.tensor(send_counts, dtype=torch.int64,
+                            device=self.device)
+        recv = torch.empty_like(send)
+        with self._timed():
+            dist.all_to_all_single(recv, send, group=self.group)
+        recv_counts = recv.tolist()
+        out = t.new_empty((sum(recv_counts),) + tuple(t.shape[1:]))
+        with self._timed():
+            dist.all_to_all_single(
+                out, t.contiguous(), output_split_sizes=recv_counts,
+                input_split_sizes=[int(c) for c in send_counts],
+                group=self.group)
+        return out
+
     def all_equal(self, a: torch.Tensor, b: torch.Tensor) -> bool:
         """Whether a == b on every rank: the same answer on every rank."""
         differ = torch.tensor([0 if torch.equal(a, b) else 1],
@@ -269,21 +291,33 @@ class ShardedDocSparse:
         return self.local.device
 
 
+def doc_starts(num_docs: int, shards: int) -> np.ndarray:
+    """(shards + 1,) first docs of the contiguous doc ranges, dps =
+    ceil(num_docs / shards) each (the last ranges may be short or
+    empty)."""
+    dps = -(-int(num_docs) // shards)
+    return np.minimum(np.arange(shards + 1) * dps, int(num_docs))
+
+
+def doc_range(num_docs: int, mesh: Mesh) -> Tuple[int, int]:
+    """This rank's docs [lo, hi) of a matrix of num_docs docs."""
+    starts = doc_starts(num_docs, mesh.world)
+    return int(starts[mesh.rank]), int(starts[mesh.rank + 1])
+
+
 def shard_doc_sparse(words, docs, vals, vocab: int, num_docs: int,
                      mesh: Mesh) -> ShardedDocSparse:
     """Cut this rank's doc range out of host COO arrays sorted by (doc,
     word) and put it on the mesh's device."""
-    S, D = mesh.world, int(num_docs)
-    dps = -(-D // S)
-    starts = np.minimum(np.arange(S + 1) * dps, D)
-    lo, hi = int(starts[mesh.rank]), int(starts[mesh.rank + 1])
+    lo, hi = doc_range(num_docs, mesh)
     docs = np.asarray(docs)
     e_lo, e_hi = np.searchsorted(docs, [lo, hi])
     local = DocSparse.from_doc_sorted(
         np.asarray(words)[e_lo:e_hi], docs[e_lo:e_hi] - lo,
         np.asarray(vals)[e_lo:e_hi], vocab, hi - lo, mesh.device)
+    counts = np.diff(doc_starts(num_docs, mesh.world))
     return ShardedDocSparse(
-        local=local, doc_counts=tuple(int(x) for x in np.diff(starts)),
+        local=local, doc_counts=tuple(int(x) for x in counts),
         doc_start=lo, nnz=len(docs))
 
 
@@ -315,10 +349,17 @@ def word_bounds(words: np.ndarray, vocab: int, shards: int) -> np.ndarray:
     ranges of about equal entry counts: the cuts of
     isle_tpu.sharding.shard_by_word (the word of the sorted stream's entry
     s * n / S, plus one), from a count per word instead of a sort."""
-    n = len(words)
+    return word_bounds_of_counts(np.bincount(words, minlength=vocab), shards)
+
+
+def word_bounds_of_counts(counts: np.ndarray, shards: int) -> np.ndarray:
+    """word_bounds from the (vocab,) entry count of every word, which the
+    ranks of a mesh can sum without holding each other's entries."""
+    counts = np.asarray(counts)
+    vocab, n = len(counts), int(counts.sum())
     if shards == 1 or n == 0:
         return np.array([0] * shards + [vocab], np.int64)
-    cum = np.cumsum(np.bincount(words, minlength=vocab))
+    cum = np.cumsum(counts)
     targets = np.minimum((np.arange(1, shards) * n) // shards, n - 1)
     cuts = np.searchsorted(cum, targets, side="right") + 1
     bounds = np.concatenate([[0], cuts, [vocab]]).astype(np.int64)
@@ -465,13 +506,22 @@ def sharded_threshold_and_copy(
     if sel is not None:
         sel = pad_doc_rows(sel, ssp)
     B, cols = bmatrix.copy_kept(A, zetas, sel)
-    cols = torch.from_numpy(cols + np.int32(ssp.doc_start)).to(A.device)
+    return join_doc_shards(B, cols + np.int32(ssp.doc_start), mesh)
+
+
+def join_doc_shards(B: DocSparse, cols: np.ndarray, mesh: Mesh
+                    ) -> Tuple[ShardedDocSparse, np.ndarray]:
+    """This rank's B (its kept docs renumbered from 0; `cols` their global
+    ids, ascending) as the rank's part of a ShardedDocSparse: the doc
+    counts and the nnz of every rank go round. Returns (B, original_cols
+    of all ranks, in doc order)."""
     counts = mesh.row_counts(B.num_docs)
     nnz = mesh.all_reduce(
-        torch.tensor([B.nnz], dtype=torch.int64, device=A.device))
+        torch.tensor([B.nnz], dtype=torch.int64, device=B.device))
     out = ShardedDocSparse(
         local=B, doc_counts=counts, doc_start=sum(counts[: mesh.rank]),
         nnz=int(nnz))
+    cols = torch.from_numpy(np.asarray(cols, np.int32)).to(B.device)
     return out, mesh.all_gather_rows(cols).cpu().numpy()
 
 

@@ -563,10 +563,7 @@ class Trainer:
         followed by a broadcast of rank 0's result: no rank decides a
         branch that holds a collective on a float that only it computed.
         Rank 0 alone reads and writes the run directory."""
-        from .elkans_sharded import sharded_run_elkans
-        from .sharding import compact_doc_rows, pad_doc_rows, \
-            shard_by_word, shard_doc_sparse, sharded_b_y, sharded_bt_x, \
-            sharded_gram_x, sharded_run_lloyds_full, sharded_spmm_flops, \
+        from .sharding import shard_by_word, shard_doc_sparse, \
             sharded_threshold_and_copy, sharded_thresholds
 
         mesh = self.mesh
@@ -649,10 +646,50 @@ class Trainer:
                 "and eps2/eps3/w0_c"
             )
 
+        cluster_of_doc = self._sharded_middle(B, zetas, original_cols, ck)
+        del B
+        sizes = np.bincount(cluster_of_doc[cluster_of_doc >= 0],
+                            minlength=k).astype(np.int32)
+        self._finish_train_sharded(ssp_A, ws_A, cluster_of_doc, sizes)
+
+    def _sharded_middle(self, B, zetas: torch.Tensor,
+                        original_cols: np.ndarray, ck: dict,
+                        streamed: bool = False) -> np.ndarray:
+        """Stages 4-9 on the mesh from B (a ShardedDocSparse), shared by
+        _train_sharded and the sharded streamed trainer
+        (streaming_sharded.py): the eigensolve, whose operator ends in an
+        all-reduce, with rank 0's U everywhere; the projected docs,
+        gathered; the seeding and the projected Lloyd's, replicated, with
+        rank 0's centers everywhere; Lloyd's or Elkan's on B in the full
+        space. Writes the svd (unless resumed from `ck`) and kmeans
+        checkpoints and returns cluster_of_doc. `streamed` takes
+        isle_tpu's streamed stage labels (the eigensolve's when it ran,
+        then one for all of k-means) and always clusters through the
+        projection, as isle_tpu's streamed trainers do."""
+        from .elkans_sharded import sharded_run_elkans
+        from .sharding import compact_doc_rows, pad_doc_rows, sharded_b_y, \
+            sharded_bt_x, sharded_gram_x, sharded_run_lloyds_full, \
+            sharded_spmm_flops
+
+        mesh = self.mesh
+        cfg = self.config
+        hp = cfg.hyper
+        k = cfg.num_topics
+        V, D = B.vocab, self.corpus.num_docs
+        chunk = self.gpu.seg_chunk
+        dev = self.device
+        mark = (lambda label: None) if streamed else self._mark
+        lowd = hp.enable_kmeans_on_lowd
+        if streamed and not lowd:
+            self.logger.warning(
+                "the streamed trainer always runs k-means on the projected "
+                "docs first: enable_kmeans_on_lowd=False is ignored")
+            lowd = True
+
         # 4-5. truncated SVD of B B^T: the operator ends in an all-reduce
         if "svd" in ck:
             self.evalues = ck["svd"]["evalues"]
-            U = st["svd"]["U"]
+            U = torch.from_numpy(np.ascontiguousarray(ck["svd"]["U"])).to(dev)
             self.logger.info("resumed eigenvectors from 'svd' checkpoint")
         else:
             start = self._warm_start_block(V) if self.is_writer else None
@@ -683,7 +720,8 @@ class Trainer:
                 )
                 self.logger.info(self.op_counter.summary())
         self._print_eigen_data(self.evalues, k)
-        self._mark("eigen solve (B B^T, sharded)")
+        if not (streamed and "svd" in ck):
+            self._mark("eigen solve (B B^T, sharded)")
         if "svd" not in ck:
             self._checkpoint("svd", U=U.cpu().numpy(), evalues=self.evalues,
                              zetas=zetas.cpu().numpy(),
@@ -691,7 +729,7 @@ class Trainer:
 
         # 6. projected docs P = U^T B, replicated (k x D_B: small)
         P = compact_doc_rows(sharded_bt_x(B, U, mesh, chunk), mesh).T
-        self._mark("project docs")
+        mark("project docs")
 
         # 7. seeding + Lloyd's in the projected space: replicated dense
         # work from the same draws, then rank 0's result everywhere
@@ -701,13 +739,13 @@ class Trainer:
             mcmc_sample_size=hp.kmeansmcmc_sample_size,
         )
         self.logger.info(f"Best k-means init residual: {init_residual:.4f}")
-        self._mark("k-means seeds initialization")
-        if hp.enable_kmeans_on_lowd:
+        mark("k-means seeds initialization")
+        if lowd:
             centers_lowd, _ = run_lloyds_projected(
                 P, centers_lowd, hp.max_kmeans_lowd_reps, timer=self.timer
             )
             centers_full = mesh.broadcast(centers_lowd.contiguous()) @ U.T
-            self._mark("converging Lloyds k-means on B_k")
+            mark("converging Lloyds k-means on B_k")
         else:  # the seed docs' columns of B
             seeds = mesh.broadcast(seeds.contiguous())
             onehot = torch.nn.functional.one_hot(seeds, B.num_docs)
@@ -724,17 +762,16 @@ class Trainer:
             B, centers_full, hp.max_kmeans_reps, mesh, timer=self.timer,
             chunk=chunk)
         self.centers = centers_full.cpu().numpy()
-        self._mark("k-means on B (sharded)")
+        self._mark("k-means (sharded)" if streamed
+                   else "k-means on B (sharded)")
 
         # 9. remap cluster membership to original doc ids
         cluster_of_doc = np.full(D, -1, np.int32)
         cluster_of_doc[original_cols] = assign_h
         self.cluster_of_doc = cluster_of_doc
-        sizes = np.bincount(assign_h, minlength=k).astype(np.int32)
         self._checkpoint("kmeans", centers=self.centers,
                          cluster_of_doc=cluster_of_doc)
-        del B
-        self._finish_train_sharded(ssp_A, ws_A, cluster_of_doc, sizes)
+        return cluster_of_doc
 
     def _finish_train_sharded(self, ssp_A, ws_A, cluster_of_doc: np.ndarray,
                               sizes: np.ndarray) -> None:

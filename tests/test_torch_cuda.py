@@ -624,6 +624,66 @@ def test_streamed_trainer_on_the_card(dev, tmp_path, sampled):
     np.testing.assert_allclose(back.model, got.model, rtol=1e-5, atol=1e-7)
 
 
+def test_chunk_loader_over_a_doc_range_on_the_card(dev):
+    """A rank's loader: the chunks of its doc range only, its offsets and
+    slots sized by that range; an empty range yields nothing and holds no
+    slot."""
+    from isle_tpu_torch.streaming import ChunkLoader
+
+    corpus, _ = _exact_corpus()
+    lo, hi = 150, 420
+    loader = ChunkLoader(corpus, 1500, dev, (lo, hi))
+    off = corpus.offsets
+    assert loader.ranges[0][0] == lo and loader.ranges[-1][1] == hi
+    assert loader.bytes_copied == 8 * (hi - lo + 1)
+    assert loader._slots[0].pin_w.numel() == max(
+        int(off[b] - off[a]) for a, b in loader.ranges)
+    docs = corpus.doc_ids()
+    seen = int(off[lo])
+    for a, b, w, v, d in loader.chunks():
+        x, y = int(off[a]), int(off[b])
+        assert x == seen and d.is_cuda
+        np.testing.assert_array_equal(w.cpu().numpy(), corpus.rows[x:y])
+        np.testing.assert_array_equal(v.cpu().numpy(), corpus.vals[x:y])
+        np.testing.assert_array_equal(d.cpu().numpy(), docs[x:y])
+        seen = y
+    assert seen == int(off[hi])
+    empty = ChunkLoader(corpus, 1500, dev, (600, 600))
+    assert empty.ranges == [] and empty._slots == []
+    assert list(empty.chunks()) == []
+
+
+def test_group_less_mesh_streamed_on_the_card(dev, tmp_path):
+    """StreamedTrainer with a mesh of one rank and no group on the card:
+    the sharded streamed path, every pass launching its kernel once a
+    chunk, ending bit for bit where the single-device streamed run ends."""
+    from isle_tpu_torch import GpuConfig, TrainConfig
+    from isle_tpu_torch.sharding import Mesh
+    from isle_tpu_torch.streaming import StreamedTrainer
+
+    corpus, k = _exact_corpus()
+    cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
+                      max_edge_topics=8)
+    runs = {}
+    for name, mesh in (("single", None), ("sharded", Mesh("cuda"))):
+        st = StreamedTrainer(cfg, output_dir=str(tmp_path / name),
+                             chunk_entries=1500,
+                             gpu=GpuConfig(device="cuda"), mesh=mesh)
+        st.load_corpus(corpus)
+        segsum.reset_launch_counts()
+        st.train()
+        runs[name] = (st, segsum.launch_counts())
+    (g, g_counts), (c, c_counts) = runs["sharded"], runs["single"]
+    assert g_counts == c_counts
+    assert g.loader.doc_range == (0, corpus.num_docs)
+    assert [s for s, *_ in g.timer.phases][0] == \
+        "streamed thresholds (sharded)"
+    for f in ("original_cols", "cluster_of_doc", "evalues", "model"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(c, f), f)
+    for a, b in zip(g.top_pairs, c.top_pairs):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_lanczos_on_the_card_matches_the_cpu(dev, tmp_path):
     """eigensolver="lanczos" on the card (width-1 launches of the gather
     kernel) against the CPU: eigenvalues within rtol 1e-4, the same

@@ -75,7 +75,7 @@ def _both(M, corpus, **kw):
     ref = jmwu.infer_all(M, jmwu.build_infer_batch(corpus, M.sum(axis=1)),
                          **kw)
     got = mwu.infer_all(M, mwu.build_infer_batch(corpus, M.sum(axis=1)),
-                        **kw)
+                        device="cpu", **kw)
     return got, ref
 
 
@@ -118,8 +118,8 @@ def test_build_infer_batch_matches_jax():
 def test_small_blocks_equal_one_block():
     M, corpus, _ = _case("small_blocks", 5)
     batch = mwu.build_infer_batch(corpus, M.sum(axis=1))
-    one = mwu.infer_all(M, batch, 15, 10.0)
-    small = mwu.infer_all(M, batch, 15, 10.0, block_size=4)
+    one = mwu.infer_all(M, batch, 15, 10.0, device="cpu")
+    small = mwu.infer_all(M, batch, 15, 10.0, block_size=4, device="cpu")
     np.testing.assert_array_equal(one[1], small[1])
     for a, b in zip(one, small):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
@@ -153,7 +153,7 @@ def test_top_n_ties_break_to_the_lowest_index():
     got, ref = _both(M, corpus, top_n=2)
     _assert_same(got, ref)
     full = mwu.infer_all(M, mwu.build_infer_batch(corpus, M.sum(axis=1)),
-                         15, 10.0)[0]
+                         15, 10.0, device="cpu")[0]
     assert (full[:, 1] == full[:, 4]).all()
     w = torch.tensor([[0.1, 0.3, 0.2, 0.3, 0.1]])
     vals, idx = mwu.top_n_rows(w, 3)

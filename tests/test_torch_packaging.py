@@ -51,6 +51,7 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch.streaming", "isle_tpu_torch.capi",
     "isle_tpu_torch.preprocessed", "isle_tpu_torch.sharding",
     "isle_tpu_torch.elkans_sharded", "isle_tpu_torch._build_capi",
+    "isle_tpu_torch.streaming_sharded",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
@@ -74,8 +75,8 @@ def test_import_pulls_in_no_jax(module):
 def test_trains_and_infers_with_jax_isle_tpu_and_bench_blocked(tmp_path):
     """A meta-path finder refuses jax, isle_tpu and bench; the port still
     builds a corpus, trains it on the CPU with edge topics, writes the
-    model and two reports, trains it again out of core, loads the model
-    back and infers the corpus."""
+    model and two reports, trains it again out of core (alone and over a
+    mesh of one rank), loads the model back and infers the corpus."""
     code = f"""
 import sys
 
@@ -114,6 +115,13 @@ st.load_corpus(corpus)
 st.train()
 assert np.array_equal(st.cluster_of_doc, tr.cluster_of_doc)
 assert np.allclose(st.model, tr.model, rtol=1e-5, atol=1e-7)
+from isle_tpu_torch.sharding import Mesh
+ms = StreamedTrainer(tr.config,
+                     output_dir=os.path.join({str(tmp_path)!r}, "ms"),
+                     chunk_entries=400, gpu=cpu, mesh=Mesh("cpu"))
+ms.load_corpus(corpus)
+ms.train()
+assert np.array_equal(ms.model, st.model)
 model_file = os.path.join(tr.run_dir, "M_hat_catch_sparse")
 inf = Inferencer(InferConfig(num_topics=3, vocab_size=60),
                  model_file=model_file, output_dir={str(tmp_path)!r},
@@ -172,3 +180,50 @@ def test_pyproject_ships_the_c_shim():
                  "finalizeData", "Train", "GetBasicModel",
                  "GetNumEdgeTopics", "GetEdgeModel"):
         assert re.search(rf"\b{name}\(", src), name
+
+
+def _public_callables():
+    """(qualified name, callable) of every public function and class of
+    every module of the port (a class stands for its constructor)."""
+    import importlib
+    import inspect
+
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        name = ".".join(parts)
+        mod = importlib.import_module(name)
+        for attr, obj in vars(mod).items():
+            if attr.startswith("_") or getattr(obj, "__module__", "") != name:
+                continue
+            if inspect.isfunction(obj) or inspect.isclass(obj):
+                yield f"{name}.{attr}", obj
+            if inspect.isclass(obj):
+                for meth, fn in vars(obj).items():
+                    if inspect.isfunction(fn) and not meth.startswith("_"):
+                        yield f"{name}.{attr}.{meth}", fn
+
+
+def test_no_public_device_defaults_to_the_cpu():
+    """Every entry point runs on the card unless its caller names the CPU:
+    no public function, method or constructor of the port has a `device`
+    parameter whose default is "cpu"."""
+    import inspect
+
+    seen, bad = [], []
+    for qual, obj in _public_callables():
+        try:
+            params = inspect.signature(obj).parameters
+        except (TypeError, ValueError):
+            continue
+        p = params.get("device")
+        if p is None or p.default is inspect.Parameter.empty:
+            continue
+        seen.append(qual)
+        if str(p.default) == "cpu":
+            bad.append(qual)
+    assert not bad, f"device defaults to the CPU in {bad}"
+    # the walk reaches the entry points that have such a default
+    assert "isle_tpu_torch.mwu.infer_all" in seen
+    assert "isle_tpu_torch.config.GpuConfig" in seen

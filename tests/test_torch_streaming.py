@@ -433,13 +433,10 @@ def test_mesh_raises(tmp_path, corpus, trainer):
     else:
         tr = Trainer(cfg, output_dir=str(tmp_path), quiet=True, gpu=gpu)
     tr.load_corpus(corpus)
-    if trainer == "streamed":  # not ported yet: streaming_sharded
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tr.train()
-    else:  # ported: it needs its ranks
-        with pytest.raises(RuntimeError, match="process group"):
-            tr.train()
-    GpuConfig(device="cpu", mesh_shape=(1,)).require_single_device()
+    # both shard over the ranks of a process group, and there is none
+    with pytest.raises(RuntimeError, match="process group"):
+        tr.train()
+    assert not tr.is_training_complete
 
 
 def test_streamed_trainer_needs_data(tmp_path):

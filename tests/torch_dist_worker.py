@@ -17,7 +17,11 @@ Job kinds:
               an .npz file;
   "train"     Trainer over the mesh (the draws replayed from an .npz file
               where given), optionally resumed, and optionally an
-              inference of the training docs with the trained model;
+              inference of the training docs with the trained model; with
+              "chunk_entries" the out-of-core StreamedTrainer instead;
+  "streamed_stages"  every stage of isle_tpu_torch.streaming_sharded on
+              the rank's chunks beside its in-core sharded counterpart,
+              with the calls of the segment-sum wrappers counted by pass;
   "fail"      rank 1 raises before a collective that the others enter.
 """
 
@@ -155,7 +159,7 @@ TRAINER_FIELDS = ("original_cols", "evalues", "centers", "cluster_of_doc",
 
 def job_train(job: dict, mesh) -> dict:
     from isle_tpu_torch import GpuConfig, HyperParams, InferConfig, \
-        Inferencer, TrainConfig, Trainer
+        Inferencer, StreamedTrainer, TrainConfig, Trainer
 
     corpus = _corpus(job["corpus"])
     cfg = TrainConfig(num_topics=job["k"], seed=job["seed"],
@@ -163,8 +167,12 @@ def job_train(job: dict, mesh) -> dict:
                       **job.get("cfg", {}))
     gpu = GpuConfig(device="cpu", mesh_shape=(mesh.world,))
     draws = ReplayDraws(job["draws"]) if job.get("draws") else None
-    tr = Trainer(cfg, output_dir=job["out_dir"], quiet=True, gpu=gpu,
-                 draws=draws, mesh=mesh)
+    kw = dict(output_dir=job["out_dir"], quiet=True, gpu=gpu, draws=draws,
+              mesh=mesh)
+    if job.get("chunk_entries"):
+        tr = StreamedTrainer(cfg, chunk_entries=job["chunk_entries"], **kw)
+    else:
+        tr = Trainer(cfg, **kw)
     assert tr.mesh is mesh and tr.is_writer == (mesh.rank == 0)
     tr.load_corpus(corpus)
     tr.train(resume=job.get("resume", False))
@@ -198,6 +206,126 @@ def job_train(job: dict, mesh) -> dict:
     return out
 
 
+def job_streamed_stages(job: dict, mesh) -> dict:
+    from isle_tpu_torch import sharding as sh
+    from isle_tpu_torch import streaming
+    from isle_tpu_torch import streaming_sharded as ss
+    from isle_tpu_torch.bmatrix import dice_select
+    from isle_tpu_torch.config import HyperParams
+    from isle_tpu_torch.topic_model import doc_topic_mass, has_catchwords, \
+        l1_normalize_columns
+
+    corpus = _corpus(job["corpus"])
+    with np.load(job["inputs"]) as z:
+        inp = {name: torch.from_numpy(z[name]) for name in z.files}
+    hyper = HyperParams(**job.get("hyper", {}))
+    k, V, D = job["k"], corpus.vocab_size, corpus.num_docs
+    lo, hi = sh.doc_range(D, mesh)
+    out = {"doc_range": np.array([lo, hi])}
+
+    # the calls of the two wrappers by pass (on the CPU no kernel launches)
+    calls = {"segsum_onehot": 0, "segsum_gather_rows": 0}
+    saved = {name: getattr(streaming, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return saved[name](*args, **kw)
+        return call
+
+    def counting(label, fn):
+        before = dict(calls)
+        result = fn()
+        out["calls_" + label] = np.array(
+            [calls[name] - before[name] for name in calls])
+        return result
+
+    for name in calls:
+        setattr(streaming, name, counted(name))
+    try:
+        loader = streaming.ChunkLoader(corpus, job["chunk_entries"], "cpu",
+                                       (lo, hi))
+        out["ranges"] = np.array(loader.ranges, np.int64).reshape(-1, 2)
+        doc_ids = corpus.doc_ids()
+        A = sh.shard_doc_sparse(corpus.rows, doc_ids, corpus.vals, V, D,
+                                mesh)
+        ws = sh.shard_by_word(corpus.rows, doc_ids, corpus.vals, V, D, mesh)
+
+        zetas, nnz = counting("thresholds", lambda: (
+            ss.sharded_streamed_thresholds(corpus, k, hyper, loader, mesh)))
+        z_in, nnz_in = sh.sharded_thresholds(
+            ws, corpus.avg_doc_sz, corpus.nz_docs, k, hyper, mesh)
+        out.update(zetas=zetas.numpy(), new_nnz=nnz,
+                   zetas_incore=z_in.numpy(), new_nnz_incore=nnz_in)
+
+        weights = counting("weights", lambda: (
+            ss.sharded_streamed_doc_weights(corpus, zetas, loader, mesh)))
+        out["weights"] = weights.numpy()
+        select = mesh.broadcast(dice_select(weights, job["sample_rate"],
+                                            inp["uniforms"]))
+        for tag, sel, kw in (("B", None, {}),
+                             ("Bs", select, dict(
+                                 sample_rate=job["sample_rate"],
+                                 uniforms=inp["uniforms"]))):
+            B, cols = counting(tag, lambda: ss.sharded_streamed_build_b(
+                corpus, zetas, sel, loader, mesh))
+            IB, in_cols = sh.sharded_threshold_and_copy(A, zetas, mesh, **kw)
+            out.update(_doc_sparse_arrays(B.local, tag + "_"))
+            out.update(_doc_sparse_arrays(IB.local, "I" + tag + "_"))
+            out.update({
+                tag + "_cols": cols, "I" + tag + "_cols": in_cols,
+                tag + "_meta": np.array(
+                    [B.local.num_docs, B.doc_start, B.nnz, B.num_docs]),
+                "I" + tag + "_meta": np.array(
+                    [IB.local.num_docs, IB.doc_start, IB.nnz, IB.num_docs]),
+                tag + "_counts": np.array(B.doc_counts),
+                "I" + tag + "_counts": np.array(IB.doc_counts)})
+
+        sub = counting("filter", lambda: ss.sharded_streamed_filter_clustered(
+            corpus, inp["cluster_of_doc"], loader, mesh))
+        out.update(sub_word=sub.w_word.numpy(), sub_doc=sub.w_doc.numpy(),
+                   sub_val=sub.w_val.numpy(), sub_vocab=sub.vocab,
+                   sub_bounds=np.array(sub.word_bounds), sub_nnz=sub.nnz,
+                   sub_num_docs=sub.num_docs)
+
+        cwt = inp["cw_topic"]
+        mass = counting("mass", lambda: streaming.streamed_doc_topic_mass(
+            corpus, cwt, k, loader))
+        out.update(mass=mass.numpy(),
+                   mass_incore=doc_topic_mass(A.local, cwt, k).numpy())
+        has_cw = has_catchwords(cwt, k)
+        for r in job["ranks"]:
+            out[f"thr_{r}"] = ss.sharded_model_thresholds(
+                mass, has_cw, r, D, mesh).numpy()
+        crafted = inp["crafted_mass"]
+        c_lo, c_hi = sh.doc_range(crafted.shape[0], mesh)
+        for r in job["crafted_ranks"]:
+            out[f"crafted_thr_{r}"] = ss.sharded_model_thresholds(
+                crafted[c_lo:c_hi], inp["crafted_has_cw"], r,
+                crafted.shape[0], mesh).numpy()
+        out.update(zip(("t1", "t2", "valid"),
+                       (x.numpy() for x in ss.sharded_top_two_topics(
+                           mass, mesh))))
+
+        W = inp["W"][lo:hi].contiguous()
+        model = counting("model", lambda: ss.sharded_streamed_model(
+            corpus, W, loader, mesh))
+        out.update(model=model.numpy(), model_incore=l1_normalize_columns(
+            sh.sharded_b_y(A, W, mesh)).numpy())
+    finally:
+        for name, fn in saved.items():
+            setattr(streaming, name, fn)
+
+    # a ragged exchange: rank r sends (r + j) % 3 rows to rank j
+    send = [(mesh.rank + j) % 3 for j in range(mesh.world)]
+    rows = torch.arange(2 * sum(send), dtype=torch.int32).reshape(-1, 2)
+    out["a2a_sent"] = rows.numpy()
+    out["a2a_got"] = mesh.all_to_all_rows(rows + 1000 * mesh.rank,
+                                          send).numpy()
+    out["collective_calls"] = mesh.collective_calls
+    return out
+
+
 def job_fail(job: dict, mesh) -> dict:
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
@@ -205,7 +333,8 @@ def job_fail(job: dict, mesh) -> dict:
     return {}
 
 
-JOBS = {"sharding": job_sharding, "train": job_train, "fail": job_fail}
+JOBS = {"sharding": job_sharding, "train": job_train,
+        "streamed_stages": job_streamed_stages, "fail": job_fail}
 
 
 def main(argv) -> int:
