@@ -71,6 +71,28 @@ stay) and says so on its own line. Phases, in order:
      Whether the two runs' weights are bit-equal is printed. MWU reaches
      no kernel: the launch counts of this run are printed, not required.
 
+  H1. (between 6 and 7) the hybrid layout, the port's default engine
+     (GpuConfig's dense_head_bytes, 4 GiB, as isle_tpu's): first the
+     small corpus with a 200-row head, card against CPU as in phase 3;
+     then Trainer.train() + train_edge_topics() at the NYTimes shape
+     with the default configuration, launch counts and head GEMMs set
+     to 0 just before and read just after: ζ and original_cols equal
+     phase 4's (COO), eigenvalues within rtol 1e-4 of it, the launches
+     of the stages the layout does not change equal phase 4's; three
+     more runs bit-equal to the first; the layout rebuilt from the
+     run's ζ: its head rows by isle_tpu's rule, its head words equal to
+     a host recomputation (ties to the lower word id), its head nnz the
+     host's count; h_bt_x and h_b_y at width 128 each within 1e-5
+     ||B|| ||X|| (Frobenius) of the float64 COO product on the same X,
+     the largest elementwise error over |B| |X| printed; whole-call times
+     beside the COO bt_x / b_y / doc_l2sq; the head product alone
+     (one bf16 GEMM with a float32 output over three bf16 pieces) at
+     widths 128, 100 and 1 both ways against its plain version and its
+     bound (the head read once at 3.35 TB/s, or 3 x 2 R D W operations at
+     the 989 TFLOP/s bf16 peak), two launches bit-equal; the tail's uses
+     of both kernels as phase 5 times them. Printed, not gated: how far
+     clusters and catchwords moved from the COO run, the four walls.
+
 Between 7 and 8, with the in-core corpus off the card:
 
   M1. the sharded trainer (Trainer with a sharding.Mesh) at world size 1
@@ -140,13 +162,21 @@ Between 7 and 8, with the in-core corpus off the card:
      model within 1e-6 (bit-equality printed); every streamed pass
      launched its kernel exactly once a chunk and the middle's stages
      launched what S1's did; wall, stage walls, peak device memory, bytes
-     copied, the copy-wait share and the collectives' count and time.
+     copied, the copy-wait share and the collectives' count and time;
+  H2. the sharded trainer with the hybrid layout (sharding.shard_hybrid)
+     over M1's mesh: ζ, original_cols, clusters and catchwords equal
+     H1's, the model within 1e-6, the eigensolve, the projection and
+     k-means launching what H1's did;
+  H3. the 12-chunk StreamedTrainer with the hybrid layout: ζ and
+     original_cols equal H1's, eigenvalues within rtol 1e-4, every
+     streamed pass one launch a chunk.
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
-"launches_by_path", the sharded, the sharded streamed and the traced run
-among them), max error, and the sums of ms, plain_ms, bound_ms
-and library_ms over the uses that a driven path launched, every use
+"launches_by_path", the sharded, the sharded streamed, the traced and
+the three hybrid runs among them), max error, and the sums of ms,
+plain_ms, bound_ms and library_ms over the uses that a driven path
+launched, every use
 listed under "uses"), the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
 CUDA device it exits with code 2 and prints no result.
@@ -224,15 +254,27 @@ def make_corpus(entries, shape: dict, normalize_to_one: bool = False):
                                normalize_to_one=normalize_to_one)
 
 
+def gpu_config(device: str, head_bytes=0, **kw):
+    """GpuConfig on `device` with the dense head budget `head_bytes`: 0
+    (the COO layout) for every phase before H, None for GpuConfig's
+    default (the hybrid layout, isle_tpu's default engine)."""
+    from isle_tpu_torch import GpuConfig
+
+    if head_bytes is not None:
+        kw["dense_head_bytes"] = head_bytes
+    return GpuConfig(device=device, **kw)
+
+
 def train(corpus, shape: dict, seed: int, device: str, out: str,
-          hyper=None, mesh=None, profile_dir: str = "", **cfg_kw):
-    from isle_tpu_torch import GpuConfig, HyperParams, TrainConfig, Trainer
+          hyper=None, mesh=None, profile_dir: str = "", head_bytes=0,
+          **cfg_kw):
+    from isle_tpu_torch import HyperParams, TrainConfig, Trainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
                       compute_edge_topics=True, max_edge_topics=shape["edges"],
                       hyper=HyperParams(**(hyper or {})), **cfg_kw)
     tr = Trainer(cfg, output_dir=out, quiet=True, mesh=mesh,
-                 gpu=GpuConfig(device=device, profile_dir=profile_dir))
+                 gpu=gpu_config(device, head_bytes, profile_dir=profile_dir))
     tr.load_corpus(corpus)
     tr.train()
     tr.train_edge_topics()
@@ -710,12 +752,13 @@ def cumsum_probe(n: int, launches: int = 200) -> None:
           f"{distinct(lambda: a @ a.T)}")
 
 
-def train_again(corpus, shape, seed, out, first) -> None:
+def train_again(corpus, shape, seed, out, first, head_bytes=0) -> float:
     """One more training run of the same corpus and seed: its wall, and
-    its results required equal to the first run's, bit for bit."""
+    its results required equal to the first run's, bit for bit. Returns
+    the wall."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tr = train(corpus, shape, seed, "cuda", out)
+    tr = train(corpus, shape, seed, "cuda", out, head_bytes=head_bytes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_cw = [sum(len(c) for c in t.catchwords) for t in (first, tr)]
@@ -730,13 +773,16 @@ def train_again(corpus, shape, seed, out, first) -> None:
         "model": np.array_equal(tr.model, first.model),
         "edge model": np.array_equal(tr.edge_model, first.edge_model),
     }
-    print(f"repeated training run: {wall:.2f} s wall; catchwords {n_cw[1]} "
+    layout = "COO" if head_bytes == 0 else "hybrid"
+    print(f"repeated training run ({layout}): {wall:.2f} s wall; catchwords "
+          f"{n_cw[1]} "
           f"(first {n_cw[0]}), edge topics {n_edge[1]} (first {n_edge[0]}); "
           + ", ".join(f"{name} equal: {ok}" for name, ok in same.items()))
     tr.A = None
     differ = [name for name, ok in same.items() if not ok]
     assert not differ, \
         f"a repeated run of one tree differs from the first in {differ}"
+    return wall
 
 
 def print_uses(uses: dict, path: str) -> None:
@@ -763,8 +809,9 @@ def run_dir_arrays(tr, stage: str) -> dict:
         return dict(z)
 
 
-def streamed_trainer(corpus, shape, seed, out, mesh=None, **cfg_kw):
-    from isle_tpu_torch import GpuConfig, TrainConfig
+def streamed_trainer(corpus, shape, seed, out, mesh=None, head_bytes=0,
+                     **cfg_kw):
+    from isle_tpu_torch import TrainConfig
     from isle_tpu_torch.streaming import StreamedTrainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
@@ -772,7 +819,7 @@ def streamed_trainer(corpus, shape, seed, out, mesh=None, **cfg_kw):
                       max_edge_topics=shape["edges"], **cfg_kw)
     st = StreamedTrainer(cfg, output_dir=out, quiet=True,
                          chunk_entries=STREAM_CHUNK_ENTRIES,
-                         gpu=GpuConfig(device="cuda"), mesh=mesh)
+                         gpu=gpu_config("cuda", head_bytes), mesh=mesh)
     st.load_corpus(corpus)
     return st
 
@@ -1602,6 +1649,337 @@ def traced_phase(corpus, shape, seed, out, tr) -> tuple:
     return launches, stage_launches(traced)
 
 
+# ---------------------------------------------------------------------------
+# Phase H: the hybrid layout (hybrid.py), the port's default engine
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+# a partial head on the small corpus: 200 of its 2,000 words
+TINY_HEAD_BYTES = 2 * TINY["docs"] * 200
+# the in-core stages beside the hybrid run's that launch alike
+HYBRID_SHARED_STAGES = ("eigen solve (B B^T)", "project docs",
+                        "k-means on B", "collecting word freqs in clusters",
+                        "constructing topic vectors")
+
+
+def head_counts_host(B) -> np.ndarray:
+    """(vocab,) entries per word of B, counted on the host."""
+    return np.bincount(B.w_word.cpu().numpy(), minlength=B.vocab)
+
+
+def host_head_words(B, R: int) -> np.ndarray:
+    """The head words recomputed on the host: the R highest counts, the
+    lower word id first among equal counts (jax.lax.top_k's order)."""
+    order = np.argsort(-head_counts_host(B), kind="stable")
+    return np.sort(order[:R]).astype(np.int32)
+
+
+def within_norm_bound(got, seg, idx, val, table, S, frob_b) -> tuple:
+    """Requires `got` within 1e-5 ||B|| ||X|| (Frobenius norms) of the
+    float64 COO product (the plain version on B's stream). Returns (the
+    error over that bound, the largest elementwise error over |B| |X|,
+    which is printed: the head sums up to 300,000 docs in one float32
+    accumulator)."""
+    from isle_tpu_torch import segsum
+
+    ref = segsum.segsum_gather_rows_plain(seg, idx, val.double(),
+                                          table.double(), S)[:S]
+    scale = segsum.segsum_gather_rows_plain(seg, idx, val.double().abs(),
+                                            table.double().abs(), S)[:S]
+    diff = got.double() - ref
+    norm = float(torch.linalg.norm(diff)) / (
+        frob_b * float(torch.linalg.norm(table.double())))
+    rel = diff.abs() / scale.clamp(min=1e-300)
+    at = divmod(int(rel.argmax()), rel.shape[1])
+    print(f"  largest elementwise error at {at}: got {float(got[at]):.9g}, "
+          f"float64 {float(ref[at]):.9g}, |B| |X| {float(scale[at]):.9g}, "
+          f"{int((seg == at[0]).sum())} entries in its segment")
+    assert norm <= 1e-5, f"hybrid product: ||err|| / (||B|| ||X||) {norm}"
+    return norm, float(rel.max())
+
+
+def head_product_uses(H) -> list:
+    """The head product alone (hybrid.head_dot: one bf16 GEMM with a
+    float32 output over the operand's three bf16 pieces) at the widths
+    the path gives it, both directions, against its plain version (the
+    head upcast to float32, one float32 matmul) and its bound: the head
+    read once at 3.35 TB/s or 3 x 2 R D W operations at the bf16 peak."""
+    from isle_tpu_torch import hybrid
+
+    R, D = H.num_head, H.num_docs
+    g = torch.Generator().manual_seed(1)
+    rows = []
+    for W in (128, 100, 1):
+        for transpose in (True, False):
+            X = torch.randn((R if transpose else D, W), generator=g).cuda()
+            got = hybrid.head_dot(H.head, X, transpose)
+            again = hybrid.head_dot(H.head, X, transpose)
+            assert torch.equal(got, again), "head product: two launches"
+            plain = hybrid.head_dot_plain(H.head, X, transpose)
+            err = float((got - plain).abs().max())
+            scale = float(hybrid.head_dot_plain(H.head, X.abs(),
+                                                transpose).max())
+            assert err <= 1e-5 * scale, f"head product W={W}: {err}"
+            del plain
+            t_bytes = R * D * 2 / HBM_BYTES_PER_S
+            t_ops = 3 * 2 * R * D * W / BF16_FLOPS
+            rows.append(dict(
+                width=W, direction="head^T X" if transpose else "head Y",
+                ms=time_ms(lambda: hybrid.head_dot(H.head, X, transpose)),
+                plain_ms=time_ms(lambda: hybrid.head_dot_plain(
+                    H.head, X, transpose)),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err, bit_equal=True))
+    return rows
+
+
+def hybrid_uses(hy, H, B, seed: int) -> dict:
+    """The tail's uses of both kernels in the hybrid run (its launches per
+    use from the run's own counters), each against its plain version as
+    phase 5 does it, on the tail's streams."""
+    k = hy.config.num_topics
+    calls, reps = hy.op_counter.calls, lloyds_reps(hy)
+    T = H.tail
+    g = torch.Generator().manual_seed(seed + 1)
+    X = torch.randn((B.vocab, hy.config.hyper.block_ks_block_size),
+                    generator=g).cuda()
+    Y = torch.randn((B.num_docs, X.shape[1]), generator=g).cuda()
+    centers = torch.as_tensor(hy.centers).T.contiguous().cuda()
+    assign = torch.as_tensor(hy.cluster_of_doc[hy.original_cols]).long()
+    onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32).cuda()
+    d_stream = (T.d_doc, T.d_word, T.d_val)
+    w_stream = (T.w_word, T.w_doc, T.w_val)
+    return {
+        ONEHOT: [onehot_use("doc norms of the hybrid tail", T.d_doc, None,
+                            T.d_val * T.d_val, T.num_docs, 1, 1)],
+        GATHER: [
+            gather_use("hybrid tail B^T X, eigensolver", *d_stream, X,
+                       T.num_docs, calls),
+            gather_use("hybrid tail B Y, eigensolver", *w_stream, Y, T.vocab,
+                       calls),
+            gather_use("hybrid tail Lloyd's B^T C (+ projection)", *d_stream,
+                       centers, T.num_docs, reps + 1),
+            gather_use("hybrid tail Lloyd's B onehot", *w_stream, onehot,
+                       T.vocab, reps),
+        ],
+    }
+
+
+def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
+    """Phase H1: the default configuration (the hybrid layout) at full
+    width against the COO main path `tr` (per_incore: its launches by
+    stage), three repeated runs bit-equal
+    to the first, the layout against a host recomputation, the products
+    against the COO's, and the per-call numbers; the small corpus with a
+    partial head, card against CPU. Returns (the run, its launch counts,
+    its launches by stage, the tail's uses, the run's walls)."""
+    from isle_tpu_torch import bmatrix, hybrid, segsum, sparse
+
+    check_tiny(tiny, seed, out, "hybrid, 200 head rows",
+               head_bytes=TINY_HEAD_BYTES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    segsum.reset_launch_counts()
+    head_calls = hybrid.head_dot.calls
+    t0 = time.perf_counter()
+    hy = train(corpus, shape, seed, "cuda", os.path.join(out, "nyt_h"),
+               head_bytes=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    head_calls = hybrid.head_dot.calls - head_calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = stage_launches(hy)
+    from isle_tpu_torch import GpuConfig
+
+    budget = hy.gpu.dense_head_bytes
+    assert budget == GpuConfig().dense_head_bytes > 0, budget
+    print(f"hybrid path (GpuConfig's default, dense_head_bytes {budget}): "
+          f"train + edge topics {wall:.2f} s wall, peak device memory "
+          f"{peak:.2f} GiB ({held:.2f} GiB of it held before the run), "
+          f"kernel launches {launches}, head GEMMs {head_calls}; "
+          f"{card_line()}")
+    for label, w, _ in hy.timer.phases:
+        print(f"  hybrid stage {label}: {w:.3f} s")
+    assert "creating thresholded matrix (fused hybrid)" in per, per
+    assert head_calls > 0 and launches[GATHER] > 0 and launches[ONEHOT] > 0
+
+    # the same answers as the COO run where the layout cannot matter
+    ours, ref = run_dir_arrays(hy, "svd"), run_dir_arrays(tr, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"]), "hybrid zetas"
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    np.testing.assert_allclose(hy.evalues, tr.evalues, rtol=1e-4)
+    # stage by stage the COO run's launches, but for the eigensolve's
+    # count of operator calls, which rounding may move
+    for stage in HYBRID_SHARED_STAGES:
+        got, want = per[stage], per_incore[stage]
+        if stage.startswith("eigen"):
+            assert got == {ONEHOT: 0, GATHER: 2 * hy.op_counter.calls}, got
+        else:
+            assert got == want, (stage, got, want)
+
+    walls = [wall]
+    for again in ("nyt_h2", "nyt_h3", "nyt_h4"):
+        walls.append(train_again(corpus, shape, seed,
+                                 os.path.join(out, again), hy,
+                                 head_bytes=None))
+
+    # the layout, rebuilt from the run's ζ as the trainer builds it
+    A = hy._device_A()
+    z = torch.from_numpy(ours["zetas"]).cuda()
+    B, cols = bmatrix.threshold_and_copy(A, z)
+    t0 = time.perf_counter()
+    H, hcols, _ = hybrid.hybrid_from_thresholds(A, z, budget)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert np.array_equal(hcols, cols)
+    R, D = H.num_head, H.num_docs
+    want_R = min(B.vocab, budget // (2 * A.num_docs),
+                 hybrid.max_head_rows(A.num_docs))
+    assert R == want_R, (R, want_R)
+    assert np.array_equal(H.head_words.cpu().numpy(), host_head_words(B, R))
+    assert H.head.stride(0) % 8 == 0 and H.nnz == B.nnz
+    counts = head_counts_host(B)
+    assert H.head_nnz == int(counts[H.head_words.cpu().numpy()].sum())
+    head_gb = R * D * 2 / 1e9
+    print(f"hybrid layout: {R} head rows (budget rule min(vocab, "
+          f"{budget} // (2 x {A.num_docs}), max_head_rows {want_R})), head "
+          f"{R} x {D} bf16 = {head_gb:.3f} GB, {H.head_nnz} of {H.nnz} nnz "
+          f"in the head ({H.head_nnz / H.nnz:.2%}), head density "
+          f"{H.head_nnz / (R * D):.3%}, tail {H.tail.nnz} nnz; head words "
+          f"equal the host's recomputation; built in {build_s:.3f} s")
+
+    # the products against the COO's on the same operands
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((B.vocab, 128), generator=g).cuda()
+    Y = sparse.bt_x(B, X)
+    frob_b = float(torch.sqrt(sparse.frobenius_sq(B)))
+    errs = {
+        "h_bt_x": within_norm_bound(hybrid.h_bt_x(H, X), B.d_doc, B.d_word,
+                                    B.d_val, X, B.num_docs, frob_b),
+        "h_b_y": within_norm_bound(hybrid.h_b_y(H, Y), B.w_word, B.w_doc,
+                                   B.w_val, Y, B.vocab, frob_b),
+    }
+    whole = {
+        "h_bt_x width 128": time_ms(lambda: hybrid.h_bt_x(H, X)),
+        "COO bt_x width 128": time_ms(lambda: sparse.bt_x(B, X)),
+        "h_b_y width 128": time_ms(lambda: hybrid.h_b_y(H, Y)),
+        "COO b_y width 128": time_ms(lambda: sparse.b_y(B, Y)),
+        "h_doc_l2sq": time_ms(lambda: hybrid.h_doc_l2sq(H)),
+        "COO doc_l2sq": time_ms(lambda: sparse.doc_l2sq(B)),
+    }
+    del X, Y
+    print("hybrid products against the float64 COO product on one X "
+          "(||err|| / (||B|| ||X||), and the largest elementwise err / "
+          "(|B| |X|)): " + ", ".join(f"{k_} {v[0]:.2e}, {v[1]:.2e}"
+                                      for k_, v in errs.items())
+          + "; whole calls: " + "; ".join(f"{k_} {v:.3f} ms"
+                                          for k_, v in whole.items()))
+    for row in head_product_uses(H):
+        print(f"  head product [{row['direction']}, width {row['width']}]: "
+              f"{row['ms']:.3f} ms, plain (head upcast, float32 matmul) "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}), max abs err to plain "
+              f"{row['max_abs_err']:.2e}, two launches bit-equal")
+    uses = hybrid_uses(hy, H, B, seed)
+    print_uses(uses, "hybrid path")
+    for name in (ONEHOT, GATHER):
+        need = sum(u["launches"] for u in uses[name])
+        assert launches[name] >= need, (name, launches[name], need)
+    del H, B, A
+    hy.A = None
+    torch.cuda.empty_cache()
+
+    # printed, not gated: how far the clustering moved from the COO run's
+    same_docs = float(np.mean(hy.cluster_of_doc == tr.cluster_of_doc))
+    cw_same = sum(np.array_equal(a, b)
+                  for a, b in zip(hy.catchwords, tr.catchwords))
+    print(f"hybrid against COO (printed): clusters equal on {same_docs:.4%} "
+          f"of docs, {cw_same} of {len(tr.catchwords)} topics with equal "
+          f"catchwords ({sum(len(c) for c in hy.catchwords)} catchwords, COO "
+          f"{sum(len(c) for c in tr.catchwords)}), eigenvalues max rel diff "
+          f"{np.abs(hy.evalues / tr.evalues - 1).max():.2e}, walls of the "
+          f"four hybrid runs {', '.join(f'{w:.2f}' for w in walls)} s")
+    return hy, launches, per, uses, walls
+
+
+def hybrid_sharded_phase(corpus, shape, seed, out, hy, h_per, mesh) -> dict:
+    """Phase H2: the sharded trainer with the hybrid layout
+    (sharding.shard_hybrid) over M1's one-rank mesh, against the in-core
+    hybrid run as M1 is held to the COO one. Returns its launch counts."""
+    from isle_tpu_torch import segsum
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0, sec0 = mesh.collective_calls, mesh.collective_seconds()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    with no_library_spmm():
+        sh = train(corpus, shape, seed, "cuda", os.path.join(out, "nyt_mh"),
+                   mesh=mesh, head_bytes=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    coll_s = mesh.collective_seconds() - sec0
+    per = stage_launches(sh)
+    print(f"sharded hybrid path, world size {mesh.world}: train + edge "
+          f"topics {wall:.2f} s wall, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
+          f"launches {launches}; {mesh.collective_calls - calls0} "
+          f"collectives, {coll_s:.4f} s inside them; {card_line()}")
+    for label, w, _ in sh.timer.phases:
+        print(f"  sharded hybrid stage {label}: {w:.3f} s")
+    assert "hybrid layout (sharded)" in per, per
+    ours, ref = run_dir_arrays(sh, "svd"), run_dir_arrays(hy, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"])
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    assert np.array_equal(sh.cluster_of_doc, hy.cluster_of_doc), \
+        "sharded hybrid clusters differ from the in-core hybrid run's"
+    for t, (a, b) in enumerate(zip(sh.catchwords, hy.catchwords)):
+        assert np.array_equal(a, b), f"sharded hybrid: catchwords of {t}"
+    np.testing.assert_allclose(sh.evalues, hy.evalues, rtol=1e-4)
+    np.testing.assert_allclose(sh.model, hy.model, rtol=0, atol=1e-6)
+    for stage in ("eigen solve (B B^T, sharded)", "project docs",
+                  "k-means on B (sharded)"):
+        want = h_per[SHARDED_STAGES[stage]]
+        assert per[stage] == want, (stage, per[stage], want)
+    print("sharded hybrid checks: zetas, original_cols, clusters and "
+          "catchwords equal the in-core hybrid run's; model max abs diff "
+          f"{np.abs(sh.model - hy.model).max():.3e} (bit-equal: "
+          f"{np.array_equal(sh.model, hy.model)}); the eigensolve, the "
+          "projection and k-means launched what the in-core run's did")
+    return launches
+
+
+def hybrid_streamed_phase(corpus, shape, seed, out, hy) -> dict:
+    """Phase H3: the 12-chunk streamed trainer with the hybrid layout
+    against the in-core hybrid run, as S1 is held to the COO one. Returns
+    its launch counts."""
+    from isle_tpu_torch import hybrid
+
+    st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_sh"),
+                          head_bytes=None)
+    head_calls = hybrid.head_dot.calls
+    wall, peak, launches, per = run_streamed(st)
+    head_calls = hybrid.head_dot.calls - head_calls
+    print_streamed_run("streamed hybrid path", st, wall, peak, launches)
+    check_streamed_launches(per, len(st.loader.ranges),
+                            "streamed hybrid path")
+    assert "hybrid layout" in per and head_calls > 0, per
+    ours, ref = run_dir_arrays(st, "svd"), run_dir_arrays(hy, "svd")
+    assert np.array_equal(ours["zetas"], ref["zetas"])
+    assert np.array_equal(ours["original_cols"], ref["original_cols"])
+    np.testing.assert_allclose(ours["evalues"], ref["evalues"], rtol=1e-4)
+    print(f"streamed hybrid checks: zetas and original_cols equal the "
+          f"in-core hybrid run's, eigenvalues max rel diff "
+          f"{np.abs(ours['evalues'] / ref['evalues'] - 1).max():.2e}; "
+          f"{head_calls} head GEMMs; clusters equal the in-core hybrid "
+          f"run's: {np.array_equal(st.cluster_of_doc, hy.cluster_of_doc)}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=NYT["docs"])
@@ -1700,6 +2078,10 @@ def main() -> int:
           f"{int(zero.sum())} empty topics, lambda_1 {ev[0]:.6g}, "
           f"lambda_k {ev[-1]:.6g}")
 
+    # H1: the default configuration, the hybrid layout, beside the COO run
+    hy, h_launches, h_per, h_uses, _ = hybrid_phase(
+        corpus, shape, args.seed, out, tr, per_incore, tiny)
+
     # 7. the other training options and a small inference, card == CPU.
     # Lloyd's meets near ties that rounding decides, so the options run
     # where the card projects the docs exactly as the CPU does: the dense
@@ -1770,6 +2152,10 @@ def main() -> int:
                                                       args.seed, out, tr)
         ms_launches = sharded_streamed_phase(corpus, shape, args.seed, out,
                                              st, B, mesh, s_per)
+        # H2, H3: the hybrid layout over the mesh and out of core
+        mh_launches = hybrid_sharded_phase(corpus, shape, args.seed, out, hy,
+                                           h_per, mesh)
+        sh_launches = hybrid_streamed_phase(corpus, shape, args.seed, out, hy)
     finally:
         if mesh.group is not None:
             dist.destroy_process_group()
@@ -1781,7 +2167,7 @@ def main() -> int:
     })
     l_uses, l_launches = lanczos_phase(B, tr, args.seed, tr.gpu.seg_chunk)
     for name in (ONEHOT, GATHER):
-        uses[name] += s_uses[name]
+        uses[name] += s_uses[name] + h_uses[name]
     uses[GATHER] += l_uses
     by_path = {name: {"in-core": launches[name],
                       "sharded, world size 1": m_launches[name],
@@ -1790,7 +2176,11 @@ def main() -> int:
                       "streamed, resumed": r_launches[name],
                       "streamed, sampled": ss_launches[name],
                       "sharded_streamed": ms_launches[name],
-                      "lanczos": l_launches[name]} for name in uses}
+                      "lanczos": l_launches[name],
+                      "in-core, hybrid": h_launches[name],
+                      "sharded, hybrid": mh_launches[name],
+                      "streamed, hybrid": sh_launches[name]}
+               for name in uses}
     del st, B
 
     # 8. inference at full width with the main path's model

@@ -12,6 +12,10 @@ two Pallas segment sums (isle_tpu/pallas_ops.py) are hand-written CUDA
 kernels for sm_90a in csrc/segsum.cu, built with nvcc at first use; on a
 CPU tensor each wrapper runs its plain PyTorch version instead.
 
+B's products run on isle_tpu's default engine, the hybrid dense-head /
+sparse-tail layout (hybrid.py, through matops.py), unless
+GpuConfig(dense_head_bytes=0) keeps B in the COO layout.
+
 It imports nothing of isle_tpu and no jax: the host modules it needs
 (config, corpus, native, io_text, diagnostics, obs) are its own copies,
 and synth.py holds the synthetic NYTimes-shape corpus of chip_smoke.py.
@@ -28,7 +32,10 @@ Public surface:
 TF32: importing the package turns TF32 off for float32 matmuls and
 convolutions. TF32 keeps ~10 mantissa bits, the Hopper analog of the
 TPU's DEFAULT-precision bf16 truncation of float32 dots; the eigensolver,
-projections and Lloyd's steps need full float32.
+projections and Lloyd's steps need full float32. It also forbids cuBLAS
+reduced-precision reductions of bf16 products: the hybrid layout's head
+product (hybrid.head_dot) runs in bf16 on the tensor cores and must sum
+in float32.
 """
 
 import torch
@@ -38,6 +45,7 @@ from .corpus import Corpus, EntryFeeder
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __all__ = ["Corpus", "EntryFeeder", "GpuConfig", "HyperParams",
            "InferConfig", "Inferencer", "StreamedTrainer", "TrainConfig",

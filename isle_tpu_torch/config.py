@@ -3,9 +3,9 @@
 HyperParams, TrainConfig and InferConfig are the port's own copies of
 isle_tpu/config.py's dataclasses: the same field names, defaults,
 validation and log_dir_name(), without the `tpu` field (TpuConfig's
-hybrid layout, Pallas plans, precision modes and tunnel codecs have no
-counterpart here). GpuConfig holds the few knobs that map the pipeline
-onto the card.
+Pallas plans, precision modes and tunnel codecs have no counterpart
+here). GpuConfig holds the few knobs that map the pipeline onto the card,
+TpuConfig's dense_head_bytes (the hybrid layout, hybrid.py) among them.
 
 Defaults follow the reference's compile-time constants
 (include/hyperparams.h:8-82, include/types.h:23-86).
@@ -177,6 +177,13 @@ class GpuConfig:
     # of csrc/segsum.cu: segsum_onehot and segsum_gather_rows, and so the
     # SpMM.
     seg_chunk: int = 2048
+    # Budget in bytes of the dense head of the hybrid layout (hybrid.py):
+    # B's most frequent words as a bf16 binary (words x docs) matrix, its
+    # products on the tensor cores, the other entries a sparse tail on
+    # segsum_gather_rows. isle_tpu's TpuConfig.dense_head_bytes and its
+    # default, so a default run of either package takes the same path;
+    # 0 keeps all of B in the COO layout (sparse.py).
+    dense_head_bytes: int = 4096 << 20
     # Seed the eigensolver from the U of the previous run's ckpt_svd.npz
     # in the same run directory (block_ks: the start block; lanczos: its
     # first column), isle_tpu's TpuConfig.eigen_warm_start.

@@ -23,9 +23,10 @@ from typing import Tuple
 
 import torch
 
+from .hybrid import HybridSparse, head_bt_x
 from .kmeans import update_centers_full
-from .segsum import segsum_gather_rows
-from .sparse import DEFAULT_CHUNK, DocSparse, bt_x, doc_l2sq
+from .matops import mat_bt_x, mat_doc_l2sq
+from .segsum import DEFAULT_CHUNK, segsum_gather_rows
 
 
 def _dists(dots: torch.Tensor, docs_l2: torch.Tensor,
@@ -35,18 +36,25 @@ def _dists(dots: torch.Tensor, docs_l2: torch.Tensor,
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
-def _flagged_dists(sp: DocSparse, flagged: torch.Tensor,
-                   centers: torch.Tensor, docs_l2: torch.Tensor, chunk: int):
+def _flagged_dists(sp, flagged: torch.Tensor, centers: torch.Tensor,
+                   docs_l2: torch.Tensor, chunk: int):
     """Exact distances of the flagged docs only. Returns (ids (m,) doc
-    ids, dist (m, k))."""
+    ids, dist (m, k)). In the hybrid layout the mini stream is cut from
+    the tail, and the flagged docs' head columns add one head product
+    (isle_tpu/elkans.py:150-158)."""
+    hybrid = isinstance(sp, HybridSparse)
+    st = sp.tail if hybrid else sp
     ids = torch.nonzero(flagged)[:, 0]
     rank = torch.cumsum(flagged.to(torch.int64), 0) - 1
-    ent = flagged[sp.d_doc]
+    ent = flagged[st.d_doc]
     # non-decreasing: the stream is doc-sorted
-    seg = rank[sp.d_doc[ent]].to(torch.int32)
+    seg = rank[st.d_doc[ent]].to(torch.int32)
     m = ids.numel()
-    dots = segsum_gather_rows(seg, sp.d_word[ent], sp.d_val[ent],
-                              centers.T.contiguous(), m, chunk=chunk)[:m]
+    X = centers.T.contiguous()
+    dots = segsum_gather_rows(seg, st.d_word[ent], st.d_val[ent], X, m,
+                              chunk=chunk)[:m]
+    if hybrid:
+        dots = dots + head_bt_x(sp, X, cols=ids)
     return ids, _dists(dots, docs_l2[ids], centers)
 
 
@@ -60,11 +68,12 @@ def _half_center_dists(centers: torch.Tensor) -> torch.Tensor:
     return 0.5 * cc.amin(dim=1)
 
 
-def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
+def run_elkans(sp, centers: torch.Tensor, max_reps: int,
                timer=None, chunk: int = DEFAULT_CHUNK,
                update_centers=update_centers_full, unchanged=torch.equal
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (centers (k, vocab), assignment int64 (num_docs,)). The
+    """Elkan's on B in either layout (matops). Returns (centers (k,
+    vocab), assignment int64 (num_docs,)). The
     same fixpoint as Lloyd's up to exact-tie ordering (module
     docstring); stops when a rep reproduces the previous rep's
     assignment. `update_centers` and `unchanged` are the hooks of
@@ -73,8 +82,9 @@ def run_elkans(sp: DocSparse, centers: torch.Tensor, max_reps: int,
     stay with the rank that holds the docs."""
     k = centers.shape[0]
     D = sp.num_docs
-    docs_l2 = doc_l2sq(sp, chunk)
-    dist = _dists(bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
+    docs_l2 = mat_doc_l2sq(sp, chunk)
+    dist = _dists(mat_bt_x(sp, centers.T.contiguous(), chunk), docs_l2,
+                  centers)
     assign = torch.argmin(dist, dim=1)
     ub = dist.amin(dim=1)
     lb = dist

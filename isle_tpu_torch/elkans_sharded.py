@@ -20,7 +20,10 @@ runs one program of static shapes on every device. Here each rank's mini
 stream has exactly the size of its own flagged docs, and a rank with none
 skips the pass: nothing in it is a collective.
 
-The same fixpoint as Lloyd's up to exact-tie ordering (elkans.py).
+The same fixpoint as Lloyd's up to exact-tie ordering (elkans.py). A
+sharding.ShardedHybrid runs the same code: its local part is in the
+hybrid layout, which elkans.py reaches through matops
+(isle_tpu/elkans_sharded.py's hybrid branches, :55-125, 208-290).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ def sharded_run_elkans(ssp: ShardedDocSparse, centers: torch.Tensor,
                        max_reps: int, mesh: Mesh, timer=None,
                        chunk: int = DEFAULT_CHUNK
                        ) -> Tuple[torch.Tensor, np.ndarray]:
-    """The return contract of sharding.sharded_run_lloyds_full: (centers
+    """`ssp` in either layout (ShardedDocSparse or ShardedHybrid). The
+    return contract of sharding.sharded_run_lloyds_full: (centers
     (k, vocab) on every rank, assign: host (num_docs,) int32 in B's doc
     order)."""
     centers, assign = run_elkans(

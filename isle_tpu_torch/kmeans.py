@@ -29,7 +29,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .sparse import DEFAULT_CHUNK, DocSparse, b_y, bt_x, doc_l2sq
+from .matops import mat_b_y, mat_bt_x, mat_doc_l2sq
+from .segsum import DEFAULT_CHUNK
 
 
 def _dists_to(P: torch.Tensor, docs_l2: torch.Tensor,
@@ -312,33 +313,34 @@ def run_lloyds_projected(P: torch.Tensor, centers: torch.Tensor,
     return centers, assign
 
 
-def update_centers_full(sp: DocSparse, assign: torch.Tensor, k: int,
+def update_centers_full(sp, assign: torch.Tensor, k: int,
                         chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """Cluster means (k, vocab) of B's docs under `assign`."""
+    """Cluster means (k, vocab) of B's docs under `assign`; B in either
+    layout (matops)."""
     onehot = torch.nn.functional.one_hot(assign.long(), k).to(torch.float32)
-    sums = b_y(sp, onehot, chunk)  # (vocab, k)
+    sums = mat_b_y(sp, onehot, chunk)  # (vocab, k)
     return _means(sums.T, onehot.sum(dim=0))
 
 
-def run_lloyds_full(sp: DocSparse, centers: torch.Tensor, max_reps: int,
+def run_lloyds_full(sp, centers: torch.Tensor, max_reps: int,
                     timer=None, chunk: int = DEFAULT_CHUNK,
                     update_centers=update_centers_full,
                     unchanged=torch.equal):
-    """Lloyd's on B in the full vocab space from centers (k, vocab).
-    Returns (centers, assignment int64 (num_docs,)).
+    """Lloyd's on B (either layout, matops) in the full vocab space from
+    centers (k, vocab). Returns (centers, assignment int64 (num_docs,)).
 
     The two hooks are where a run over several ranks meets the others
     (sharding.sharded_run_lloyds_full): `update_centers(sp, assign, k,
     chunk)` gives the cluster means and `unchanged(assign, prev)` says
     whether Lloyd's may stop. `sp` then holds this rank's docs."""
     k = centers.shape[0]
-    docs_l2 = doc_l2sq(sp, chunk)
+    docs_l2 = mat_doc_l2sq(sp, chunk)
     assign = torch.full((sp.num_docs,), -1, dtype=torch.int64,
                         device=sp.device)
     reps = 0
     for reps in range(1, max_reps + 1):
         prev, assign = assign, _assign(
-            bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
+            mat_bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
         centers = update_centers(sp, assign, k, chunk)
         if unchanged(assign, prev):
             break

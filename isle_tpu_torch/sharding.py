@@ -1,5 +1,5 @@
 """Training and inference over several GPUs: the port of
-isle_tpu/sharding.py (without its hybrid layout) to torch.distributed.
+isle_tpu/sharding.py to torch.distributed.
 
 isle_tpu shards under one controller: jax.shard_map over a device mesh,
 every shard padded to a common length. PyTorch's model is one process a
@@ -29,7 +29,12 @@ The layout follows the reference (SURVEY.md §5.7-5.8):
     histogram, moves 261 MB at the NYTimes shape; both are exact). The
     per-word results are assembled by an all-gather of ragged pieces;
   - k- and vocab-sized state (U, centers, the model, the projected docs
-    and the (D, k) catchword mass) is replicated.
+    and the (D, k) catchword mass) is replicated;
+  - the hybrid layout (ShardedHybrid, isle_tpu/sharding.py:952-1186):
+    the head words are chosen once from the all-reduced word counts, so
+    every rank splits its docs by the same words; each rank holds its
+    (R, local docs) head slab and its local tail, and the products above
+    run on them through matops.
 
 Every branch that decides whether a collective is reached is taken from a
 value that is the same on every rank. Integer results equal the
@@ -60,9 +65,11 @@ import torch.distributed as dist
 
 from . import bmatrix
 from .catchwords import rth_highest
+from .hybrid import max_head_rows, split_by_head, top_words, word_counts
 from .kmeans import _means, run_lloyds_full
+from .matops import mat_b_y, mat_bt_x, mat_doc_l2sq
 from .segsum import DEFAULT_CHUNK
-from .sparse import DocSparse, b_y, bt_x, doc_l2sq
+from .sparse import DocSparse
 from .thresholds import compute_thresholds
 from .topic_model import doc_topic_mass
 
@@ -322,6 +329,35 @@ def shard_doc_sparse(words, docs, vals, vocab: int, num_docs: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardedHybrid(ShardedDocSparse):
+    """This rank's doc range of B in the hybrid layout: `local` is a
+    hybrid.HybridSparse whose head words are the same on every rank."""
+
+    @property
+    def num_head(self) -> int:
+        return self.local.num_head
+
+
+def shard_hybrid(ssp: ShardedDocSparse, row_scale: torch.Tensor, mesh: Mesh,
+                 head_budget_bytes: int,
+                 flat_cap: Optional[int] = None) -> ShardedHybrid:
+    """The hybrid layout of a sharded B (isle_tpu/sharding.py:998-1100):
+    one all-reduce of the (vocab,) word counts, the same head words on
+    every rank, each rank's own head slab and tail. The head size is
+    isle_tpu's: min(vocab, max(8, budget // (2 dps S)), max_head_rows(dps))
+    with dps its padded docs per shard, the largest rank's count rounded
+    up to 8."""
+    V, S = ssp.vocab, mesh.world
+    counts = mesh.all_reduce(word_counts(ssp.local))
+    dps = max(-(-max(ssp.doc_counts) // 8) * 8, 8)
+    num_head = int(min(V, max(8, head_budget_bytes // max(2 * dps * S, 1)),
+                       max_head_rows(dps, flat_cap)))
+    local = split_by_head(ssp.local, top_words(counts, num_head), row_scale)
+    return ShardedHybrid(local=local, doc_counts=ssp.doc_counts,
+                         doc_start=ssp.doc_start, nnz=ssp.nnz)
+
+
+@dataclasses.dataclass(frozen=True)
 class WordSharded:
     """This rank's contiguous word range [word_bounds[rank],
     word_bounds[rank + 1]) of a matrix, sorted by (word, doc): word ids
@@ -427,15 +463,16 @@ def sharded_rth_highest(ws: WordSharded, cluster_of_doc: torch.Tensor,
 def sharded_bt_x(ssp: ShardedDocSparse, X: torch.Tensor, mesh: Mesh,
                  chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """B^T X for this rank's docs, (local docs, width); X replicated. No
-    communication."""
-    return bt_x(ssp.local, X, chunk)
+    communication. Either layout (a ShardedHybrid's local part is
+    hybrid)."""
+    return mat_bt_x(ssp.local, X, chunk)
 
 
 def sharded_b_y(ssp: ShardedDocSparse, Y: torch.Tensor, mesh: Mesh,
                 chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """B Y, (vocab, width) on every rank, from this rank's rows Y (local
     docs, width): the local product and one all-reduce."""
-    return mesh.all_reduce(b_y(ssp.local, Y, chunk))
+    return mesh.all_reduce(mat_b_y(ssp.local, Y, chunk))
 
 
 def sharded_gram_x(ssp: ShardedDocSparse, X: torch.Tensor, mesh: Mesh,
@@ -464,7 +501,7 @@ def pad_doc_rows(W: torch.Tensor, ssp: ShardedDocSparse) -> torch.Tensor:
 def sharded_doc_l2sq(ssp: ShardedDocSparse, mesh: Mesh,
                      chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Squared l2 norms of this rank's docs."""
-    return doc_l2sq(ssp.local, chunk)
+    return mat_doc_l2sq(ssp.local, chunk)
 
 
 def sharded_doc_topic_mass(ssp: ShardedDocSparse, cw_topic: torch.Tensor,
@@ -562,8 +599,10 @@ def sharded_run_lloyds_full(ssp: ShardedDocSparse, centers: torch.Tensor,
                             max_reps: int, mesh: Mesh, timer=None,
                             chunk: int = DEFAULT_CHUNK
                             ) -> Tuple[torch.Tensor, np.ndarray]:
-    """Lloyd's on B in the full vocab space on the mesh: local distances
-    and argmin, all-reduced center update, and a stop that every rank
+    """Lloyd's on B (ShardedDocSparse or ShardedHybrid, isle_tpu's
+    make_sharded_h_lloyds_step among them) in the full vocab space on the
+    mesh: local distances and argmin, all-reduced center update, and a
+    stop that every rank
     takes together. Returns (centers (k, vocab) on every rank, assign:
     host (num_docs,) int32 in B's doc order)."""
     centers, assign = run_lloyds_full(

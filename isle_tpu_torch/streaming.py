@@ -23,7 +23,9 @@ doc ids into that chunk's rows and need no carry. A word reaches every
 chunk: the word-keyed sums (1, 6) sort the chunk by word on the device
 and pass the running result as the kernel's `init`; over c chunks they
 add in another order than one in-core launch, so counts stay exact and
-float sums move within 1e-5.
+float sums move within 1e-5. Between B and the finish the middle runs on
+the device as Trainer's does, on B's hybrid layout (hybrid.py) where
+GpuConfig.dense_head_bytes asks for one, as isle_tpu's streamed middle.
 
 isle_tpu's upload codecs, resident slabs and fill pipeline
 (isle_tpu/streaming.py:64-602) answer a slow host link and have no
@@ -44,11 +46,13 @@ import torch
 from .bmatrix import dice_select
 from .catchwords import catchword_topic_map, find_catchwords, rth_highest
 from .elkans import run_elkans
+from .hybrid import max_head_rows, row_scale_from_zetas, to_hybrid
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
+from .matops import mat_bt_x, mat_spmm_flops
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 from .sharding import require_mesh
-from .sparse import DocSparse, bt_x, spmm_flops
+from .sparse import DocSparse
 from .thresholds import freq_bound, hist_cols, zeta_from_hist
 from .topic_model import _contribution_weights, has_catchwords, \
     l1_normalize_columns, model_thresholds, top_two_topics
@@ -558,6 +562,17 @@ class StreamedTrainer:
                 "is too sparse for these hyperparameters"
             )
 
+        # the hybrid layout of the streamed B, with the head budget of
+        # isle_tpu's streamed middle (isle_tpu/streaming.py:1259-1277):
+        # at least 8 head rows, or B stays COO
+        budget = t.gpu.dense_head_bytes
+        if budget > 0:
+            num_head = min(V, budget // max(2 * B.num_docs, 1),
+                           max_head_rows(B.num_docs))
+            if num_head >= 8:
+                B = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
+            t._mark("hybrid layout")
+
         if "svd" in ck:
             t.evalues = ck["svd"]["evalues"]
             U = torch.from_numpy(ck["svd"]["U"]).to(dev)
@@ -570,7 +585,7 @@ class StreamedTrainer:
             if stats is not None:
                 res, op_width = stats
                 t.op_counter.add(res.op_seconds,
-                                 spmm_flops(B, op_width) * res.op_calls,
+                                 mat_spmm_flops(B, op_width) * res.op_calls,
                                  res.op_calls)
             t._mark("eigen solve (B B^T)")
             t._checkpoint("svd", U=U.cpu().numpy(), evalues=t.evalues,
@@ -583,7 +598,7 @@ class StreamedTrainer:
             t.logger.warning(
                 "the streamed trainer always runs k-means on the projected "
                 "docs first: enable_kmeans_on_lowd=False is ignored")
-        P = bt_x(B, U, chunk).T
+        P = mat_bt_x(B, U, chunk).T
         _, centers_lowd, _ = kmeans_init_on_projected(
             P, k, hp.kmeans_init_reps, t.draws,
             method=hp.kmeans_init_method,

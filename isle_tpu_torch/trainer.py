@@ -1,9 +1,11 @@
-"""Training orchestration: the port of isle_tpu.trainer's in-core paths in
-the COO layout, on one device (Trainer._train_inner + _finish_train,
+"""Training orchestration: the port of isle_tpu.trainer's in-core paths,
+on one device (Trainer._train_inner + _finish_train,
 isle_tpu/trainer.py:300-582) and over several, one process a card
 (_train_sharded + _finish_train_sharded, :588-875, on sharding.py), with
 train_edge_topics, the stage checkpoints and the writers the training CLI
-calls.
+calls. B takes the hybrid layout (hybrid.py) when GpuConfig.dense_head_bytes
+is positive, the default, as isle_tpu's does; the middle stages reach it
+through matops.
 
 Stage order (reference src/trainer.cpp:425-654):
   ingest -> ζ thresholds -> B = threshold + sqrt-scale [+ document
@@ -35,16 +37,19 @@ from .preprocessed import load_preprocessed
 from .diagnostics import count_distinct_top_five, log_combinatorial, \
     topic_coherence, topic_diversity
 from .elkans import run_elkans
+from .hybrid import hybrid_from_thresholds, max_head_rows, \
+    row_scale_from_zetas
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
 from .linalg import block_ks, dense_topk_eigh, lanczos
+from .matops import mat_b_y, mat_bt_x, mat_gram_x, mat_spmm_flops, \
+    mat_to_dense
 from .obs import Logger, OpCounter, Timer, mark_stage_in_trace, \
     profiler_trace
 from .rng import Draws
 from .segsum import launch_counts
 from .sharding import Mesh, default_mesh, require_mesh
-from .sparse import DocSparse, b_y, bt_x, frobenius_sq, gram_x, \
-    spmm_flops, to_dense
+from .sparse import DocSparse, frobenius_sq, gram_x, to_dense
 from .thresholds import compute_thresholds
 from .topic_model import _contribution_weights, construct_edge_topics_v2, \
     construct_topic_model, doc_topic_mass, has_catchwords, \
@@ -93,7 +98,8 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
     Lanczos, or the dense oracle when asked for or when k is too close to
     V for a Krylov space. `start_block` (a previous run's U) seeds
     block_ks's start block and, by its first column, Lanczos's start
-    vector. For a DocSparse B the operator is sparse.gram_x; the sharded
+    vector. For a DocSparse or HybridSparse B the operator is
+    matops.mat_gram_x; the sharded
     trainer hands in `op` (X -> (B B^T) X on every rank) and `dense_gram`
     (-> the (V, V) float64 Gram matrix on the host).
     Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
@@ -109,7 +115,7 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
         eigensolver = "dense"
     if eigensolver == "dense":
         if dense_gram is None:
-            Bd = to_dense(B)
+            Bd = mat_to_dense(B)
             gram = Bd @ Bd.T
         else:
             gram = dense_gram()
@@ -119,7 +125,7 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
 
     if op is None:
         def op(X):
-            return gram_x(B, X, chunk)
+            return mat_gram_x(B, X, chunk)
 
     common = dict(tol=hp.block_ks_tolerance,
                   max_restarts=hp.block_ks_max_iters, timer=timer)
@@ -384,29 +390,46 @@ class Trainer:
             return
 
         # 2-3. B (+ importance sampling of documents); on resume, the
-        # checkpointed docs, which U was computed on
+        # checkpointed docs, which U was computed on. In the hybrid layout
+        # (isle_tpu/trainer.py:372-422) unless the head's cap refuses D.
+        sample = cfg.sample_rate if cfg.sample_docs else None
+        select = dict(sample_rate=sample)
         if "svd" in ck:
-            B, original_cols = threshold_and_copy(
-                A, zetas, docs=self.original_cols)
-            if not np.array_equal(original_cols, self.original_cols):
-                raise ValueError(
-                    f"checkpoint 'svd' in {self.run_dir}: its original_cols "
-                    "do not match its zetas on this corpus"
-                )
+            select["docs"] = self.original_cols
+        elif sample is not None:
+            select["uniforms"] = self.draws.doc_sample_uniforms(D)
+        budget = self.gpu.dense_head_bytes
+        use_hybrid = budget > 0 and max_head_rows(D) >= 8
+        if budget > 0 and not use_hybrid:
+            self.logger.warning(
+                f"num_docs={D} exceeds the int32 flat-scatter head "
+                "capacity; falling back to the COO layout"
+            )
+        if use_hybrid:
+            B, original_cols, frob_sq = hybrid_from_thresholds(
+                A, zetas, budget, **select)
         else:
-            sample = cfg.sample_rate if cfg.sample_docs else None
-            B, original_cols = threshold_and_copy(
-                A, zetas, sample_rate=sample,
-                uniforms=None if sample is None
-                else self.draws.doc_sample_uniforms(D),
+            B, original_cols = threshold_and_copy(A, zetas, **select)
+            frob_sq = float(frobenius_sq(B))
+        if "svd" in ck and not np.array_equal(original_cols,
+                                              self.original_cols):
+            raise ValueError(
+                f"checkpoint 'svd' in {self.run_dir}: its original_cols "
+                "do not match its zetas on this corpus"
             )
         self.original_cols = original_cols
         self.logger.info(
             f"Columns remaining after thresholding: {B.num_docs}  "
-            f"nnz(B): {B.nnz}  "
-            f"Frob(B): {float(torch.sqrt(frobenius_sq(B))):.4f}"
+            f"nnz(B): {B.nnz}  Frob(B): {np.sqrt(frob_sq):.4f}"
         )
-        self._mark("creating thresholded and scaled matrix")
+        if use_hybrid:
+            self.logger.diag(
+                f"hybrid layout: {B.num_head} dense head rows cover "
+                f"{B.head_nnz / max(B.nnz, 1):.0%} of nnz"
+            )
+            self._mark("creating thresholded matrix (fused hybrid)")
+        else:
+            self._mark("creating thresholded and scaled matrix")
         if B.nnz == 0 or B.num_docs == 0:
             raise ValueError(
                 "thresholding dropped every entry (nnz(B)=0): the corpus "
@@ -428,8 +451,8 @@ class Trainer:
             if stats is not None:
                 res, op_width = stats
                 self.op_counter.add(
-                    res.op_seconds, spmm_flops(B, op_width) * res.op_calls,
-                    res.op_calls,
+                    res.op_seconds,
+                    mat_spmm_flops(B, op_width) * res.op_calls, res.op_calls,
                 )
                 self.logger.info(self.op_counter.summary())
         self._print_eigen_data(self.evalues, k)
@@ -439,11 +462,11 @@ class Trainer:
                              zetas=zetas.cpu().numpy(),
                              original_cols=original_cols)
 
-        # 6. projected docs P = U^T B (k x D_B). bt_x already streams B
-        # without a (docs, width) intermediate, so
+        # 6. projected docs P = U^T B (k x D_B). mat_bt_x already streams
+        # B without a (docs, width) intermediate, so
         # use_explicit_projected_matrix=False (isle_tpu's doc-blockwise
         # product) is the same product here.
-        P = bt_x(B, U, chunk).T
+        P = mat_bt_x(B, U, chunk).T
         self._mark("project docs")
 
         # 7. seeding + Lloyd's in the projected space
@@ -462,7 +485,7 @@ class Trainer:
             self._mark("converging Lloyds k-means on B_k")
         else:  # the seed docs' columns of B
             onehot = torch.nn.functional.one_hot(seeds, B.num_docs)
-            centers_full = b_y(B, onehot.T.to(torch.float32), chunk).T
+            centers_full = mat_b_y(B, onehot.T.to(torch.float32), chunk).T
 
         # 8. Lloyd's or Elkan's on B in the full vocab space
         full_kmeans = (run_elkans if hp.kmeans_algo_for_sparse == "elkans"
@@ -657,19 +680,23 @@ class Trainer:
                         streamed: bool = False) -> np.ndarray:
         """Stages 4-9 on the mesh from B (a ShardedDocSparse), shared by
         _train_sharded and the sharded streamed trainer
-        (streaming_sharded.py): the eigensolve, whose operator ends in an
-        all-reduce, with rank 0's U everywhere; the projected docs,
-        gathered; the seeding and the projected Lloyd's, replicated, with
-        rank 0's centers everywhere; Lloyd's or Elkan's on B in the full
-        space. Writes the svd (unless resumed from `ck`) and kmeans
+        (streaming_sharded.py): with a dense head budget, B's hybrid
+        layout (sharding.shard_hybrid) for the products below; the
+        eigensolve, whose operator ends in an all-reduce, with rank 0's U
+        everywhere; the projected docs, gathered; the seeding and the
+        projected Lloyd's, replicated, with rank 0's centers everywhere;
+        Lloyd's or Elkan's on B in the full space, as
+        isle_tpu/trainer.py:695-797 and streaming_sharded.py:881-945
+        (the seeding copy and the dense Gram from the COO B, as there).
+        Writes the svd (unless resumed from `ck`) and kmeans
         checkpoints and returns cluster_of_doc. `streamed` takes
         isle_tpu's streamed stage labels (the eigensolve's when it ran,
         then one for all of k-means) and always clusters through the
         projection, as isle_tpu's streamed trainers do."""
         from .elkans_sharded import sharded_run_elkans
-        from .sharding import compact_doc_rows, pad_doc_rows, sharded_b_y, \
-            sharded_bt_x, sharded_gram_x, sharded_run_lloyds_full, \
-            sharded_spmm_flops
+        from .sharding import compact_doc_rows, pad_doc_rows, shard_hybrid, \
+            sharded_b_y, sharded_bt_x, sharded_gram_x, \
+            sharded_run_lloyds_full, sharded_spmm_flops
 
         mesh = self.mesh
         cfg = self.config
@@ -685,6 +712,14 @@ class Trainer:
                 "the streamed trainer always runs k-means on the projected "
                 "docs first: enable_kmeans_on_lowd=False is ignored")
             lowd = True
+
+        B_op = B
+        if self.gpu.dense_head_bytes > 0 and B.num_docs > 0:
+            B_op = shard_hybrid(B, row_scale_from_zetas(zetas), mesh,
+                                self.gpu.dense_head_bytes)
+            self.logger.diag(
+                f"sharded hybrid layout: {B_op.num_head} global head rows")
+            self._mark("hybrid layout (sharded)")
 
         # 4-5. truncated SVD of B B^T: the operator ends in an all-reduce
         if "svd" in ck:
@@ -705,7 +740,7 @@ class Trainer:
                 B, V, k, cfg, self.draws, chunk, timer=self.timer,
                 logger=self.logger,
                 start_block=None if start is None else start.to(dev),
-                op=lambda X: sharded_gram_x(B, X, mesh, chunk),
+                op=lambda X: sharded_gram_x(B_op, X, mesh, chunk),
                 dense_gram=dense_gram,
             )
             U = mesh.broadcast(U.contiguous())
@@ -728,7 +763,7 @@ class Trainer:
                              original_cols=original_cols)
 
         # 6. projected docs P = U^T B, replicated (k x D_B: small)
-        P = compact_doc_rows(sharded_bt_x(B, U, mesh, chunk), mesh).T
+        P = compact_doc_rows(sharded_bt_x(B_op, U, mesh, chunk), mesh).T
         mark("project docs")
 
         # 7. seeding + Lloyd's in the projected space: replicated dense
@@ -759,8 +794,9 @@ class Trainer:
                        if hp.kmeans_algo_for_sparse == "elkans"
                        else sharded_run_lloyds_full)
         centers_full, assign_h = full_kmeans(
-            B, centers_full, hp.max_kmeans_reps, mesh, timer=self.timer,
+            B_op, centers_full, hp.max_kmeans_reps, mesh, timer=self.timer,
             chunk=chunk)
+        del B_op
         self.centers = centers_full.cpu().numpy()
         self._mark("k-means (sharded)" if streamed
                    else "k-means on B (sharded)")

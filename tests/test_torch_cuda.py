@@ -306,6 +306,90 @@ def test_spmm_on_the_card_matches_plain(dev):
         assert bool(((got.double() - ref).abs() <= 1e-5 * bound).all())
 
 
+def _binary_head(rng, R, D, dev, density=0.05):
+    from isle_tpu_torch.hybrid import _alloc_head
+
+    head = _alloc_head(R, D, dev)
+    head.copy_(torch.from_numpy(rng.random((R, D)) < density))
+    return head
+
+
+@pytest.mark.parametrize("block", [32768, 1000])
+@pytest.mark.parametrize("transpose", [True, False])
+@pytest.mark.parametrize("W", [1, 3, 100, 128])
+def test_head_dot_on_the_card_is_float32_exact(dev, W, transpose, block,
+                                               monkeypatch):
+    """The head product on the tensor cores (one bf16 GEMM, float32 out,
+    over the three bf16 pieces of the operand): each element within 2e-6
+    of |head| |X| of the float64 product (float32 summation of the 35 to
+    150 nonzero terms of a row; the pieces themselves hold the operand to
+    2^-24), two launches bit-equal; head Y also summed over 4 blocks of
+    docs (hybrid.HEAD_DOC_BLOCK)."""
+    from isle_tpu_torch import hybrid
+
+    monkeypatch.setattr(hybrid, "HEAD_DOC_BLOCK", block)
+
+    rng = np.random.default_rng(W)
+    R, D = 700, 3001  # an odd doc count: the head's stride is padded
+    head = _binary_head(rng, R, D, dev)
+    assert head.dtype == torch.bfloat16 and head.stride(0) % 8 == 0
+    n = R if transpose else D
+    X = torch.from_numpy((rng.standard_normal((n, W))
+                          * 10.0 ** rng.uniform(-3, 3, (n, 1)))
+                         .astype(np.float32)).to(dev)
+    calls = hybrid.head_dot.calls
+    got = hybrid.head_dot(head, X, transpose)
+    assert hybrid.head_dot.calls == calls + 1
+    again = hybrid.head_dot(head, X, transpose)
+    h64 = head.double()
+    a = h64.T if transpose else h64
+    ref, scale = a @ X.double(), a @ X.double().abs()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert bool(((got.double() - ref).abs() <= 2e-6 * scale).all())
+
+
+def test_hybrid_products_on_the_card_match_the_cpu(dev):
+    """A partial-head layout built on the card equals the CPU's, and its
+    products launch the tail's kernels and the head GEMM: within 1e-5 of
+    |B| |X| of the CPU's plain products."""
+    from isle_tpu_torch import hybrid, matops, sparse
+
+    rng = np.random.default_rng(9)
+    V, D, nnz = 2_000, 3_001, 120_000
+    key = np.unique(rng.integers(0, D, nnz) * V
+                    + np.minimum((np.exp(rng.random(nnz) * np.log(V)) - 1)
+                                 .astype(np.int64), V - 1))
+    d, w = key // V, key % V
+    scale = (rng.random(V) * 3 + 0.5).astype(np.float32)
+    layouts = {}
+    for device in ("cpu", dev):
+        sp = sparse.DocSparse.from_doc_sorted(w, d, scale[w], V, D, device)
+        layouts[str(device)] = hybrid.to_hybrid(
+            sp, 150, torch.from_numpy(scale).to(device))
+    c, g = layouts["cpu"], layouts[str(dev)]
+    assert torch.equal(g.head_words.cpu(), c.head_words)
+    assert torch.equal(g.head.cpu(), c.head) and g.head_nnz == c.head_nnz
+    assert 0 < g.head_nnz < g.nnz
+    X = rng.standard_normal((V, 128)).astype(np.float32)
+    Y = rng.standard_normal((D, 100)).astype(np.float32)
+    absB = hybrid.split_by_head(
+        sparse.DocSparse.from_doc_sorted(w, d, np.abs(scale[w]), V, D, "cpu"),
+        c.head_words, torch.from_numpy(np.abs(scale)))
+    for fn, T in ((matops.mat_bt_x, X), (matops.mat_b_y, Y),
+                  (lambda m, _: matops.mat_doc_l2sq(m)[:, None], None)):
+        before = (segsum.launch_counts(), hybrid.head_dot.calls)
+        got = fn(g, None if T is None else torch.from_numpy(T).to(dev))
+        after = (segsum.launch_counts(), hybrid.head_dot.calls)
+        assert after[1] == before[1] + 1
+        assert sum(after[0].values()) == sum(before[0].values()) + 1
+        ref = fn(c, None if T is None else torch.from_numpy(T)).double()
+        bound = (fn(absB, None if T is None else torch.from_numpy(np.abs(T)))
+                 .double())
+        torch.cuda.synchronize()
+        assert bool(((got.cpu().double() - ref).abs() <= 1e-5 * bound).all())
+
+
 def _exact_corpus():
     """(corpus, k): every doc's counts add up to 64, the corpus's average,
     so each normalized value is its count and each catchword mass an
@@ -330,12 +414,15 @@ def _exact_corpus():
     return corpus, k
 
 
-def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
+@pytest.mark.parametrize("head_bytes", [0, 40_000, 4096 << 20])
+def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path, head_bytes):
     """The whole slice on the card (both kernels launched) against the same
     slice on the CPU with the plain versions, on the corpus of exact
     masses: the card's masses equal the CPU's bit for bit, two topics
     that tie tie on both and both take the first (argmax), so the top-two
-    topics and the edge topics must match."""
+    topics and the edge topics must match. B in the COO layout, the
+    hybrid one with a partial head, and the default (every word in the
+    head at this size)."""
     from isle_tpu_torch import GpuConfig, TrainConfig, Trainer
 
     corpus, k = _exact_corpus()
@@ -345,7 +432,8 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path):
     segsum.reset_launch_counts()
     for device in ("cuda", "cpu"):
         tr = Trainer(cfg, output_dir=str(tmp_path / device), quiet=True,
-                     gpu=GpuConfig(device=device))
+                     gpu=GpuConfig(device=device,
+                                   dense_head_bytes=head_bytes))
         tr.load_corpus(corpus)
         tr.train()
         tr.train_edge_topics()
@@ -589,7 +677,7 @@ def test_streamed_trainer_on_the_card(dev, tmp_path, sampled):
     cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
                       max_edge_topics=8, sample_docs=sampled,
                       sample_rate=0.6 if sampled else 0.0)
-    gpu = GpuConfig(device="cuda")
+    gpu = GpuConfig(device="cuda", dense_head_bytes=0)  # COO's launches
     ref = Trainer(cfg, output_dir=str(tmp_path / "incore"), quiet=True,
                   gpu=gpu)
     ref.load_corpus(corpus)
@@ -696,7 +784,7 @@ def test_lanczos_on_the_card_matches_the_cpu(dev, tmp_path):
     runs = {}
     for device in ("cuda", "cpu"):
         tr = Trainer(cfg, output_dir=str(tmp_path / device), quiet=True,
-                     gpu=GpuConfig(device=device))
+                     gpu=GpuConfig(device=device, dense_head_bytes=0))
         tr.load_corpus(corpus)
         before = segsum.segsum_gather_rows.launches
         tr.train()

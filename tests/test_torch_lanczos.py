@@ -24,7 +24,7 @@ from isle_tpu_torch.trainer import Trainer
 from torch_parity import REFERENCE_TPU, JaxDraws, biting_corpus
 
 HI = jax.lax.Precision.HIGHEST
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
 
 
 def _gram(seed, dim=120, rank=None):
@@ -276,7 +276,8 @@ def test_eigen_warm_start(tmp_path, eig):
     cold, seen = train(CPU)
     assert not any("eigen_warm_start" in m for m in seen)
     assert cold._warm_start_block(corpus.vocab_size) is None
-    warm_gpu = GpuConfig(device="cpu", eigen_warm_start=True)
+    warm_gpu = GpuConfig(device="cpu", dense_head_bytes=0,
+                         eigen_warm_start=True)
     warm, seen = train(warm_gpu)
     assert any("seeding the eigensolver" in m for m in seen)
     np.testing.assert_allclose(np.sort(warm.evalues), np.sort(cold.evalues),

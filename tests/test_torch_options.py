@@ -32,7 +32,7 @@ from isle_tpu_torch.trainer import Trainer, check_supported
 from torch_parity import REFERENCE_TPU, JaxDraws, biting_corpus
 
 CHUNK = 256
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
 OPTIONS = {
     "sample_docs": dict(cfg=dict(sample_docs=True, sample_rate=0.5)),
     "elkans": dict(hp=dict(kmeans_algo_for_sparse="elkans")),

@@ -51,7 +51,8 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch.streaming", "isle_tpu_torch.capi",
     "isle_tpu_torch.preprocessed", "isle_tpu_torch.sharding",
     "isle_tpu_torch.elkans_sharded", "isle_tpu_torch._build_capi",
-    "isle_tpu_torch.streaming_sharded",
+    "isle_tpu_torch.streaming_sharded", "isle_tpu_torch.hybrid",
+    "isle_tpu_torch.matops",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
@@ -227,3 +228,23 @@ def test_no_public_device_defaults_to_the_cpu():
     # the walk reaches the entry points that have such a default
     assert "isle_tpu_torch.mwu.infer_all" in seen
     assert "isle_tpu_torch.config.GpuConfig" in seen
+
+
+def test_import_pins_float32_matmul_precision():
+    """Importing the port turns TF32 off and forbids cuBLAS's reduced
+    precision reductions of bf16 products (the hybrid head product must
+    sum in float32), whatever the flags were before."""
+    code = (
+        "import torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = True\n"
+        "torch.backends.cudnn.allow_tf32 = True\n"
+        "torch.backends.cuda.matmul."
+        "allow_bf16_reduced_precision_reduction = True\n"
+        "import isle_tpu_torch\n"
+        "m = torch.backends.cuda.matmul\n"
+        "assert not m.allow_tf32 and not torch.backends.cudnn.allow_tf32\n"
+        "assert not m.allow_bf16_reduced_precision_reduction\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr

@@ -30,7 +30,7 @@ from isle_tpu_torch.trainer import Trainer
 from torch_parity import REFERENCE_TPU, JaxDraws, biting_corpus, \
     golden_corpus
 
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
 K = 5
 
 

@@ -36,10 +36,13 @@ from isle_tpu_torch.sharding import Mesh
 from isle_tpu_torch.trainer import Trainer
 from torch_cases import dead_tail_entries
 from torch_dist_worker import load_rank, run_ranks
-from torch_parity import REFERENCE_TPU, JaxDraws
+from torch_parity import HEAD_BYTES, REFERENCE_TPU, REFERENCE_TPU_HYBRID, \
+    JaxDraws
 
 WORLDS = [1, 2, 4]
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
+COO = dict(dense_head_bytes=0)
+HYBRID = dict(dense_head_bytes=HEAD_BYTES)
 K, SEED, BLK = 4, 5, 8
 EDGE = dict(compute_edge_topics=True, max_edge_topics=6)
 CKPTS = ("svd", "kmeans", "model")
@@ -81,6 +84,10 @@ JOBS = {
     "dense": ("biting", {}, dict(eigensolver="dense"), False),
 }
 JAX_JOBS = ["base", "sampled", "elkans", "biting"]
+# The hybrid layout at a partial head (30 of the synth corpus's 96 words
+# at world sizes 1 and 2, ShardedHybrid): {job: the JOBS entry it runs}
+HYBRID_JOBS = {"hybrid": "base", "hybrid_elkans": "elkans"}
+HYBRID_WORLDS = [1, 2]
 
 
 def _record_draws(path, V, D, docs_in_b, k, rounds=64):
@@ -140,34 +147,55 @@ def single(tmp):
 
 
 @pytest.fixture(scope="module")
+def single_hybrid(tmp):
+    """The port's single-device trainer on the hybrid jobs."""
+    return {name: _finish(
+        Trainer(_port_config(job), output_dir=str(tmp / "single" / name),
+                quiet=True, gpu=GpuConfig(device="cpu", **HYBRID),
+                draws=JaxDraws(SEED)),
+        _port_corpus(job)) for name, job in HYBRID_JOBS.items()}
+
+
+def _jax_sharded(tmp, name, tpu, mesh):
+    corpus_name, cfg_kw, hyper, _ = JOBS[name]
+    (d, w, c), V, D = CORPORA[corpus_name]
+    cfg = JaxTrainConfig(
+        num_topics=K, seed=SEED, tpu=dataclasses.replace(tpu, mesh_shape=mesh),
+        hyper=JaxHyperParams(block_ks_block_size=BLK, **hyper), **cfg_kw)
+    tr = JaxTrainer(cfg, output_dir=str(tmp / "jax" / f"{name}{mesh}"),
+                    quiet=True)
+    tr.corpus = JaxCorpus.from_entries(d, w, c, vocab_size=V, num_docs=D)
+    tr._post_ingest()
+    tr.train()
+    if cfg.compute_edge_topics:
+        tr.train_edge_topics()
+    return tr
+
+
+@pytest.fixture(scope="module")
 def jax_runs(tmp):
     """isle_tpu's sharded trainer on a mesh of four host devices."""
-    out = {}
-    tpu = dataclasses.replace(REFERENCE_TPU, mesh_shape=(4,))
-    for name in JAX_JOBS:
-        corpus_name, cfg_kw, hyper, _ = JOBS[name]
-        (d, w, c), V, D = CORPORA[corpus_name]
-        cfg = JaxTrainConfig(
-            num_topics=K, seed=SEED, tpu=tpu,
-            hyper=JaxHyperParams(block_ks_block_size=BLK, **hyper), **cfg_kw)
-        tr = JaxTrainer(cfg, output_dir=str(tmp / "jax" / name), quiet=True)
-        tr.corpus = JaxCorpus.from_entries(d, w, c, vocab_size=V, num_docs=D)
-        tr._post_ingest()
-        tr.train()
-        if cfg.compute_edge_topics:
-            tr.train_edge_topics()
-        out[name] = tr
-    return out
+    return {name: _jax_sharded(tmp, name, REFERENCE_TPU, (4,))
+            for name in JAX_JOBS}
 
 
-def _job(tmp, world, name, job_name=None, **extra):
+@pytest.fixture(scope="module")
+def jax_hybrid(tmp):
+    """isle_tpu's sharded trainer with its hybrid layout on a mesh of two
+    host devices: the port's two ranks choose the same head."""
+    return {name: _jax_sharded(tmp, job, REFERENCE_TPU_HYBRID, (2,))
+            for name, job in HYBRID_JOBS.items()}
+
+
+def _job(tmp, world, name, job_name=None, gpu=COO, **extra):
     corpus_name, cfg_kw, hyper, infer = JOBS[name]
     job_name = job_name or name
     return dict(
         kind="train", name=job_name, corpus=str(tmp / f"{corpus_name}.npz"),
         draws=str(tmp / f"{name}_draws.npz"), k=K, seed=SEED,
         cfg=cfg_kw, hyper=dict(block_ks_block_size=BLK, **hyper),
-        out_dir=str(tmp / f"world{world}" / job_name), infer=infer, **extra)
+        out_dir=str(tmp / f"world{world}" / job_name), infer=infer, gpu=gpu,
+        **extra)
 
 
 def _seed_checkpoints(src_run_dir, job, stages):
@@ -193,6 +221,9 @@ def runs(tmp, single):
     for world in WORLDS:
         jobs = [_job(tmp, world, name) for name in JOBS]
         jobs.append(_job(tmp, world, "base", "base_again"))
+        if world in HYBRID_WORLDS:
+            jobs += [_job(tmp, world, job, name, gpu=HYBRID)
+                     for name, job in HYBRID_JOBS.items()]
         for stages in (("svd",), ("svd", "kmeans")):
             job = _job(tmp, world, "base", "resume_" + stages[-1],
                        resume=True)
@@ -258,6 +289,27 @@ def test_single_device_port_matches_isle_tpu_sharded(single, jax_runs, name):
     np.testing.assert_array_equal(tr.cluster_of_doc, ref.cluster_of_doc)
     np.testing.assert_array_equal(_catchwords(tr), _catchwords(ref))
     np.testing.assert_allclose(tr.model, ref.model, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(HYBRID_JOBS))
+@pytest.mark.parametrize("world", HYBRID_WORLDS)
+def test_hybrid_matches_the_single_device_hybrid(runs, single_hybrid, world,
+                                                  name):
+    """ShardedHybrid: the head words chosen from all ranks' counts, each
+    rank's slab and tail; the single-device hybrid run's results."""
+    r = runs[world][name][0]
+    _assert_same(r, single_hybrid[name])
+    assert "hybrid layout (sharded)" in list(r["stages"])
+
+
+@pytest.mark.parametrize("name", sorted(HYBRID_JOBS))
+def test_hybrid_matches_isle_tpu_sharded_hybrid(runs, jax_hybrid, name):
+    """World size 2 against isle_tpu's sharded trainer with its hybrid
+    layout on two devices: results and stage labels."""
+    r, ref = runs[2][name][0], jax_hybrid[name]
+    _assert_same(r, ref)
+    want = [label for label, *_ in ref.timer.phases if "edge" not in label]
+    assert [s for s in r["stages"] if "edge" not in s] == want
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -27,7 +27,8 @@ from isle_tpu_torch import bmatrix, catchwords, elkans, kmeans, sparse, \
 from isle_tpu_torch.corpus import Corpus
 from isle_tpu_torch.sharding import Mesh, word_bounds
 from torch_cases import dead_tail_entries
-from torch_dist_worker import load_rank, run_ranks
+from torch_dist_worker import DOC_SPARSE_FIELDS, load_rank, run_ranks
+from torch_parity import HEAD_BYTES
 
 WORLDS = [1, 2, 4]
 K, R, RATE, WIDTH = 4, 3, 0.5, 5
@@ -121,7 +122,8 @@ def ranks(case):
         jobs = [dict(kind="sharding", name=name,
                      corpus=str(tmp / f"{name}_corpus.npz"),
                      inputs=str(tmp / f"{name}_inputs.npz"),
-                     k=case[name]["k"], r=case[name]["r"], sample_rate=RATE)
+                     k=case[name]["k"], r=case[name]["r"], sample_rate=RATE,
+                     head_bytes=HEAD_BYTES if name == "main" else 0)
                 for name in ("main", "tiny")]
         odir = str(tmp / f"world{world}")
         results = run_ranks(world, jobs, odir, limit=240)
@@ -153,7 +155,24 @@ def jax_ref(case):
     X = jnp.asarray(inp["X"])
     lc, la = jsh.sharded_run_lloyds_full(B, jnp.asarray(inp["centers"]), 10,
                                          mesh)
+    from isle_tpu.hybrid import row_scale_from_zetas
+
+    H = jsh.shard_hybrid(B, row_scale_from_zetas(zetas), mesh, HEAD_BYTES)
+    hc, ha = jsh.sharded_run_lloyds_full(H, jnp.asarray(inp["centers"]), 10,
+                                         mesh)
+    hybrid = dict(
+        head_words=np.asarray(H.head_words),
+        head=np.asarray(H.head, np.float32), valid_docs=H.valid_per_shard(),
+        bt_x=np.asarray(jsh.compact_doc_rows(jsh.sharded_h_bt_x(H, X, mesh),
+                                             B)),
+        b_y=np.asarray(jsh.sharded_h_b_y(
+            H, jsh.pad_doc_rows(jnp.asarray(inp["Y"]), B, mesh), mesh)),
+        gram_x=np.asarray(jsh.sharded_h_gram_x(H, X, mesh)),
+        doc_l2sq=np.asarray(jsh.compact_doc_rows(
+            jsh.sharded_doc_l2sq(H, mesh)[..., None], B))[:, 0],
+        lloyds_centers=np.asarray(hc), lloyds_assign=np.asarray(ha))
     return dict(
+        hybrid=hybrid,
         ws=ws, zetas=np.asarray(zetas), new_nnz=int(nnz), cols=cols,
         valid_docs=B.valid_docs, cols_s=cols_s,
         uniforms=np.asarray(jax.random.uniform(key, (D,), jnp.float32)),
@@ -380,3 +399,96 @@ def test_sampling_against_isle_tpu_sharding(case, jax_ref):
         A, torch.from_numpy(jax_ref["zetas"]), mesh, sample_rate=RATE,
         uniforms=torch.from_numpy(jax_ref["uniforms"].copy()))
     np.testing.assert_array_equal(cols, jax_ref["cols_s"])
+
+
+# ---------------------------------------------------------------------------
+# The hybrid layout (ShardedHybrid), main corpus
+# ---------------------------------------------------------------------------
+
+
+def _single_hybrid(case, head_words):
+    """The single-device hybrid layout of B with the given head words, its
+    products on the rank's inputs and both k-means from its centers."""
+    from isle_tpu_torch import hybrid, matops
+
+    c = case["main"]
+    inp = {name: torch.from_numpy(a) for name, a in c["inp"].items()}
+    B = c["ref"]["B"]
+    h = hybrid.split_by_head(
+        B, torch.from_numpy(head_words),
+        hybrid.row_scale_from_zetas(torch.from_numpy(c["ref"]["zetas"])))
+    lc, la = kmeans.run_lloyds_full(h, inp["centers"].clone(), 10)
+    ec, ea = elkans.run_elkans(h, inp["centers"].clone(), 10)
+    return h, dict(
+        h_bt_x=matops.mat_bt_x(h, inp["X"]).numpy(),
+        h_b_y=matops.mat_b_y(h, inp["Y"]).numpy(),
+        h_gram_x=matops.mat_gram_x(h, inp["X"]).numpy(),
+        h_doc_l2sq=matops.mat_doc_l2sq(h).numpy(),
+        h_lloyds_centers=lc.numpy(), h_lloyds_assign=la.numpy(),
+        h_elkans_centers=ec.numpy(), h_elkans_assign=ea.numpy())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shard_hybrid_layout(case, ranks, world):
+    """One set of head words on every rank, chosen from all ranks' counts
+    with isle_tpu's head rule over its padded docs per shard; each rank's
+    slab is the single-device head's columns of its docs and its tail is
+    its docs' share of the single-device tail."""
+    from isle_tpu_torch import hybrid
+
+    rs = ranks[world]["main"]
+    hw = rs[0]["h_head_words"]
+    for r in rs:
+        np.testing.assert_array_equal(r["h_head_words"], hw)
+    counts = rs[0]["B_doc_counts"]
+    dps = max(-(-max(counts) // 8) * 8, 8)
+    B = case["main"]["ref"]["B"]
+    R = min(V, max(8, HEAD_BYTES // (2 * dps * world)),
+            hybrid.max_head_rows(dps))
+    assert 8 < len(hw) == R < V
+    np.testing.assert_array_equal(
+        hw, hybrid.top_words(hybrid.word_counts(B), R).numpy())
+    h, _ = _single_hybrid(case, hw)
+    head = h.head.to(torch.uint8).numpy()
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for s, r in enumerate(rs):
+        np.testing.assert_array_equal(r["h_head"],
+                                      head[:, starts[s]:starts[s + 1]])
+    assert sum(int(r["h_head_nnz"]) for r in rs) == h.head_nnz
+    for f in DOC_SPARSE_FIELDS[:3]:
+        got = np.concatenate([r[f"h_tail_{f}"] + (starts[s] if f == "d_doc"
+                                                  else 0)
+                              for s, r in enumerate(rs)])
+        np.testing.assert_array_equal(got, getattr(h.tail, f).numpy(), f)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_shard_hybrid_products_and_kmeans(case, ranks, world):
+    """Every product on the ShardedHybrid, and Lloyd's and Elkan's on it:
+    the single-device hybrid layout of the same head words, assignments
+    exactly, sums within the all-reduce's tolerance."""
+    rs = ranks[world]["main"]
+    _, ref = _single_hybrid(case, rs[0]["h_head_words"])
+    for r in rs:
+        for key, want in ref.items():
+            if key.endswith("assign"):
+                np.testing.assert_array_equal(r[key], want, key)
+            else:
+                np.testing.assert_allclose(r[key], want, **TOL, err_msg=key)
+
+
+def test_shard_hybrid_against_isle_tpu(ranks, jax_ref):
+    """World size 4 against isle_tpu.sharding.shard_hybrid on four
+    devices: the head words and every shard's head exactly, the sharded
+    hybrid products and Lloyd's within tolerance."""
+    rs, ref = ranks[4]["main"], jax_ref["hybrid"]
+    np.testing.assert_array_equal(rs[0]["h_head_words"], ref["head_words"])
+    for s, r in enumerate(rs):
+        valid = ref["valid_docs"][s]
+        np.testing.assert_array_equal(r["h_head"] != 0,
+                                      ref["head"][s][:, :valid] != 0)
+    r = rs[0]
+    for key in ("bt_x", "b_y", "gram_x", "doc_l2sq", "lloyds_centers"):
+        np.testing.assert_allclose(r["h_" + key], ref[key], **TOL,
+                                   err_msg=key)
+    np.testing.assert_array_equal(r["h_lloyds_assign"], ref["lloyds_assign"])

@@ -24,9 +24,11 @@ from isle_tpu_torch import bmatrix, streaming, thresholds, topic_model
 from isle_tpu_torch.config import GpuConfig
 from isle_tpu_torch.sparse import DocSparse
 from isle_tpu_torch.trainer import Trainer
-from torch_parity import REFERENCE_TPU, JaxDraws, biting_corpus
+from torch_parity import HEAD_BYTES, REFERENCE_TPU, REFERENCE_TPU_HYBRID, \
+    JaxDraws, biting_corpus
 
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
+HYBRID = GpuConfig(device="cpu", dense_head_bytes=HEAD_BYTES)
 K = 4
 # chunk sizes giving 1, 3 and 29 chunks of the biting corpus (8,353 nnz)
 CHUNKS = {"one": 8400, "three": 3100, "many": 300}
@@ -261,12 +263,11 @@ OPTIONS = {
 }
 
 
-def _config(option, seed=3):
+def _config(option, seed=3, tpu=REFERENCE_TPU):
     o = OPTIONS[option]
     return TrainConfig(
         num_topics=K, seed=seed, compute_edge_topics=True, max_edge_topics=6,
-        hyper=HyperParams(**o.get("hp", {})), tpu=REFERENCE_TPU,
-        **o.get("cfg", {}),
+        hyper=HyperParams(**o.get("hp", {})), tpu=tpu, **o.get("cfg", {}),
     )
 
 
@@ -279,11 +280,11 @@ def _jax_streamed(cfg, corpus, out, resume=False):
 
 
 def _port_streamed(cfg, corpus, out, resume=False, draws="jax",
-                   chunk_entries=2048):
+                   chunk_entries=2048, gpu=CPU):
     if draws == "jax":
         draws = JaxDraws(cfg.seed, streamed_sampling=cfg.sample_docs)
     tr = streaming.StreamedTrainer(cfg, output_dir=str(out),
-                                   chunk_entries=chunk_entries, gpu=CPU,
+                                   chunk_entries=chunk_entries, gpu=gpu,
                                    draws=draws)
     tr.load_corpus(corpus)
     tr.train(resume=resume)
@@ -328,6 +329,49 @@ def test_streamed_trainer_matches_jax_streamed_trainer(tmp_path, corpus,
     np.testing.assert_allclose(got.model.sum(axis=0), 1.0, atol=1e-5)
     if option == "sample_docs":
         assert len(got.original_cols) < 0.6 * corpus.num_docs
+
+
+@pytest.mark.parametrize("option", ["default", "sample_docs", "elkans"])
+def test_streamed_hybrid_matches_jax_streamed_trainer(tmp_path, corpus,
+                                                      option):
+    """Both streamed trainers with the hybrid layout at a partial head
+    (isle_tpu's streamed budget over B's docs, isle_tpu/streaming.py:
+    1259-1277): the results of the COO case, the same stage labels."""
+    from isle_tpu_torch.hybrid import max_head_rows
+
+    cfg = _config(option, tpu=REFERENCE_TPU_HYBRID)
+    ref = _jax_streamed(cfg, corpus, tmp_path / "jax")
+    got = _port_streamed(cfg, corpus, tmp_path / "torch", gpu=HYBRID)
+    _same_run(got, ref)
+    labels = [label for label, *_ in got.timer.phases]
+    assert labels == [label for label, *_ in ref.timer.phases]
+    assert "hybrid layout" in labels
+    nb = len(got.original_cols)
+    assert 8 <= min(HEAD_BYTES // (2 * nb), max_head_rows(nb)) < corpus.vocab_size
+
+
+def test_streamed_hybrid_below_eight_rows_stays_coo(tmp_path, corpus):
+    """A budget of fewer than 8 head rows over B's docs leaves B in the
+    COO layout, as isle_tpu's streamed middle does: the COO results."""
+    from isle_tpu_torch.hybrid import HybridSparse
+
+    cfg = _config("default")
+    small = GpuConfig(device="cpu", dense_head_bytes=2 * corpus.num_docs * 7)
+    seen = []
+    real = streaming.solve_gram_eigens
+
+    def spy(B, *a, **kw):
+        seen.append(B)
+        return real(B, *a, **kw)
+
+    streaming.solve_gram_eigens = spy
+    try:
+        got = _port_streamed(cfg, corpus, tmp_path / "small", gpu=small)
+    finally:
+        streaming.solve_gram_eigens = real
+    assert not isinstance(seen[0], HybridSparse)
+    ref = _port_streamed(cfg, corpus, tmp_path / "coo")
+    _same_run(got, ref, exact_model=True)
 
 
 def test_streamed_trainer_matches_incore_trainer(tmp_path, corpus):

@@ -39,10 +39,16 @@ from isle_tpu_torch.streaming import StreamedTrainer
 from isle_tpu_torch.topic_model import model_thresholds, top_two_topics
 from test_torch_sharded_trainer import CORPORA as TRAIN_CORPORA
 from torch_dist_worker import load_rank, run_ranks
-from torch_parity import REFERENCE_TPU, JaxDraws
+from torch_parity import HEAD_BYTES, REFERENCE_TPU, REFERENCE_TPU_HYBRID, \
+    JaxDraws
 
 WORLDS = [1, 2, 4]
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
+COO = dict(dense_head_bytes=0)
+HYBRID = dict(dense_head_bytes=HEAD_BYTES)
+# the base job with the hybrid layout at a partial head (ShardedHybrid),
+# streamed and in core, at these world sizes
+HYBRID_WORLDS = [1, 2]
 K, SEED, BLK = 4, 5, 8
 EDGE = dict(compute_edge_topics=True, max_edge_topics=6)
 CHUNK = 400  # entries: 20-21 chunks of a corpus at world size 1
@@ -138,29 +144,41 @@ def single(tmp):
     return {name: _streamed(name, tmp / "single" / name) for name in JOBS}
 
 
+def _jax_streamed(tmp, name, cfg, tag=""):
+    tr = JaxStreamedTrainer(cfg, output_dir=str(tmp / "jax" / (name + tag)),
+                            chunk_entries=1024)
+    tr._t.corpus = _corpus(JOBS[name][0], jax=True)
+    tr._t._post_ingest()
+    tr.train()
+    tr.train_edge_topics()
+    return tr
+
+
 @pytest.fixture(scope="module")
 def jax_runs(tmp):
     """isle_tpu's StreamedTrainer on a mesh of four host devices."""
-    out = {}
-    for name, (corpus_name, _) in JOBS.items():
-        tr = JaxStreamedTrainer(_config(name, jax=True),
-                                output_dir=str(tmp / "jax" / name),
-                                chunk_entries=1024)
-        tr._t.corpus = _corpus(corpus_name, jax=True)
-        tr._t._post_ingest()
-        tr.train()
-        tr.train_edge_topics()
-        out[name] = tr
-    return out
+    return {name: _jax_streamed(tmp, name, _config(name, jax=True))
+            for name in JOBS}
 
 
-def _train_job(tmp, world, name, job_name=None, streamed=True, **extra):
+@pytest.fixture(scope="module")
+def jax_hybrid(tmp):
+    """isle_tpu's StreamedTrainer with its hybrid layout on a mesh of two
+    host devices (the port's two ranks choose the same head)."""
+    cfg = dataclasses.replace(
+        _config("base", jax=True),
+        tpu=dataclasses.replace(REFERENCE_TPU_HYBRID, mesh_shape=(2,)))
+    return _jax_streamed(tmp, "base", cfg, "_hybrid")
+
+
+def _train_job(tmp, world, name, job_name=None, streamed=True, gpu=COO,
+               **extra):
     corpus_name, cfg_kw = JOBS[name]
     job_name = job_name or name
     job = dict(
         kind="train", name=job_name, corpus=str(tmp / f"{corpus_name}.npz"),
         draws=str(tmp / f"{name}_draws.npz"), k=K, seed=SEED, cfg=cfg_kw,
-        hyper=dict(block_ks_block_size=BLK),
+        hyper=dict(block_ks_block_size=BLK), gpu=gpu,
         out_dir=str(tmp / f"world{world}" / job_name), **extra)
     if streamed:
         job["chunk_entries"] = CHUNK
@@ -238,6 +256,10 @@ def runs(tmp, single):
         jobs += [_train_job(tmp, world, name, name + "_incore",
                             streamed=False) for name in JOBS]
         jobs.append(_train_job(tmp, world, "base", "base_again"))
+        if world in HYBRID_WORLDS:
+            jobs += [_train_job(tmp, world, "base", "hybrid" + tag,
+                                streamed=not tag, gpu=HYBRID)
+                     for tag in ("", "_incore")]
         for stages in (("svd",), ("svd", "kmeans")):
             job = _train_job(tmp, world, "base", "resume_" + stages[-1],
                              resume=True)
@@ -308,11 +330,44 @@ def test_matches_the_incore_sharded_trainer(runs, world, name):
                                    atol=atol, err_msg=key)
 
 
+@pytest.mark.parametrize("world", HYBRID_WORLDS)
+def test_hybrid_matches_the_incore_sharded_hybrid(runs, world):
+    """The hybrid layout of the streamed B on the mesh
+    (Trainer._sharded_middle's shard_hybrid): the in-core sharded hybrid
+    run at the same world size, exactly where the COO case is exact."""
+    got, want = runs[world]["hybrid"][0], runs[world]["hybrid_incore"][0]
+    assert "hybrid layout (sharded)" in list(got["stages"])
+    assert "hybrid layout (sharded)" in list(want["stages"])
+    for key in ("original_cols", "cluster_of_doc", "is_cw", "t1", "t2",
+                "valid", "edge_pairs"):
+        np.testing.assert_array_equal(got[key], want[key], key)
+    for key, rtol, atol in (("evalues", 1e-3, 1e-4), ("centers", 1e-4, 1e-5),
+                            ("model", 1e-4, 1e-6),
+                            ("edge_model", 1e-4, 1e-6)):
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol,
+                                   atol=atol, err_msg=key)
+
+
+def test_hybrid_matches_isle_tpu_sharded_streamed_hybrid(runs, jax_hybrid):
+    """World size 2 against isle_tpu's sharded streamed trainer with its
+    hybrid layout on two devices: the results, and both name the layout's
+    stage alike (their other streamed labels differ: isle_tpu's resident
+    slabs have no counterpart)."""
+    r = runs[2]["hybrid"][0]
+    _assert_same(r, jax_hybrid)
+    label = "hybrid layout (sharded)"
+    assert label in [name for name, *_ in jax_hybrid.timer.phases]
+    assert label in list(r["stages"])
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_every_rank_ends_with_the_same_bits(runs, world):
     """k- and vocab-sized state is replicated: each rank holds exactly
     rank 0's results, and rank 0 alone holds the run directory's files."""
-    for name in list(JOBS) + ["resume_svd", "resume_kmeans"]:
+    names = list(JOBS) + ["resume_svd", "resume_kmeans"]
+    if world in HYBRID_WORLDS:
+        names.append("hybrid")
+    for name in names:
         rs = runs[world][name]
         assert rs[0]["holds_log_files"], name
         for r in rs[1:]:

@@ -21,18 +21,18 @@ from isle_tpu.config import HyperParams, TrainConfig
 from isle_tpu.trainer import Trainer as JaxTrainer
 from isle_tpu_torch.config import GpuConfig
 from isle_tpu_torch.trainer import Trainer, state_from_numpy
-from torch_parity import REFERENCE_TPU, JaxDraws, biting_corpus, \
-    golden_corpus
+from torch_parity import HEAD_BYTES, REFERENCE_TPU, REFERENCE_TPU_HYBRID, \
+    JaxDraws, biting_corpus, golden_corpus
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CPU = GpuConfig(device="cpu")
+CPU = GpuConfig(device="cpu", dense_head_bytes=0)  # as REFERENCE_TPU
+HYBRID = GpuConfig(device="cpu", dense_head_bytes=HEAD_BYTES)
 
 
-def _config(k, seed, hyper=None, edge=6):
+def _config(k, seed, hyper=None, edge=6, tpu=REFERENCE_TPU):
     return TrainConfig(
         num_topics=k, seed=seed, compute_edge_topics=True,
-        max_edge_topics=edge, hyper=hyper or HyperParams(),
-        tpu=REFERENCE_TPU,
+        max_edge_topics=edge, hyper=hyper or HyperParams(), tpu=tpu,
     )
 
 
@@ -51,8 +51,8 @@ def _jax(corpus, cfg, out):
     return _run(JaxTrainer(cfg, output_dir=str(out), quiet=True), corpus)
 
 
-def _port(corpus, cfg, out, resume=False):
-    tr = Trainer(cfg, output_dir=str(out), quiet=True, gpu=CPU,
+def _port(corpus, cfg, out, resume=False, gpu=CPU):
+    tr = Trainer(cfg, output_dir=str(out), quiet=True, gpu=gpu,
                  draws=JaxDraws(cfg.seed))
     return _run(tr, corpus, resume)
 
@@ -98,6 +98,80 @@ def test_biting_corpus_matches_jax_trainer(tmp_path, drop):
         assert np.isfinite(zetas).all() != drop
         assert (zetas[np.isfinite(zetas)] > 1).any()
     assert len(got.original_cols) < corpus.num_docs
+    _assert_same_result(got, ref)
+
+
+# isle_tpu's default engine, the hybrid layout, with a partial head: the
+# in-core options that reach B's products in another way
+HYBRID_CASES = {
+    "golden": (golden_corpus, 5, 7, {}),
+    "biting": (biting_corpus, 4, 3, {}),
+    "biting-drop": (biting_corpus, 4, 3, dict(
+        few_samples_threshold_drop=True, bad_threshold_drop=True)),
+    "elkans": (biting_corpus, 4, 3, dict(kmeans_algo_for_sparse="elkans")),
+    "seed-columns": (golden_corpus, 5, 7, dict(enable_kmeans_on_lowd=False)),
+    "dense-eigensolver": (biting_corpus, 4, 3, dict(eigensolver="dense")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HYBRID_CASES))
+def test_hybrid_layout_matches_jax_trainer(tmp_path, case):
+    """The hybrid layout in both trainers (REFERENCE_TPU_HYBRID and the
+    port's dense_head_bytes at the same budget): the same results as the
+    COO parity tests, and the same stage labels and head as isle_tpu's."""
+    make, k, seed, hyper = HYBRID_CASES[case]
+    corpus = make()
+    cfg = _config(k, seed, HyperParams(**hyper), tpu=REFERENCE_TPU_HYBRID)
+    ref = _jax(corpus, cfg, tmp_path / "jax")
+    got = _port(corpus, cfg, tmp_path / "torch", gpu=HYBRID)
+    _assert_same_result(got, ref)
+    with np.load(os.path.join(got.run_dir, "ckpt_svd.npz")) as z, \
+            np.load(os.path.join(ref.run_dir, "ckpt_svd.npz")) as r:
+        np.testing.assert_array_equal(z["zetas"], r["zetas"])
+    labels = [label for label, *_ in got.timer.phases]
+    assert labels == [label for label, *_ in ref.timer.phases]
+    assert "creating thresholded matrix (fused hybrid)" in labels
+    heads = [open(os.path.join(t.run_dir, "diagnosticLog.txt")).read()
+             for t in (got, ref)]
+    line = [ln for ln in heads[1].splitlines() if "hybrid layout" in ln]
+    assert line and line[0].split("] ")[-1] in heads[0]
+
+
+def test_hybrid_coo_fallback_past_the_head_cap(tmp_path, monkeypatch):
+    """Where the int32 cap leaves fewer than 8 head rows (reached at test
+    size through hybrid.FLAT_CAP), the trainer warns and trains B in the
+    COO layout: isle_tpu's COO results."""
+    from isle_tpu_torch import hybrid
+
+    corpus = biting_corpus()
+    monkeypatch.setattr(hybrid, "FLAT_CAP", 5 * (corpus.num_docs + 1))
+    cfg = _config(4, 3)
+    ref = _jax(corpus, cfg, tmp_path / "jax")
+    tr = Trainer(cfg, output_dir=str(tmp_path / "torch"), quiet=True,
+                 gpu=HYBRID, draws=JaxDraws(cfg.seed))
+    logs = []
+    tr.logger.add_sink("warning", logs.append)
+    got = _run(tr, corpus)
+    assert any("falling back to the COO layout" in m for m in logs), logs
+    assert "creating thresholded and scaled matrix" in [
+        label for label, *_ in got.timer.phases]
+    _assert_same_result(got, ref)
+
+
+def test_default_config_trains_the_hybrid_layout(tmp_path):
+    """GpuConfig's default budget is isle_tpu's, 4 GiB: at test size every
+    word is in the head, and the run matches isle_tpu's default engine."""
+    import dataclasses
+
+    assert GpuConfig().dense_head_bytes == 4096 << 20
+    corpus = golden_corpus()
+    cfg = _config(5, 7, tpu=dataclasses.replace(
+        REFERENCE_TPU, dense_head_bytes=4096 << 20))
+    ref = _jax(corpus, cfg, tmp_path / "jax")
+    got = _port(corpus, cfg, tmp_path / "torch",
+                gpu=GpuConfig(device="cpu"))
+    assert "creating thresholded matrix (fused hybrid)" in [
+        label for label, *_ in got.timer.phases]
     _assert_same_result(got, ref)
 
 
@@ -210,7 +284,8 @@ def test_profile_dir_writes_a_trace(tmp_path, kind):
     prof = str(tmp_path / "prof")
     plain = make(cfg, output_dir=str(tmp_path / "plain"), quiet=True, gpu=CPU)
     traced = make(cfg, output_dir=str(tmp_path / "traced"), quiet=True,
-                  gpu=GpuConfig(device="cpu", profile_dir=prof))
+                  gpu=GpuConfig(device="cpu", dense_head_bytes=0,
+                                profile_dir=prof))
     for tr in (plain, traced):
         tr.load_corpus(corpus)
         tr.train()

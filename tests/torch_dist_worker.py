@@ -149,7 +149,38 @@ def job_sharding(job: dict, mesh) -> dict:
         ws, inp["cluster_of_doc"], inp["cluster_sizes"], k, r, mesh).numpy()
     out["mass"] = sh.compact_doc_rows(
         sh.sharded_doc_topic_mass(A, inp["cw_topic"], k, mesh), mesh).numpy()
+    if job.get("head_bytes"):
+        out.update(_hybrid_products(B, zetas, inp, job["head_bytes"], mesh))
     out["collective_calls"] = mesh.collective_calls
+    return out
+
+
+def _hybrid_products(B, zetas, inp: dict, head_bytes: int, mesh) -> dict:
+    """sharding.shard_hybrid of B: this rank's layout, and every product
+    and both full-space k-means on it."""
+    from isle_tpu_torch import sharding as sh
+    from isle_tpu_torch.elkans_sharded import sharded_run_elkans
+    from isle_tpu_torch.hybrid import row_scale_from_zetas
+
+    H = sh.shard_hybrid(B, row_scale_from_zetas(zetas), mesh, head_bytes)
+    h = H.local
+    out = dict(h_head_words=h.head_words.numpy(),
+               h_head=h.head.to(torch.uint8).numpy(), h_head_nnz=h.head_nnz,
+               **_doc_sparse_arrays(h.tail, "h_tail_"))
+    Y = sh.pad_doc_rows(inp["Y"], B).contiguous()
+    out.update(
+        h_bt_x=sh.compact_doc_rows(sh.sharded_bt_x(H, inp["X"], mesh),
+                                   mesh).numpy(),
+        h_b_y=sh.sharded_b_y(H, Y, mesh).numpy(),
+        h_gram_x=sh.sharded_gram_x(H, inp["X"], mesh).numpy(),
+        h_doc_l2sq=sh.compact_doc_rows(sh.sharded_doc_l2sq(H, mesh),
+                                       mesh).numpy(),
+    )
+    centers, assign = sh.sharded_run_lloyds_full(H, inp["centers"].clone(),
+                                                 10, mesh)
+    out.update(h_lloyds_centers=centers.numpy(), h_lloyds_assign=assign)
+    centers, assign = sharded_run_elkans(H, inp["centers"].clone(), 10, mesh)
+    out.update(h_elkans_centers=centers.numpy(), h_elkans_assign=assign)
     return out
 
 
@@ -165,7 +196,8 @@ def job_train(job: dict, mesh) -> dict:
     cfg = TrainConfig(num_topics=job["k"], seed=job["seed"],
                       hyper=HyperParams(**job.get("hyper", {})),
                       **job.get("cfg", {}))
-    gpu = GpuConfig(device="cpu", mesh_shape=(mesh.world,))
+    gpu = GpuConfig(device="cpu", mesh_shape=(mesh.world,),
+                    **job.get("gpu", {}))
     draws = ReplayDraws(job["draws"]) if job.get("draws") else None
     kw = dict(output_dir=job["out_dir"], quiet=True, gpu=gpu, draws=draws,
               mesh=mesh)

@@ -1,7 +1,9 @@
 """Shared inputs for the tests that hold isle_tpu_torch against isle_tpu:
 a draw source replaying isle_tpu's jax.random key schedule, the
-reference configuration, and two small corpora made with numpy from a
-seed."""
+reference configurations (COO, and the hybrid layout with a partial
+head), and two small corpora made with numpy from a seed."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,14 @@ REFERENCE_TPU = TpuConfig(
     dense_head_bytes=0, pallas_segsum="on", pallas_chunk=256,
     spmm_chunk=1 << 12, device_loop_solver=False,
 )
+
+# The same with the hybrid layout, isle_tpu's default engine, at a head
+# budget that leaves the head PARTIAL at test size (the default 4 GiB
+# would put every word in it): 48 of golden_corpus's 400 words, 30 of
+# biting_corpus's 200 (24,000 bytes over 250 or 400 docs of 2 bytes).
+HEAD_BYTES = 24_000
+REFERENCE_TPU_HYBRID = dataclasses.replace(REFERENCE_TPU,
+                                           dense_head_bytes=HEAD_BYTES)
 
 
 class JaxDraws:
