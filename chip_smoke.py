@@ -105,6 +105,21 @@ Between 7 and 8, with the in-core corpus off the card:
      the model within 1e-6; every stage's launches (Trainer.stage_launches)
      equal the in-core stage's; wall, stage walls, peak device memory, the
      collectives' count and the time inside them;
+  T.  sharding.sharded_train_step over the same mesh on the rank's B (the
+     run's ζ), X (V, 128) from the seed and phase 4's final centers: one
+     warm-up and five steps timed with CUDA events (median), launch counts
+     reset just before and read just after (a step: 4 segsum_gather_rows,
+     2 segsum_onehot), 4 collectives a step, their time and the peak. Y
+     bit-equal to sparse.gram_x, assign to kmeans._assign on the same dots,
+     new_centers to kmeans.update_centers_full, hist to np.bincount of the
+     words, the six steps bit-equal; the step's new use of segsum_onehot,
+     the word histogram, against its plain version (exactly, two launches
+     bit-equal) beside its bound and torch.bincount. Then
+     graft_entry.entry() on the card against entry("cpu") (Y within 1e-5
+     |B| |X|, assignments equal but on ties within rtol 1e-5, centers and
+     MWU weights within 1e-5) and `python -m isle_tpu_torch.graft_entry
+     --device cuda --dryrun 1` in a process of its own (exit 0, three OK
+     lines);
   M2. doc-parallel inference over the same group on the first 20,000 docs
      against the single-device Inferencer: convergence flags equal,
      weights within rtol 2e-5;
@@ -173,8 +188,9 @@ Between 7 and 8, with the in-core corpus off the card:
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
-"launches_by_path", the sharded, the sharded streamed, the traced and
-the three hybrid runs among them), max error, and the sums of ms,
+"launches_by_path", the sharded, the sharded streamed, the traced, the
+three hybrid runs, the train step's and graft_entry's among them), max
+error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
 listed under "uses"), the card's line, and last
@@ -491,11 +507,12 @@ def onehot_window(nc: int) -> dict:
 
 
 def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
-               init=None, chunk=2048) -> dict:
-    """segsum_onehot against its plain version and index_put_, two
-    launches bit-equal. `whole`: {label: fn} of the caller's function
-    around the kernel and what it replaced, each timed too. `init`: the
-    carry of a streamed use, read once and written once in the bound."""
+               init=None, chunk=2048, library=None) -> dict:
+    """segsum_onehot against its plain version and index_put_ (or
+    `library`, another call of the same function), two launches
+    bit-equal. `whole`: {label: fn} of the caller's function around the
+    kernel and what it replaced, each timed too. `init`: the carry of a
+    streamed use, read once and written once in the bound."""
     from isle_tpu_torch import segsum
 
     got = segsum.segsum_onehot(seg, col, val, S, nc, init=init, chunk=chunk)
@@ -527,12 +544,14 @@ def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
     vi = (torch.ones(si.numel(), dtype=dtype, device=seg.device)
           if val is None else val[ok])
 
-    def library():
+    def index_put():
         start = (torch.zeros((S + 1, nc), dtype=dtype, device=seg.device)
                  if init is None else init.clone())
         return start.index_put_((si, ci), vi, accumulate=True)
 
-    lib_err = float((library().double() - ref.double()).abs().max())
+    library = library or index_put
+    lib_err = float((library().double().reshape(ref.shape)
+                     - ref.double()).abs().max())
     # seg, col and val where given, read once; the carry read once where
     # there is one; the output written once
     per_entry = 4 + (col is not None) * 4 + (val is not None) * 4
@@ -1482,6 +1501,159 @@ def sharded_infer_phase(tr, entries, shape, out, mesh) -> None:
           f"single-device run: {np.array_equal(g.weights, r.weights)}")
 
 
+def train_step_phase(corpus, shape, seed, tr, mesh) -> tuple:
+    """Phase T: sharding.sharded_train_step on the rank's B over the mesh,
+    at full width. Returns (the word histogram's use, the step's launches
+    by use, the path's launch counts)."""
+    from isle_tpu_torch import kmeans, segsum, sparse
+    from isle_tpu_torch import sharding as shd
+
+    V, D, k = corpus.vocab_size, corpus.num_docs, shape["k"]
+    A = shd.shard_doc_sparse(corpus.rows, corpus.doc_ids(), corpus.vals, V, D,
+                             mesh)
+    zetas = torch.from_numpy(run_dir_arrays(tr, "svd")["zetas"]).cuda()
+    B, _ = shd.sharded_threshold_and_copy(A, zetas, mesh)
+    del A
+    L = B.local
+    assert B.docs_per_shard == L.num_docs, \
+        "phase T's gates hold without isle_tpu's pads: --docs must be a " \
+        "multiple of 8"
+    X = torch.from_numpy(np.random.default_rng(seed + 9).standard_normal(
+        (V, 128)).astype(np.float32)).cuda()
+    centers = torch.from_numpy(np.ascontiguousarray(tr.centers,
+                                                    np.float32)).cuda()
+    step = shd.sharded_train_step(B, mesh, k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    calls0 = mesh.collective_calls
+    segsum.reset_launch_counts()
+    first = step(B, X, centers)  # the warm-up
+    torch.cuda.synchronize()
+    per_step = segsum.launch_counts()
+    collectives = mesh.collective_calls - calls0
+    sec0 = mesh.collective_seconds()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = step(B, X, centers)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segsum.launch_counts()
+    coll_s = mesh.collective_seconds() - sec0
+    peak = torch.cuda.max_memory_allocated() - base
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    assert per_step == {ONEHOT: 2, GATHER: 4}, per_step
+    assert launches == {n: (REPS + 1) * c for n, c in per_step.items()}
+    assert collectives == (4 if mesh.group is not None else 0), collectives
+    print(f"train step (sharding.sharded_train_step, world size "
+          f"{mesh.world}), V {V}, B {L.num_docs} docs, {L.nnz} nnz, X width "
+          f"128, k {k}: median {float(np.median(step_ms)):.3f} ms of "
+          f"{REPS} steps after a warm-up (CUDA events: "
+          + ", ".join(f"{t:.3f}" for t in step_ms)
+          + f"; host {wall / REPS * 1e3:.3f} ms a step), launches a step "
+          f"{per_step}, {collectives} collectives a step, "
+          f"{coll_s / REPS * 1e3:.3f} ms a step inside them, peak "
+          f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+          f"before; {card_line()}")
+
+    # the gates, at world size 1: every output against the single-device
+    # functions on the rank's B
+    Y, assign, new_centers, hist = res
+    for a, b in zip(first, res):
+        assert torch.equal(a, b), "two steps differ"
+    assert torch.equal(Y, sparse.gram_x(L, X)), "Y != sparse.gram_x"
+    dots = sparse.bt_x(L, centers.T.contiguous())
+    ref_assign = kmeans._assign(dots, sparse.doc_l2sq(L), centers)
+    assert torch.equal(assign.long(), ref_assign), "assign != kmeans._assign"
+    assert torch.equal(new_centers,
+                       kmeans.update_centers_full(L, ref_assign, k)), \
+        "new_centers != update_centers_full"
+    words = L.d_word.cpu().numpy()
+    assert np.array_equal(hist.cpu().numpy(),
+                          np.bincount(words, minlength=V).astype(np.float32))
+    print(f"train step checks: Y bit-equal to sparse.gram_x, assign equal "
+          f"to kmeans._assign ({len(np.unique(assign.cpu().numpy()))} "
+          f"clusters used), new_centers bit-equal to update_centers_full, "
+          f"hist equal to np.bincount; six steps bit-equal")
+    use = onehot_use("word histogram (train step)", L.w_word, None, None, V,
+                     1, REPS + 1,
+                     library=lambda: torch.bincount(L.w_word,
+                                                    minlength=V + 1))
+    print_uses({ONEHOT: [use]}, "train-step path")
+    n = REPS + 1
+    by_use = {"eigensolver B^T X": n, "eigensolver B Y": n,
+              "Lloyd's B^T C (+ projection)": n, "Lloyd's B onehot": n,
+              "doc norms of B": n, use["use"]: n}
+    return use, by_use, launches
+
+
+def graft_entry_phase() -> dict:
+    """graft_entry.entry() on the card against entry("cpu"), then
+    dryrun_multichip(1) on the card in a process of its own. Returns the
+    launch counts of the entry's step."""
+    from isle_tpu_torch import graft_entry, segsum, sparse
+
+    fn, args = graft_entry.entry("cuda")
+    cfn, cargs = graft_entry.entry("cpu")
+    segsum.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = segsum.launch_counts()
+    assert launches == {ONEHOT: 1, GATHER: 4}, launches
+    Y, assign, centers, w = (o.cpu() for o in got)
+    cY, c_assign, c_centers, cw = cfn(*cargs)
+    sp, X, C = cargs[:3]
+    # |B| (|B|^T |X|) in float64: the scale of each element's rounding
+    absx = segsum.segsum_gather_rows_plain(
+        sp.d_doc, sp.d_word, sp.d_val.double().abs(), X.double().abs(),
+        sp.num_docs)[:sp.num_docs]
+    scale = segsum.segsum_gather_rows_plain(
+        sp.w_word, sp.w_doc, sp.w_val.double().abs(), absx, sp.vocab)[
+            :sp.vocab]
+    y_err = float(((Y.double() - cY.double()).abs() / scale).max())
+    assert y_err <= 1e-5, f"entry Y: max err / (|B| |X|) {y_err}"
+    # a doc may take another cluster only where its two best distances tie
+    flips = torch.nonzero(assign != c_assign)[:, 0]
+    dist = (sparse.doc_l2sq(sp).double()[:, None]
+            + (C.double() ** 2).sum(1)[None, :]
+            - 2.0 * sparse.bt_x(sp, C.T.contiguous()).double())
+    for d in flips.tolist():
+        a, b = dist[d, assign[d]], dist[d, c_assign[d]]
+        assert abs(a - b) <= 1e-5 * abs(b), f"entry: doc {d} moved off a tie"
+    moved = set(assign[flips].tolist()) | set(c_assign[flips].tolist())
+    same = [c for c in range(C.shape[0]) if c not in moved]
+    torch.testing.assert_close(centers[same], c_centers[same], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(w, cw, rtol=1e-5, atol=1e-5)
+    print(f"graft_entry.entry() on the card against the CPU: Y max err / "
+          f"(|B| |X|) {y_err:.3e}, {len(flips)} assignments moved on ties, "
+          f"centers max abs diff "
+          f"{float((centers - c_centers).abs().max()):.3e}, w max abs diff "
+          f"{float((w - cw).abs().max()):.3e}; launches "
+          f"{launches}")
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "isle_tpu_torch.graft_entry", "--device",
+         "cuda", "--dryrun", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(run.stdout.rstrip())
+    assert run.returncode == 0, (f"graft_entry --dryrun 1 exited "
+                                 f"{run.returncode}:\n{run.stderr[-6000:]}")
+    ok = [line for line in run.stdout.splitlines()
+          if line.startswith("dryrun_multichip OK")]
+    assert len(ok) == 3, run.stdout
+    print(f"graft_entry --device cuda --dryrun 1: rc 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def capi_phase(out: str) -> None:
     """Phase M3: the C shim built from the checkout and the plain-C smoke
     host of native/ run against it on the card."""
@@ -2119,6 +2291,12 @@ def main() -> int:
         sharded_calls, sharded_reps = sh.op_counter.calls, lloyds_reps(sh)
         del sh
         torch.cuda.empty_cache()
+        # T: the composite training step over the same mesh, the step of
+        # graft_entry.entry() and its dry run
+        t_use, t_by_use, t_launches = train_step_phase(corpus, shape,
+                                                       args.seed, tr, mesh)
+        g_launches = graft_entry_phase()
+        torch.cuda.empty_cache()
         sharded_infer_phase(tr, entries, shape, out, mesh)
         capi_phase(os.path.join(out, "capi"))
         p_launches, _ = traced_phase(corpus, shape, args.seed, out, tr)
@@ -2142,6 +2320,14 @@ def main() -> int:
         print("launches on the sharded run by use: " + "; ".join(
             f"{u['use']} {u['launches_sharded']}"
             for rows in uses.values() for u in rows))
+        uses[ONEHOT].append(t_use)
+        for rows in uses.values():
+            for u in rows:
+                u.setdefault("launches_sharded", 0)
+                u["launches_train_step"] = t_by_use.get(u["use"], 0)
+        for name in (ONEHOT, GATHER):
+            assert t_launches[name] == sum(
+                u["launches_train_step"] for u in uses[name]), name
 
         # S1-S3 and S5: out of core, on one device and over the mesh.
         st, s_launches, s_per, B = streamed_phase(corpus, shape, args.seed,
@@ -2179,7 +2365,9 @@ def main() -> int:
                       "lanczos": l_launches[name],
                       "in-core, hybrid": h_launches[name],
                       "sharded, hybrid": mh_launches[name],
-                      "streamed, hybrid": sh_launches[name]}
+                      "streamed, hybrid": sh_launches[name],
+                      "train-step": t_launches[name],
+                      "graft-entry": g_launches[name]}
                for name in uses}
     del st, B
 

@@ -4,7 +4,9 @@ and over several cards, one process a card on torch.distributed
 (Trainer or StreamedTrainer with GpuConfig.mesh_shape, sharding.py,
 streaming_sharded.py), MWU inference
 (Inferencer, doc-parallel over the same ranks), the reports, both CLIs
-and the handle API behind a C shim (capi.py, csrc/isle_capi_torch.cpp).
+and the handle API behind a C shim (capi.py, csrc/isle_capi_torch.cpp);
+graft_entry.py holds the entry points of __graft_entry__.py (one
+pipeline step, and a dry run over ranks that it starts).
 
 The package keeps isle_tpu's module names so each counterpart is easy to
 find (isle_tpu/thresholds.py -> isle_tpu_torch/thresholds.py, ...). Its

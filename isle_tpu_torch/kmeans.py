@@ -1,7 +1,8 @@
 """k-means: seeding on the projected docs (k-means++, k-means|| and
 AFK-MC^2) and Lloyd's iterations on the projected and full vocab spaces.
 The port of isle_tpu/kmeans.py (kmeans_init_on_projected and the three
-seedings, run_lloyds_projected, run_lloyds_full).
+seedings, run_lloyds_projected, run_lloyds_full and its iteration
+lloyds_iter_full).
 
 Reference semantics (src/sparseMatrix.cpp:2133-2209, 1586-1746): the first
 center is uniform; each round draws up to ceil(1 + sqrt(max(s-5, 0)))
@@ -322,6 +323,17 @@ def update_centers_full(sp, assign: torch.Tensor, k: int,
     return _means(sums.T, onehot.sum(dim=0))
 
 
+def lloyds_iter_full(sp, centers: torch.Tensor, docs_l2: torch.Tensor,
+                     k: int, chunk: int = DEFAULT_CHUNK,
+                     update_centers=update_centers_full):
+    """One Lloyd's iteration on B in the full vocab space (isle_tpu.kmeans.
+    _lloyds_iter_full): the assignment, then the centers under it. Returns
+    (centers (k, vocab), assignment int64 (num_docs,))."""
+    assign = _assign(mat_bt_x(sp, centers.T.contiguous(), chunk), docs_l2,
+                     centers)
+    return update_centers(sp, assign, k, chunk), assign
+
+
 def run_lloyds_full(sp, centers: torch.Tensor, max_reps: int,
                     timer=None, chunk: int = DEFAULT_CHUNK,
                     update_centers=update_centers_full,
@@ -339,9 +351,9 @@ def run_lloyds_full(sp, centers: torch.Tensor, max_reps: int,
                         device=sp.device)
     reps = 0
     for reps in range(1, max_reps + 1):
-        prev, assign = assign, _assign(
-            mat_bt_x(sp, centers.T.contiguous(), chunk), docs_l2, centers)
-        centers = update_centers(sp, assign, k, chunk)
+        prev = assign
+        centers, assign = lloyds_iter_full(sp, centers, docs_l2, k, chunk,
+                                           update_centers)
         if unchanged(assign, prev):
             break
     if timer is not None:

@@ -44,10 +44,10 @@ agree to rounding, since the ranks' partials are added in another order.
 The reference pads shards because shard_map needs uniform shapes
 (sharding.py:173-189) and compacts doc rows through a flat index
 (_doc_flat_index, :570); ragged shards need neither here: compact_doc_rows
-is an all-gather of ragged pieces and pad_doc_rows a slice.
-`sharded_train_step` (:503-567) is the jitted entry that only
-__graft_entry__.py drives; nothing in the port calls it, so it has no
-counterpart (ROADMAP.md).
+is an all-gather of ragged pieces and pad_doc_rows a slice. The one
+place where the reference's padded slots change a result is
+`sharded_train_step` (:503-567), whose k-means counts include them: each
+layout keeps the reference's slot count, `docs_per_shard`, for it.
 """
 
 from __future__ import annotations
@@ -66,10 +66,10 @@ import torch.distributed as dist
 from . import bmatrix
 from .catchwords import rth_highest
 from .hybrid import max_head_rows, split_by_head, top_words, word_counts
-from .kmeans import _means, run_lloyds_full
+from .kmeans import _means, lloyds_iter_full, run_lloyds_full
 from .matops import mat_b_y, mat_bt_x, mat_doc_l2sq
-from .segsum import DEFAULT_CHUNK
-from .sparse import DocSparse
+from .segsum import DEFAULT_CHUNK, segsum_onehot
+from .sparse import DocSparse, doc_l2sq
 from .thresholds import compute_thresholds
 from .topic_model import doc_topic_mass
 
@@ -249,12 +249,15 @@ def require_mesh(gpu, mesh: Optional[Mesh]) -> None:
             f"process group has {mesh.world} ranks")
 
 
-def mesh_from_env(device: str) -> Tuple[str, Optional[Mesh]]:
+def mesh_from_env(device: str, init_method: Optional[str] = None
+                  ) -> Tuple[str, Optional[Mesh]]:
     """The launch under torchrun: with WORLD_SIZE > 1 in the environment,
-    initialise the process group (NCCL for a CUDA device, gloo for the
-    CPU; the rendezvous torchrun set up), bind this rank to
-    cuda:LOCAL_RANK and return (device, Mesh). Started alone: (device,
-    None) and nothing else happens."""
+    initialise the process group as rank RANK (NCCL for a CUDA device,
+    gloo for the CPU), bind this rank to cuda:LOCAL_RANK and return
+    (device, Mesh). The rendezvous is torchrun's (env://), or
+    `init_method` (a torch.distributed URL, e.g. file://PATH) for ranks
+    that a program starts itself. Started alone: (device, None) and
+    nothing else happens."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return device, None
@@ -263,8 +266,10 @@ def mesh_from_env(device: str) -> Tuple[str, Optional[Mesh]]:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
         torch.cuda.set_device(device)
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if on_card else "gloo",
-                                timeout=GROUP_TIMEOUT)
+        dist.init_process_group(
+            "nccl" if on_card else "gloo", init_method=init_method,
+            rank=int(os.environ["RANK"]), world_size=world,
+            timeout=GROUP_TIMEOUT)
     return device, Mesh.from_process_group(device)
 
 
@@ -278,12 +283,16 @@ class ShardedDocSparse:
     """This rank's contiguous doc range of a (vocab x num_docs) matrix:
     `local` holds its entries under LOCAL doc ids 0..local.num_docs, in
     both sort orders; `doc_counts[s]` docs live on rank s, so local doc j
-    is doc `doc_start + j` of the whole matrix."""
+    is doc `doc_start + j` of the whole matrix. `docs_per_shard` is the
+    doc slots of a shard in isle_tpu's padded layout of the same matrix
+    (docs and empty pads): ceil(num_docs / S) for a corpus's shards, the
+    largest rank's count rounded up to 8 for a thresholded B."""
 
     local: DocSparse
     doc_counts: Tuple[int, ...]
     doc_start: int
     nnz: int  # entries on all ranks
+    docs_per_shard: int
 
     @property
     def vocab(self) -> int:
@@ -325,7 +334,8 @@ def shard_doc_sparse(words, docs, vals, vocab: int, num_docs: int,
     counts = np.diff(doc_starts(num_docs, mesh.world))
     return ShardedDocSparse(
         local=local, doc_counts=tuple(int(x) for x in counts),
-        doc_start=lo, nnz=len(docs))
+        doc_start=lo, nnz=len(docs),
+        docs_per_shard=-(-int(num_docs) // mesh.world))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,16 +355,16 @@ def shard_hybrid(ssp: ShardedDocSparse, row_scale: torch.Tensor, mesh: Mesh,
     one all-reduce of the (vocab,) word counts, the same head words on
     every rank, each rank's own head slab and tail. The head size is
     isle_tpu's: min(vocab, max(8, budget // (2 dps S)), max_head_rows(dps))
-    with dps its padded docs per shard, the largest rank's count rounded
-    up to 8."""
+    with dps its padded docs per shard (`docs_per_shard`)."""
     V, S = ssp.vocab, mesh.world
     counts = mesh.all_reduce(word_counts(ssp.local))
-    dps = max(-(-max(ssp.doc_counts) // 8) * 8, 8)
+    dps = ssp.docs_per_shard
     num_head = int(min(V, max(8, head_budget_bytes // max(2 * dps * S, 1)),
                        max_head_rows(dps, flat_cap)))
     local = split_by_head(ssp.local, top_words(counts, num_head), row_scale)
     return ShardedHybrid(local=local, doc_counts=ssp.doc_counts,
-                         doc_start=ssp.doc_start, nnz=ssp.nnz)
+                         doc_start=ssp.doc_start, nnz=ssp.nnz,
+                         docs_per_shard=dps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -557,7 +567,7 @@ def join_doc_shards(B: DocSparse, cols: np.ndarray, mesh: Mesh
         torch.tensor([B.nnz], dtype=torch.int64, device=B.device))
     out = ShardedDocSparse(
         local=B, doc_counts=counts, doc_start=sum(counts[: mesh.rank]),
-        nnz=int(nnz))
+        nnz=int(nnz), docs_per_shard=max(-(-max(counts) // 8) * 8, 8))
     cols = torch.from_numpy(np.asarray(cols, np.int32)).to(B.device)
     return out, mesh.all_gather_rows(cols).cpu().numpy()
 
@@ -609,3 +619,72 @@ def sharded_run_lloyds_full(ssp: ShardedDocSparse, centers: torch.Tensor,
         ssp.local, centers, max_reps, timer=timer, chunk=chunk,
         **mesh_hooks(ssp, mesh))
     return centers, gather_assignment(assign, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The composite training step
+# ---------------------------------------------------------------------------
+
+
+def _coo_only(ssp: ShardedDocSparse) -> None:
+    if isinstance(ssp, ShardedHybrid):
+        raise TypeError(
+            "sharded_train_step reads the COO streams of a ShardedDocSparse "
+            "(isle_tpu's step has no hybrid form); pass the COO layout, "
+            "not a ShardedHybrid")
+
+
+def sharded_train_step(ssp: ShardedDocSparse, mesh: Mesh, num_topics: int):
+    """One composite training step with every collective pattern of the
+    pipeline (isle_tpu/sharding.py:503-567): the eigensolver operator, a
+    k-means assignment local to each rank with an all-reduced center
+    update, and an all-reduced word histogram. Returns
+    step(ssp, X, centers) -> (Y, assign, new_centers, hist):
+
+      Y            (vocab, W) = (B B^T) X on every rank, one all-reduce;
+      assign       int32 (local docs,), first-index argmin of ||x||^2 +
+                   ||c||^2 - 2 x.c over this rank's docs;
+      new_centers  (k, vocab) on every rank: the all-reduced sums over the
+                   all-reduced counts, 0 for an empty cluster;
+      hist         float32 (vocab,): entries per word over all ranks.
+
+    Four all-reduces a step; on the card four segsum_gather_rows and two
+    segsum_onehot launches. The reference's step is jitted and cached by
+    shape and mesh (_cached_step); this one runs eagerly and caches
+    nothing.
+
+    The counts are the reference's, pads included: isle_tpu gives every
+    shard `docs_per_shard` doc slots, and a slot with no doc has norm 0
+    and dots 0, so it is assigned to the center of least ||c||^2 and
+    counted there, though it adds nothing to the sums. This port's shards
+    hold no pads, so each rank adds its `docs_per_shard - local docs` to
+    that cluster's count. The production Lloyd's (sharded_run_lloyds_full,
+    isle_tpu's make_sharded_lloyds_step) counts real docs only. COO
+    only: a ShardedHybrid raises TypeError."""
+    _coo_only(ssp)
+    k = num_topics
+
+    def step(ssp: ShardedDocSparse, X: torch.Tensor, centers: torch.Tensor):
+        _coo_only(ssp)
+        local = ssp.local
+        Y = sharded_gram_x(ssp, X, mesh)
+        pads = ssp.docs_per_shard - local.num_docs
+
+        def update_centers(sp, assign, k, chunk):
+            onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
+            sums = sharded_b_y(ssp, onehot, mesh, chunk)  # (vocab, k)
+            counts = onehot.sum(dim=0)
+            if pads:
+                counts[torch.argmin(torch.sum(centers * centers, dim=1))] += \
+                    pads
+            return _means(sums.T, mesh.all_reduce(counts))
+
+        new_centers, assign = lloyds_iter_full(
+            local, centers, doc_l2sq(local), k,
+            update_centers=update_centers)
+        hist = segsum_onehot(local.w_word, None, None, local.vocab,
+                             1)[:local.vocab, 0]
+        hist = mesh.all_reduce(hist).to(torch.float32)
+        return Y, assign.to(torch.int32), new_centers, hist
+
+    return step

@@ -797,3 +797,53 @@ def test_lanczos_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(g.evalues, c.evalues, rtol=1e-4)
     np.testing.assert_array_equal(g.cluster_of_doc, c.cluster_of_doc)
     np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """sharding.sharded_train_step on the card (a mesh without a group)
+    against the CPU, on the corpus of exact sums with integer X and doc
+    rows for centers, so every sum is exact: all four outputs equal; one
+    step launches four gathers and two onehots."""
+    from isle_tpu_torch import sharding as sh
+    from isle_tpu_torch.sparse import to_dense
+
+    corpus, k = _exact_corpus()
+    V, D = corpus.vocab_size, corpus.num_docs
+    rng = np.random.default_rng(4)
+    X = torch.from_numpy(rng.integers(-3, 4, (V, 16)).astype(np.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        mesh = sh.Mesh(device)
+        A = sh.shard_doc_sparse(corpus.rows, corpus.doc_ids(), corpus.vals,
+                                V, D, mesh)
+        centers = torch.from_numpy(np.ascontiguousarray(
+            to_dense(A.local)[:, [0, 7, 11, 20, 33]].T, np.float32)).to(device)
+        segsum.reset_launch_counts()
+        outs[device] = [o.cpu() for o in sh.sharded_train_step(A, mesh, k)(
+            A, X.to(device), centers)]
+        if device == "cuda":
+            assert segsum.launch_counts() == {"segsum_onehot": 2,
+                                              "segsum_gather_rows": 4}
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert g.dtype == c.dtype and torch.equal(g, c)
+    assert len(torch.unique(outs["cuda"][1])) > 1
+
+
+def test_graft_entry_on_the_card_matches_the_cpu(dev):
+    """graft_entry.entry() on the card against entry("cpu"): the same
+    assignments, Y within rtol 1e-5, atol 1e-4, centers and MWU weights
+    within 1e-5."""
+    from isle_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert args[0].device.type == "cuda"
+    segsum.reset_launch_counts()
+    got = [o.cpu() for o in fn(*args)]
+    assert segsum.launch_counts() == {"segsum_onehot": 1,
+                                      "segsum_gather_rows": 4}
+    cfn, cargs = graft_entry.entry("cpu")
+    want = cfn(*cargs)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[1], want[1])
+    for g, c in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)

@@ -52,7 +52,7 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch.preprocessed", "isle_tpu_torch.sharding",
     "isle_tpu_torch.elkans_sharded", "isle_tpu_torch._build_capi",
     "isle_tpu_torch.streaming_sharded", "isle_tpu_torch.hybrid",
-    "isle_tpu_torch.matops",
+    "isle_tpu_torch.matops", "isle_tpu_torch.graft_entry",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
@@ -77,7 +77,8 @@ def test_trains_and_infers_with_jax_isle_tpu_and_bench_blocked(tmp_path):
     """A meta-path finder refuses jax, isle_tpu and bench; the port still
     builds a corpus, trains it on the CPU with edge topics, writes the
     model and two reports, trains it again out of core (alone and over a
-    mesh of one rank), loads the model back and infers the corpus."""
+    mesh of one rank), loads the model back, infers the corpus and runs
+    graft_entry's step."""
     code = f"""
 import sys
 
@@ -132,6 +133,9 @@ res = inf.infer_corpus(Corpus.from_entries(d, w, c, vocab_size=60,
                                            normalize_to_one=True))
 assert res.weights.shape == (120, 3) and np.isfinite(res.weights).all()
 assert res.num_converged > 0
+from isle_tpu_torch.graft_entry import entry
+fn, args = entry("cpu")
+assert fn(*args)[0].shape == (512, 128)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "isle_tpu",
                                                        "bench")]
 assert not bad, bad
@@ -227,6 +231,8 @@ def test_no_public_device_defaults_to_the_cpu():
     assert not bad, f"device defaults to the CPU in {bad}"
     # the walk reaches the entry points that have such a default
     assert "isle_tpu_torch.mwu.infer_all" in seen
+    assert "isle_tpu_torch.graft_entry.entry" in seen
+    assert "isle_tpu_torch.graft_entry.dryrun_multichip" in seen
     assert "isle_tpu_torch.config.GpuConfig" in seen
 
 

@@ -11,7 +11,12 @@ exactly; float sums that pass an all-reduce within rtol 1e-4, atol 1e-5.
 The main corpus makes thresholding bite (ζ up to ~30, docs dropped) and
 leaves the last rank of a four-rank world without a doc in B: docs 300 to
 399 hold only words that fall under their ζ. A second corpus has fewer
-docs than ranks."""
+docs than ranks.
+
+sharded_train_step runs on each corpus's shards and on B's, against
+isle_tpu.sharding.sharded_train_step on a mesh of as many host devices as
+ranks: isle_tpu's padded doc slots enter its k-means counts, and how many
+there are depends on the number of shards."""
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +65,17 @@ def _inputs(corpus, rng, k, width, num_b_docs):
     )
 
 
+def _step_inputs(A, rng, k, width):
+    """X and centers for sharded_train_step: the centers are rows of k
+    distinct docs, so every cluster holds a doc, the one of least ||c||^2
+    among them (where isle_tpu's padded slots go)."""
+    dense = sparse.to_dense(A)
+    docs = rng.choice(min(A.num_docs, DEAD_FROM), k, replace=False)
+    return dict(
+        step_X=rng.standard_normal((A.vocab, width)).astype(np.float32),
+        step_centers=np.ascontiguousarray(dense[:, docs].T, np.float32))
+
+
 def _single(corpus, inp, k, r, hyper):
     """The port's single-device functions on the same inputs."""
     t = {name: torch.from_numpy(a) for name, a in inp.items()}
@@ -93,6 +109,7 @@ def case(tmp_path_factory):
     hyper = HyperParams()
     out = {"tmp": tmp, "hyper": hyper}
     rng = np.random.default_rng(1)
+    step_rng = np.random.default_rng(2)
     for name, (d, w, c), shape, k, r in (
         ("main", dead_tail_entries(V=V, D=D, k=K, dead_from=DEAD_FROM),
          (V, D), K, R),
@@ -107,6 +124,7 @@ def case(tmp_path_factory):
                                              corpus.nz_docs, k, hyper)
         nb = bmatrix.threshold_and_copy(A, z)[0].num_docs
         inp = _inputs(corpus, rng, k, WIDTH, nb)
+        inp.update(_step_inputs(A, step_rng, k, WIDTH))
         np.savez(tmp / f"{name}_inputs.npz", **inp)
         out[name] = dict(corpus=corpus, entries=(d, w, c), inp=inp, k=k, r=r,
                          ref=_single(corpus, inp, k, r, hyper))
@@ -492,3 +510,112 @@ def test_shard_hybrid_against_isle_tpu(ranks, jax_ref):
         np.testing.assert_allclose(r["h_" + key], ref[key], **TOL,
                                    err_msg=key)
     np.testing.assert_array_equal(r["h_lloyds_assign"], ref["lloyds_assign"])
+
+
+# ---------------------------------------------------------------------------
+# sharded_train_step
+# ---------------------------------------------------------------------------
+
+
+STEP_CASES = [(w, name, layout) for w in WORLDS for name in ("main", "tiny")
+              for layout in ("A", "B")]
+
+
+@pytest.fixture(scope="module")
+def jax_steps(case):
+    """isle_tpu.sharding.sharded_train_step at every world size, on each
+    corpus's shards and on B's (built from the port's ζ, which equal
+    isle_tpu's): {(world, name, layout): results and valid docs a shard}."""
+    out = {}
+    for world in WORLDS:
+        mesh = jsh.make_mesh(world)
+        for name in ("main", "tiny"):
+            c = case[name]
+            corpus, inp = c["corpus"], c["inp"]
+            Vc, Dc = corpus.vocab_size, corpus.num_docs
+            A = jsh.shard_doc_sparse(corpus.rows, corpus.doc_ids(),
+                                     corpus.vals, Vc, Dc, mesh)
+            B, _ = jsh.sharded_threshold_and_copy(
+                A, jnp.asarray(c["ref"]["zetas"]), mesh)
+            for layout, ssp in (("A", A), ("B", B)):
+                Y, assign, centers, hist = jsh.sharded_train_step(
+                    ssp, mesh, c["k"])(ssp, jnp.asarray(inp["step_X"]),
+                                       jnp.asarray(inp["step_centers"]))
+                out[world, name, layout] = dict(
+                    Y=np.asarray(Y), assign=np.asarray(assign),
+                    centers=np.asarray(centers), hist=np.asarray(hist),
+                    valid=ssp.valid_per_shard(), dps=ssp.docs_per_shard)
+    return out
+
+
+@pytest.mark.parametrize("world,name,layout", STEP_CASES)
+def test_train_step_against_isle_tpu(ranks, jax_steps, world, name, layout):
+    """Every rank: the histogram exactly, Y within the all-reduce's
+    tolerance, the centers (pads counted as isle_tpu counts them) within
+    rtol 1e-5, atol 1e-6, and the rank's assignments exactly those of
+    isle_tpu's shard; four collectives a step."""
+    ref = jax_steps[world, name, layout]
+    tag = f"step_{layout}_"
+    for s, r in enumerate(ranks[world][name]):
+        np.testing.assert_array_equal(r[tag + "hist"], ref["hist"])
+        assert r[tag + "hist"].dtype == np.float32
+        np.testing.assert_allclose(r[tag + "Y"], ref["Y"], **TOL)
+        np.testing.assert_allclose(r[tag + "centers"], ref["centers"],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(r[tag + "assign"],
+                                      ref["assign"][s, :ref["valid"][s]])
+        assert int(r[tag + "calls"]) == 4
+
+
+def test_train_step_counts_the_reference_pads(case, ranks, jax_steps):
+    """Where isle_tpu's shards hold empty slots, their count goes to the
+    center of least ||c||^2 and that cluster's new center is not the mean
+    of its docs; every other center is. The centers are doc rows, so that
+    cluster holds docs, and some case has pads: the padding rule shows."""
+    shown = []
+    for world, name, layout in STEP_CASES:
+        c, ref = case[name], jax_steps[world, name, layout]
+        rs = ranks[world][name]
+        tag = f"step_{layout}_"
+        assign = np.concatenate([r[tag + "assign"] for r in rs])
+        pads = int(world * ref["dps"] - ref["valid"].sum())
+        sp = c["ref"]["A" if layout == "A" else "B"]
+        plain = kmeans.update_centers_full(
+            sp, torch.from_numpy(assign).long(), c["k"]).numpy()
+        centers = rs[0][tag + "centers"]
+        c_l2 = (c["inp"]["step_centers"].astype(np.float64) ** 2).sum(1)
+        least = int(np.argmin(c_l2))
+        others = np.arange(c["k"]) != least
+        np.testing.assert_allclose(centers[others], plain[others],
+                                   rtol=1e-5, atol=1e-6)
+        if pads == 0:
+            np.testing.assert_allclose(centers, plain, rtol=1e-5, atol=1e-6)
+        elif np.any(assign == least):
+            assert not np.allclose(centers[least], plain[least], rtol=1e-3)
+            shown.append((world, name, layout))
+    assert shown, "no case puts isle_tpu's pads into a cluster with docs"
+    assert any(layout == "A" for _, _, layout in shown)
+
+
+def test_train_step_refuses_the_hybrid_layout(case):
+    """isle_tpu's step reads the COO streams and has no hybrid form: a
+    ShardedHybrid raises, at construction and in the step."""
+    from isle_tpu_torch import sharding as sh
+    from isle_tpu_torch.hybrid import row_scale_from_zetas
+
+    c = case["main"]
+    corpus, mesh = c["corpus"], Mesh("cpu")
+    A = sh.shard_doc_sparse(corpus.rows, corpus.doc_ids(), corpus.vals, V, D,
+                            mesh)
+    B, _ = sh.sharded_threshold_and_copy(
+        A, torch.from_numpy(c["ref"]["zetas"]), mesh)
+    H = sh.shard_hybrid(B, row_scale_from_zetas(
+        torch.from_numpy(c["ref"]["zetas"])), mesh, HEAD_BYTES)
+    with pytest.raises(TypeError, match="ShardedHybrid"):
+        sh.sharded_train_step(H, mesh, K)
+    step = sh.sharded_train_step(B, mesh, K)
+    inp = {n: torch.from_numpy(c["inp"][n]) for n in ("step_X",
+                                                       "step_centers")}
+    with pytest.raises(TypeError, match="ShardedHybrid"):
+        step(H, inp["step_X"], inp["step_centers"])
+    assert len(step(B, inp["step_X"], inp["step_centers"])) == 4

@@ -14,7 +14,8 @@ limit: no test waits for ever.
 Job kinds:
 
   "sharding"  every function of isle_tpu_torch.sharding on the inputs of
-              an .npz file;
+              an .npz file, sharded_train_step on the corpus's shards
+              and on B's;
   "train"     Trainer over the mesh (the draws replayed from an .npz file
               where given), optionally resumed, and optionally an
               inference of the training docs with the trained model; with
@@ -145,6 +146,7 @@ def job_sharding(job: dict, mesh) -> dict:
     centers, assign = sharded_run_elkans(B, inp["centers"].clone(), 10, mesh)
     out.update(elkans_centers=centers.numpy(), elkans_assign=assign)
 
+    out.update(_train_steps(A, B, inp, k, mesh))
     out["rth"] = sh.sharded_rth_highest(
         ws, inp["cluster_of_doc"], inp["cluster_sizes"], k, r, mesh).numpy()
     out["mass"] = sh.compact_doc_rows(
@@ -152,6 +154,24 @@ def job_sharding(job: dict, mesh) -> dict:
     if job.get("head_bytes"):
         out.update(_hybrid_products(B, zetas, inp, job["head_bytes"], mesh))
     out["collective_calls"] = mesh.collective_calls
+    return out
+
+
+def _train_steps(A, B, inp: dict, k: int, mesh) -> dict:
+    """One sharded_train_step on each layout from the same X and centers,
+    with the collectives of the step counted."""
+    from isle_tpu_torch import sharding as sh
+
+    out = {}
+    for tag, ssp in (("A", A), ("B", B)):
+        calls = mesh.collective_calls
+        Y, assign, centers, hist = sh.sharded_train_step(ssp, mesh, k)(
+            ssp, inp["step_X"], inp["step_centers"])
+        out.update({f"step_{tag}_Y": Y.numpy(),
+                    f"step_{tag}_assign": assign.numpy(),
+                    f"step_{tag}_centers": centers.numpy(),
+                    f"step_{tag}_hist": hist.numpy(),
+                    f"step_{tag}_calls": mesh.collective_calls - calls})
     return out
 
 
