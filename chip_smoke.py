@@ -24,9 +24,12 @@ stay) and says so on its own line. Phases, in order:
      model and edge model REQUIRED equal to the first run's, bit for bit
      (no float atomics are left on the path, the projected Lloyd's sums
      by a one-hot matmul, and k-means++ takes its cumulative sum on the
-     host); beside them, how many distinct results torch.cumsum gives on
-     the card for 200 launches on one vector of the corpus's doc count
-     (printed: it is why that sum left the card);
+     host); in turn with them, two runs on the dispatch before the narrow
+     kernel and the tiled passes (walls, eigensolve and peak printed,
+     eigenvalues within rtol 1e-4); beside them, how many distinct
+     results torch.cumsum gives on the card for 200 launches on one
+     vector of the corpus's doc count (printed: it is why that sum left
+     the card);
   5. kernel against plain version on the main path's streams, each use
      timed with CUDA events beside its bound (bytes: the stream, the
      table and the output once, at 3.35 TB/s; operations at 67 TFLOP/s
@@ -44,7 +47,10 @@ stay) and says so on its own line. Phases, in order:
      torch.sparse.mm on a CSR copy of the stream, built outside the
      timed window), each element within 1e-5 |B| |X| of the plain
      version in float64 (|B| |X|: the plain version on absolute values;
-     Krylov blocks have mixed signs), and two launches bit-equal;
+     Krylov blocks have mixed signs), and two launches bit-equal; B Y
+     and B onehot also through the tiled passes over B's doc tiles (the
+     trainer tiles B; segsum.gather_path sends them there), held as well
+     within 1e-5 |B| |X| of the untiled kernel and timed beside it;
   6. checks of the result: segsum_onehot launched at least once per
      use on the main path, segsum_gather_rows at least twice per
      eigensolver operator call and
@@ -90,8 +96,12 @@ stay) and says so on its own line. Phases, in order:
      widths 128, 100 and 1 both ways against its plain version and its
      bound (the head read once at 3.35 TB/s, or 3 x 2 R D W operations at
      the 989 TFLOP/s bf16 peak), two launches bit-equal; the tail's uses
-     of both kernels as phase 5 times them. Printed, not gated: how far
-     clusters and catchwords moved from the COO run, the four walls.
+     of both kernels as phase 5 times them, its B Y and B onehot through
+     the tiled passes (5 doc tiles of 65,536) and the untiled kernel.
+     Two more runs on the dispatch before the narrow kernel and the
+     tiled passes, in turn with the repeated runs (eigenvalues within
+     rtol 1e-4). Printed, not gated: how far clusters and catchwords
+     moved from the COO run, the walls of both dispatches.
 
 Between 7 and 8, with the in-core corpus off the card:
 
@@ -162,7 +172,13 @@ Between 7 and 8, with the in-core corpus off the card:
   S3. Lanczos: the small corpus with eigensolver="lanczos" card against
      CPU (as phase 7), and at the NYTimes shape linalg.lanczos on the
      streamed B against phase 4's block_ks eigenvalues within rtol 1e-3,
-     with restarts, operator calls, wall and the width-1 launches' times;
+     with restarts, operator calls, wall and the width-1 launches' times,
+     twice: as shipped (every width-1 matvec on the narrow kernel,
+     segsum_gather_rows_narrow_kernel) and on the dispatch before it (the
+     wide kernel at width 1), each wall printed. Then the narrow kernel
+     against the wide one at widths 1, 2, 4, 8 and 16 on B's two streams,
+     each against its plain version as phase 5 does it: the crossover
+     segsum.NARROW_MAX_WIDTH is set from;
   S4. the reports on the small corpus, card against CPU:
      A_squared_spectrum.txt within rtol 1e-4, M_hat_avg within 1e-5, edge
      topics v1 within 1e-5 with the same selected pairs;
@@ -193,7 +209,11 @@ three hybrid runs, the train step's and graft_entry's among them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
-listed under "uses"), the card's line, and last
+listed under "uses"). segsum_gather_rows counts every product call;
+segsum_gather_rows_narrow and segsum_gather_rows_tiled (the narrow kernel
+and the tiled passes of the wide one) count theirs, and each use's
+launches are those of the kernel or mode it is listed under. Then the
+card's line, and last
 {"ok": true, "device": {...}}. Any failure raises (exit code 1); without a
 CUDA device it exits with code 2 and prints no result.
 """
@@ -252,6 +272,10 @@ MWU_SAMPLE = 2048
 STREAM_CHUNK_ENTRIES = 1 << 22
 STREAM_SAMPLE_RATE = 0.5
 ONEHOT, GATHER = "segsum_onehot", "segsum_gather_rows"
+# the gather kernel's narrow kernel and its tiled mode (launch_counts keys)
+NARROW, TILED = "segsum_gather_rows_narrow", "segsum_gather_rows_tiled"
+# the widths at which phase S3 times the narrow kernel against the wide one
+CROSSOVER_WIDTHS = (1, 2, 4, 8, 16)
 
 
 def synth_entries(shape: dict, seed: int):
@@ -572,18 +596,29 @@ def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
 
 
 def gather_use(use, seg, idx, val, table, S, launches, init=None,
-               chunk=2048) -> dict:
-    """segsum_gather_rows against its plain version and torch.sparse.mm:
-    each element within 1e-5 |B| |X| of the float64 plain version, two
-    launches bit-equal. `init`: the carry of a streamed use, read once
-    and written once in the bound; `table` holds the rows the stream can
-    index and no others, each counted once."""
+               chunk=2048, kernel="wide", tiles=None, beside=()) -> dict:
+    """One of segsum_gather_rows's kernels (`kernel`: "wide", "narrow",
+    or "tiled" over `tiles`, the (seg, idx, val, tile_starts) of the
+    tile-ordered copy of the stream) against its plain version and
+    torch.sparse.mm: each element within 1e-5 |B| |X| of the float64
+    plain version, two launches bit-equal. `init`: the carry of a
+    streamed use, read once and written once in the bound; `table` holds
+    the rows the stream can index and no others, each counted once.
+    `beside`: other kernels timed on the same inputs ("wide" for the
+    narrow kernel's crossover; the tiled passes are also held within 1e-5
+    |B| |X| of the untiled wide kernel and timed beside it)."""
     from isle_tpu_torch import segsum
 
-    got = segsum.segsum_gather_rows(seg, idx, val, table, S, init=init,
-                                    chunk=chunk)
-    again = segsum.segsum_gather_rows(seg, idx, val, table, S, init=init,
-                                      chunk=chunk)
+    def launch(k):
+        if k == "tiled":  # at the slice length the passes choose
+            ts, ti, tv, starts = tiles
+            return segsum.segsum_gather_rows_tiled(ts, ti, tv, table, S,
+                                                   starts, init=init)
+        return segsum.segsum_gather_rows(seg, idx, val, table, S, init=init,
+                                         chunk=chunk, kernel=k)
+
+    got = launch(kernel)
+    again = launch(kernel)
     bit_equal = bool(torch.equal(got, again))
     assert bit_equal, f"{use}: two launches differ"
     del again
@@ -598,6 +633,12 @@ def gather_use(use, seg, idx, val, table, S, launches, init=None,
     worst = float((diff / scale.clamp(min=1e-300)).max())
     assert bool((diff <= 1e-5 * scale).all()), \
         f"{use}: max abs err {err}, max err / (|B| |X|) {worst}"
+    if kernel == "tiled":
+        untiled = launch("wide").double()
+        to_untiled = float((got.double() - untiled).abs().max())
+        assert bool(((got.double() - untiled).abs() <= 1e-5 * scale).all()), \
+            f"{use}: tiled against untiled max abs diff {to_untiled}"
+        del untiled
     del scale, diff
     rows, W = table.shape
     n = seg.numel()
@@ -618,18 +659,25 @@ def gather_use(use, seg, idx, val, table, S, launches, init=None,
     nbytes = (n * 12 + table.numel() * 4
               + got.numel() * 4 * (1 + (init is not None)))
     bound_ms, bound_by = bound(nbytes, 2 * n * W)
-    return dict(
-        use=use, n=n, shape=[S + 1, W], table=[rows, W], launches=launches,
-        max_abs_err=err, err_over_abs_bound=worst, bit_equal=bit_equal,
-        with_init=init is not None, slice_len=chunk,
-        ms=time_ms(lambda: segsum.segsum_gather_rows(seg, idx, val, table,
-                                                     S, init=init,
-                                                     chunk=chunk)),
+    row = dict(
+        use=use, kernel=kernel, n=n, shape=[S + 1, W], table=[rows, W],
+        launches=launches, max_abs_err=err, err_over_abs_bound=worst,
+        bit_equal=bit_equal, with_init=init is not None, slice_len=chunk,
+        ms=time_ms(lambda: launch(kernel)),
         plain_ms=time_ms(lambda: segsum.segsum_gather_rows_plain(
             seg, idx, val, table, S, init=init)),
         library_ms=time_ms(library), library_max_abs_err=lib_err,
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
     )
+    if kernel == "tiled":
+        row.update(tiles=len(segsum.tile_spans(tiles[3])),
+                   slice_len=segsum.tiled_pass_chunk(tiles[3]),
+                   max_abs_diff_to_untiled=to_untiled,
+                   beside_ms={"untiled": time_ms(lambda: launch("wide"))})
+    if beside:
+        row.setdefault("beside_ms", {}).update(
+            {k: time_ms(lambda k=k: launch(k)) for k in beside})
+    return row
 
 
 def lloyds_reps(tr) -> int:
@@ -711,7 +759,7 @@ def compare_kernels(tr, launches: dict, seed: int) -> dict:
     whole = {"doc norms of B": {
         "sparse.doc_l2sq": lambda: sparse.doc_l2sq(B),
         "index_add_ (before)": index_add_l2sq}}
-    uses = {"segsum_onehot": [], "segsum_gather_rows": []}
+    uses = {ONEHOT: [], GATHER: [], NARROW: [], TILED: []}
     for use, seg, col, val, S, nc, n_launch in streams:
         uses["segsum_onehot"].append(
             onehot_use(use, seg, col, val, S, nc, n_launch, whole.get(use)))
@@ -727,6 +775,12 @@ def compare_kernels(tr, launches: dict, seed: int) -> dict:
     onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
     d_stream = (B.d_doc, B.d_word, B.d_val)
     w_stream = (B.w_word, B.w_doc, B.w_val)
+    # the trainer gives B its doc tiles (sparse.with_doc_tiles): the word
+    # stream's products take the tiled passes where the dispatch says so,
+    # each listed under the wide kernel and the tiled mode with the
+    # launches of the mode that ran it
+    BT = sparse.with_doc_tiles(B)
+    t_stream = (BT.t_word, BT.t_doc, BT.t_val, BT.tile_starts)
     for use, stream, table, S, n_launch in (
         ("model SpMM B W", (A.w_word, A.w_doc, A.w_val), Wc, V, 1),
         ("eigensolver B^T X", d_stream, X, B.num_docs, calls),
@@ -735,9 +789,23 @@ def compare_kernels(tr, launches: dict, seed: int) -> dict:
          reps + 1),
         ("Lloyd's B onehot", w_stream, onehot, V, reps),
     ):
-        uses["segsum_gather_rows"].append(
-            gather_use(use, *stream, table, S, n_launch))
+        tiled = stream is w_stream and tiles_taken(BT, table)
+        uses[GATHER].append(
+            gather_use(use, *stream, table, S, 0 if tiled else n_launch))
+        if stream is w_stream:
+            uses[TILED].append(gather_use(
+                use + ", tiled", *stream, table, S, n_launch if tiled else 0,
+                kernel="tiled", tiles=t_stream))
+    del BT, t_stream
     return uses
+
+
+def gather_calls(uses: dict, key: str = "launches") -> int:
+    """The segsum_gather_rows calls the uses account for: each call is
+    one use's launch of the wide kernel, the narrow one or the tiled
+    passes."""
+    return sum(u.get(key, 0) for name in (GATHER, NARROW, TILED)
+               for u in uses.get(name, []))
 
 
 def run_mass(tr) -> torch.Tensor:
@@ -820,7 +888,13 @@ def print_uses(uses: dict, path: str) -> None:
                      f"{u['window']['column_tiles']} column tile(s)"
                      if "window" in u else "")
                   + "".join(f"; {label} {ms:.3f} ms"
-                            for label, ms in u.get("whole_ms", {}).items()))
+                            for label, ms in u.get("whole_ms", {}).items())
+                  + (f"; {u['kernel']} kernel" if "kernel" in u else "")
+                  + (f", {u['tiles']} tiles, max abs diff to the untiled "
+                     f"kernel {u['max_abs_diff_to_untiled']:.3e}"
+                     if "tiles" in u else "")
+                  + "".join(f"; {label} kernel {ms:.3f} ms"
+                            for label, ms in u.get("beside_ms", {}).items()))
 
 
 def run_dir_arrays(tr, stage: str) -> dict:
@@ -846,9 +920,9 @@ def streamed_trainer(corpus, shape, seed, out, mesh=None, head_bytes=0,
 def stage_launches(tr) -> dict:
     """{stage: {kernel: launches within the stage}} of a run whose launch
     counts were set to 0 just before it."""
-    per, last = {}, {ONEHOT: 0, GATHER: 0}
+    per, last = {}, {}
     for label, now in tr.stage_launches:
-        per[label] = {name: now[name] - last[name] for name in now}
+        per[label] = {name: now[name] - last.get(name, 0) for name in now}
         last = now
     return per
 
@@ -1259,44 +1333,112 @@ def streamed_uses(st, corpus, launched: dict) -> dict:
     return uses
 
 
-def lanczos_phase(B, tr, seed: int, chunk: int) -> tuple:
-    """Phase S3 at the NYTimes shape: linalg.lanczos on B B^T, all k
-    eigenvalues with the trainer's tolerance and cap on restarts, against
-    the main path's block_ks eigenvalues. Returns (the width-1 uses, the
-    launch counts of the solve)."""
+@contextlib.contextmanager
+def dispatch_before_narrow_and_tiles():
+    """segsum's dispatch as it stood before the narrow kernel and the
+    tiled passes (the wide kernel at every width, no tiles), so that one
+    run times the Lanczos solve and the hybrid training both ways."""
+    from isle_tpu_torch import segsum
+
+    shipped = segsum.gather_path
+    segsum.gather_path = lambda width, table_bytes, tile_rows=0: "wide"
+    try:
+        yield
+    finally:
+        segsum.gather_path = shipped
+
+
+def lanczos_solve(B, tr, seed: int, chunk: int) -> tuple:
+    """linalg.lanczos on B B^T at the trainer's tolerance and cap on
+    restarts, launch counts set to 0 just before and read just after.
+    Returns (the result, the wall, the launch counts)."""
     from isle_tpu_torch import linalg, segsum, sparse
     from isle_tpu_torch.rng import Draws
 
     hp = tr.config.hyper
-    V, nev = B.vocab, tr.config.num_topics
     torch.cuda.synchronize()
     segsum.reset_launch_counts()
     t0 = time.perf_counter()
-    res = linalg.lanczos(lambda X: sparse.gram_x(B, X, chunk), V, nev,
-                         Draws(seed), B.device, tol=hp.block_ks_tolerance,
+    res = linalg.lanczos(lambda X: sparse.gram_x(B, X, chunk), B.vocab,
+                         tr.config.num_topics, Draws(seed), B.device,
+                         tol=hp.block_ks_tolerance,
                          max_restarts=hp.block_ks_max_iters)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = segsum.launch_counts()
     assert launches[GATHER] == 2 * res.op_calls, launches
-    assert res.nconv == nev, \
-        f"lanczos converged {res.nconv}/{nev} in {res.restarts} restarts"
+    assert res.nconv == tr.config.num_topics, \
+        f"lanczos converged {res.nconv} in {res.restarts} restarts"
+    np.testing.assert_allclose(res.evals, np.asarray(tr.evalues), rtol=1e-3)
+    return res, wall, launches
+
+
+def lanczos_phase(B, tr, seed: int, chunk: int) -> tuple:
+    """Phase S3 at the NYTimes shape: linalg.lanczos on B B^T, all k
+    eigenvalues with the trainer's tolerance and cap on restarts, against
+    the main path's block_ks eigenvalues, with the shipped dispatch (the
+    width-1 matvecs on the narrow kernel) and then with the wide kernel
+    at width 1, as before it. Then both kernels at widths 1 to 16 on B's
+    two streams: the crossover that NARROW_MAX_WIDTH is set from. Returns
+    ({kernel: the uses}, the launch counts of the shipped solve)."""
+    from isle_tpu_torch import segsum, sparse
+
+    V, D, nev = B.vocab, B.num_docs, tr.config.num_topics
+    res, wall, launches = lanczos_solve(B, tr, seed, chunk)
+    want = 2 * res.op_calls if segsum.gather_path(1, 4 * D) == "narrow" \
+        else 0
+    assert launches[NARROW] == want, launches
+    with dispatch_before_narrow_and_tiles():
+        old, old_wall, old_launches = lanczos_solve(B, tr, seed, chunk)
+    assert old_launches[NARROW] == 0, old_launches
     ref = np.asarray(tr.evalues)
-    np.testing.assert_allclose(res.evals, ref, rtol=1e-3)
+    print(f"lanczos at the NYTimes shape: {nev} eigenvalues in {wall:.2f} s "
+          f"wall, {res.restarts} restarts, {res.op_calls} operator calls "
+          f"({launches[GATHER]} width-1 launches, {launches[NARROW]} on the "
+          f"narrow kernel), max rel diff to block_ks "
+          f"{np.abs(res.evals / ref - 1).max():.2e}; with the wide kernel "
+          f"at width 1 (the dispatch before the narrow kernel) "
+          f"{old_wall:.2f} s wall, {old.restarts} restarts, {old.op_calls} "
+          f"operator calls, max rel diff to block_ks "
+          f"{np.abs(old.evals / ref - 1).max():.2e}; {card_line()}")
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((V, 1), generator=g).to(B.device)
     y = sparse.bt_x(B, x, chunk)
-    uses = [
-        gather_use("Lanczos B^T x, width 1", B.d_doc, B.d_word, B.d_val, x,
-                   B.num_docs, res.op_calls),
-        gather_use("Lanczos B y, width 1", B.w_word, B.w_doc, B.w_val, y,
-                   V, res.op_calls),
-    ]
-    print(f"lanczos at the NYTimes shape: {nev} eigenvalues in {wall:.2f} s "
-          f"wall, {res.restarts} restarts, {res.op_calls} operator calls "
-          f"({launches[GATHER]} width-1 launches), max rel "
-          f"diff to block_ks {np.abs(res.evals / ref - 1).max():.2e}")
-    print_uses({GATHER: uses}, "Lanczos solve")
+    d_stream = (B.d_doc, B.d_word, B.d_val)
+    w_stream = (B.w_word, B.w_doc, B.w_val)
+    uses = {NARROW: [], GATHER: []}
+    for kernel in (NARROW, GATHER):
+        k = "narrow" if kernel == NARROW else "wide"
+        n = res.op_calls if kernel == NARROW else 0
+        uses[kernel] += [
+            gather_use("Lanczos B^T x, width 1", *d_stream, x, D, n,
+                       kernel=k),
+            gather_use("Lanczos B y, width 1", *w_stream, y, V, n, kernel=k),
+        ]
+    # the crossover: both kernels on the same random tables
+    faster = []
+    for W in CROSSOVER_WIDTHS:
+        X = torch.randn((V, W), generator=g).to(B.device)
+        Y = torch.randn((D, W), generator=g).to(B.device)
+        rows = [gather_use(f"crossover B^T X, width {W}", *d_stream, X, D, 0,
+                           kernel="narrow", beside=("wide",)),
+                gather_use(f"crossover B Y, width {W}", *w_stream, Y, V, 0,
+                           kernel="narrow", beside=("wide",))]
+        uses[NARROW] += rows
+        if all(r["ms"] < r["beside_ms"]["wide"] for r in rows):
+            faster.append(W)
+        print(f"  crossover at width {W}: narrow / wide kernel B^T X "
+              f"{rows[0]['ms']:.3f} / {rows[0]['beside_ms']['wide']:.3f} ms,"
+              f" B Y {rows[1]['ms']:.3f} / {rows[1]['beside_ms']['wide']:.3f}"
+              f" ms")
+    top = max((W for W in faster if all(v in faster for v in
+                                        CROSSOVER_WIDTHS if v <= W)),
+              default=0)
+    print(f"crossover: the narrow kernel was faster on both streams at "
+          f"widths {faster}, without a gap up to {top}; the dispatch gives "
+          f"it widths up to segsum.NARROW_MAX_WIDTH = "
+          f"{segsum.NARROW_MAX_WIDTH}")
+    print_uses(uses, "Lanczos solve")
     return uses, launches
 
 
@@ -1548,7 +1690,8 @@ def train_step_phase(corpus, shape, seed, tr, mesh) -> tuple:
     coll_s = mesh.collective_seconds() - sec0
     peak = torch.cuda.max_memory_allocated() - base
     step_ms = [s.elapsed_time(e) for s, e in events]
-    assert per_step == {ONEHOT: 2, GATHER: 4}, per_step
+    assert per_step == {ONEHOT: 2, GATHER: 4, NARROW: 0, TILED: 0}, \
+        per_step
     assert launches == {n: (REPS + 1) * c for n, c in per_step.items()}
     assert collectives == (4 if mesh.group is not None else 0), collectives
     print(f"train step (sharding.sharded_train_step, world size "
@@ -1605,7 +1748,11 @@ def graft_entry_phase() -> dict:
     got = fn(*args)
     torch.cuda.synchronize()
     launches = segsum.launch_counts()
-    assert launches == {ONEHOT: 1, GATHER: 4}, launches
+    # X is 128 wide and k = 16: each width takes its kernel
+    narrow = sum(segsum.gather_path(w_, 0) == "narrow"
+                 for w_ in (128, 128, 16, 16))
+    assert launches == {ONEHOT: 1, GATHER: 4, NARROW: narrow, TILED: 0}, \
+        launches
     Y, assign, centers, w = (o.cpu() for o in got)
     cY, c_assign, c_centers, cw = cfn(*cargs)
     sp, X, C = cargs[:3]
@@ -1922,20 +2069,37 @@ def hybrid_uses(hy, H, B, seed: int) -> dict:
     onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32).cuda()
     d_stream = (T.d_doc, T.d_word, T.d_val)
     w_stream = (T.w_word, T.w_doc, T.w_val)
-    return {
+    t_stream = (T.t_word, T.t_doc, T.t_val, T.tile_starts)
+    uses = {
         ONEHOT: [onehot_use("doc norms of the hybrid tail", T.d_doc, None,
                             T.d_val * T.d_val, T.num_docs, 1, 1)],
         GATHER: [
             gather_use("hybrid tail B^T X, eigensolver", *d_stream, X,
                        T.num_docs, calls),
-            gather_use("hybrid tail B Y, eigensolver", *w_stream, Y, T.vocab,
-                       calls),
             gather_use("hybrid tail Lloyd's B^T C (+ projection)", *d_stream,
                        centers, T.num_docs, reps + 1),
-            gather_use("hybrid tail Lloyd's B onehot", *w_stream, onehot,
-                       T.vocab, reps),
         ],
+        TILED: [],
     }
+    # the word-sorted products: the tiled passes where the dispatch takes
+    # them, the untiled kernel beside them
+    for use, table, n in (("hybrid tail B Y, eigensolver", Y, calls),
+                          ("hybrid tail Lloyd's B onehot", onehot, reps)):
+        tiled = tiles_taken(T, table)
+        uses[GATHER].append(gather_use(use, *w_stream, table, T.vocab,
+                                       0 if tiled else n))
+        uses[TILED].append(gather_use(use + ", tiled", *w_stream, table,
+                                      T.vocab, n if tiled else 0,
+                                      kernel="tiled", tiles=t_stream))
+    return uses
+
+
+def tiles_taken(sp, table) -> bool:
+    """Whether sparse.b_y on `sp` takes the tiled passes for `table`."""
+    from isle_tpu_torch import segsum
+
+    return segsum.gather_path(table.shape[1], table.numel() * 4,
+                              sp.tile_rows) == "tiled"
 
 
 def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
@@ -1985,18 +2149,34 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
     np.testing.assert_allclose(hy.evalues, tr.evalues, rtol=1e-4)
     # stage by stage the COO run's launches, but for the eigensolve's
     # count of operator calls, which rounding may move
+    # (the tail's B Y and B onehot run the tiled passes: one launch each
+    # counted as a segsum_gather_rows call and one as a tiled call)
+    blk = hy.config.hyper.block_ks_block_size
+    D = len(hy.original_cols)
+    tiled = {w_: segsum.gather_path(w_, 4 * w_ * D, sparse.DOC_TILE)
+             == "tiled" for w_ in (blk, hy.config.num_topics)}
     for stage in HYBRID_SHARED_STAGES:
         got, want = per[stage], per_incore[stage]
         if stage.startswith("eigen"):
-            assert got == {ONEHOT: 0, GATHER: 2 * hy.op_counter.calls}, got
+            calls = hy.op_counter.calls
+            assert got == {ONEHOT: 0, GATHER: 2 * calls, NARROW: 0,
+                           TILED: calls * tiled[blk]}, got
         else:
-            assert got == want, (stage, got, want)
+            assert (got[ONEHOT], got[GATHER]) == \
+                (want[ONEHOT], want[GATHER]), (stage, got, want)
+    assert launches[TILED] >= hy.op_counter.calls * tiled[blk], launches
 
-    walls = [wall]
-    for again in ("nyt_h2", "nyt_h3", "nyt_h4"):
-        walls.append(train_again(corpus, shape, seed,
-                                 os.path.join(out, again), hy,
-                                 head_bytes=None))
+    # the shipped runs in turn with runs on the dispatch before the
+    # narrow kernel and the tiled passes (untiled tail products)
+    walls, before = [wall], []
+    for again in ("nyt_h0", "nyt_h2", "nyt_h3", "nyt_h4", "nyt_h5"):
+        path = os.path.join(out, again)
+        if again in ("nyt_h0", "nyt_h5"):
+            before.append(train_untiled(corpus, shape, seed, path, hy,
+                                        head_bytes=None))
+        else:
+            walls.append(train_again(corpus, shape, seed, path, hy,
+                                     head_bytes=None))
 
     # the layout, rebuilt from the run's ζ as the trainer builds it
     A = hy._device_A()
@@ -2057,7 +2237,7 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
               f"{row['max_abs_err']:.2e}, two launches bit-equal")
     uses = hybrid_uses(hy, H, B, seed)
     print_uses(uses, "hybrid path")
-    for name in (ONEHOT, GATHER):
+    for name in (ONEHOT, GATHER, TILED):
         need = sum(u["launches"] for u in uses[name])
         assert launches[name] >= need, (name, launches[name], need)
     del H, B, A
@@ -2073,8 +2253,41 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
           f"catchwords ({sum(len(c) for c in hy.catchwords)} catchwords, COO "
           f"{sum(len(c) for c in tr.catchwords)}), eigenvalues max rel diff "
           f"{np.abs(hy.evalues / tr.evalues - 1).max():.2e}, walls of the "
-          f"four hybrid runs {', '.join(f'{w:.2f}' for w in walls)} s")
+          f"four hybrid runs {', '.join(f'{w:.2f}' for w in walls)} s; on "
+          f"the dispatch before the tiled passes (runs 2 and 6 of six) "
+          f"{', '.join(f'{w:.2f}' for w in before)} s; {card_line()}")
     return hy, launches, per, uses, walls
+
+
+def train_untiled(corpus, shape, seed, out, first, head_bytes=0) -> float:
+    """One training run on the dispatch before the narrow kernel and the
+    tiled passes: no narrow or tiled launch, eigenvalues within rtol 1e-4
+    of the shipped run `first`. Prints its wall, its eigensolve and its
+    peak; returns the wall."""
+    from isle_tpu_torch import segsum
+
+    with dispatch_before_narrow_and_tiles():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        segsum.reset_launch_counts()
+        t0 = time.perf_counter()
+        old = train(corpus, shape, seed, "cuda", out, head_bytes=head_bytes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = segsum.launch_counts()
+    assert launches[TILED] == launches[NARROW] == 0, launches
+    np.testing.assert_allclose(old.evalues, first.evalues, rtol=1e-4)
+    eig = dict((label, w) for label, w, _ in old.timer.phases)[
+        "eigen solve (B B^T)"]
+    print(f"training run on the dispatch before the narrow kernel and the "
+          f"tiled passes ({'COO' if head_bytes == 0 else 'hybrid'}): "
+          f"{wall:.2f} s wall, eigen solve {eig:.3f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} "
+          f"GiB of it held before the run)")
+    old.A = None
+    torch.cuda.empty_cache()
+    return wall
 
 
 def hybrid_sharded_phase(corpus, shape, seed, out, hy, h_per, mesh) -> dict:
@@ -2214,8 +2427,18 @@ def main() -> int:
     for label, w, _ in tr.timer.phases:
         print(f"  stage {label}: {w:.3f} s")
 
-    for again in ("nyt2", "nyt3", "nyt4"):
-        train_again(corpus, shape, args.seed, os.path.join(out, again), tr)
+    # the repeated runs in turn with runs on the dispatch before the
+    # narrow kernel and the tiled passes (B Y untiled)
+    walls, before = [wall], []
+    for again in ("nyt0", "nyt2", "nyt3", "nyt4", "nyt5"):
+        path = os.path.join(out, again)
+        if again in ("nyt0", "nyt5"):
+            before.append(train_untiled(corpus, shape, args.seed, path, tr))
+        else:
+            walls.append(train_again(corpus, shape, args.seed, path, tr))
+    print(f"COO walls: {', '.join(f'{w:.2f}' for w in walls)} s; on the "
+          f"dispatch before the tiled passes (runs 2 and 6 of six) "
+          f"{', '.join(f'{w:.2f}' for w in before)} s; {card}")
     cumsum_probe(shape["docs"])
 
     uses = compare_kernels(tr, launches, args.seed)
@@ -2227,7 +2450,7 @@ def main() -> int:
         f"main path, fewer than its {need} uses"
     # every eigensolver operator call (bt_x + b_y), every full-space
     # Lloyd's iteration (bt_x + b_y), the projection and the model SpMM
-    need = sum(u["launches"] for u in uses["segsum_gather_rows"])
+    need = gather_calls(uses)
     assert launches["segsum_gather_rows"] >= need, \
         f"segsum_gather_rows launched {launches['segsum_gather_rows']} " \
         f"times on the main path, fewer than its {need} SpMM calls"
@@ -2301,7 +2524,8 @@ def main() -> int:
         capi_phase(os.path.join(out, "capi"))
         p_launches, _ = traced_phase(corpus, shape, args.seed, out, tr)
         torch.cuda.empty_cache()
-        # each use's launches on the sharded run, beside the main path's
+        # each use's launches on the sharded run, beside the main path's:
+        # the same kernel or mode as in core, sharded_calls / reps times
         sharded_use_launches = {
             "zeta histogram": 1, "r-th group counts": 1,
             "doc-topic mass": 1, "doc norms of B": 1, "model SpMM B W": 1,
@@ -2312,11 +2536,14 @@ def main() -> int:
         }
         for rows in uses.values():
             for u in rows:
-                u["launches_sharded"] = sharded_use_launches[u["use"]]
+                n = sharded_use_launches.get(u["use"].replace(", tiled", ""),
+                                             0)
+                u["launches_sharded"] = n if u["launches"] > 0 else 0
         assert m_launches[ONEHOT] == sum(
             u["launches_sharded"] for u in uses[ONEHOT])
-        assert m_launches[GATHER] == sum(
-            u["launches_sharded"] for u in uses[GATHER])
+        assert m_launches[GATHER] == gather_calls(uses, "launches_sharded")
+        assert m_launches[TILED] == sum(
+            u["launches_sharded"] for u in uses[TILED])
         print("launches on the sharded run by use: " + "; ".join(
             f"{u['use']} {u['launches_sharded']}"
             for rows in uses.values() for u in rows))
@@ -2352,9 +2579,9 @@ def main() -> int:
         "weights": ss_per["streamed doc sampling"][ONEHOT],
     })
     l_uses, l_launches = lanczos_phase(B, tr, args.seed, tr.gpu.seg_chunk)
-    for name in (ONEHOT, GATHER):
-        uses[name] += s_uses[name] + h_uses[name]
-    uses[GATHER] += l_uses
+    for more in (s_uses, h_uses, l_uses):
+        for name, rows in more.items():
+            uses[name] += rows
     by_path = {name: {"in-core": launches[name],
                       "sharded, world size 1": m_launches[name],
                       "in-core, traced": p_launches[name],
@@ -2379,9 +2606,19 @@ def main() -> int:
            if m.split(".")[0] in ("jax", "isle_tpu", "bench")]
     assert not bad, f"the port imported {bad}"
 
+    def launched(u):
+        return any(u.get(k, 0) > 0 for k in (
+            "launches", "launches_sharded", "launches_train_step"))
+
+    # every kernel with a use on a driven path was launched there
+    for name, rows in uses.items():
+        if any(launched(u) for u in rows):
+            assert sum(by_path[name].values()) > 0, (name, by_path[name])
     source = "isle_tpu_torch/csrc/segsum.cu"
     replaces = {ONEHOT: "isle_tpu/pallas_ops.py:236",
-                GATHER: "isle_tpu/pallas_ops.py:203"}
+                GATHER: "isle_tpu/pallas_ops.py:203",
+                NARROW: "isle_tpu/pallas_ops.py:203",
+                TILED: "isle_tpu/pallas_ops.py:203"}
 
     # the times are summed over the uses that a driven path launched
     print(json.dumps({"kernels": [
@@ -2389,7 +2626,7 @@ def main() -> int:
              launches=sum(by_path[name].values()),
              launches_by_path=by_path[name],
              max_abs_err=max(u["max_abs_err"] for u in rows),
-             **{key: sum(u[key] for u in rows if u["launches"] > 0)
+             **{key: sum(u[key] for u in rows if launched(u))
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by="bytes" if all(u["bound_by"] == "bytes" for u in rows)
              else "operations", uses=rows)

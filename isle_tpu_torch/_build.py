@@ -44,6 +44,9 @@ _SIGNATURES = {
     "isle_segsum_gather_rows_f32": [
         _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P, _I, _P,
     ],
+    "isle_segsum_gather_rows_narrow_f32": [
+        _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P, _I, _P,
+    ],
 }
 
 

@@ -7,7 +7,10 @@
 //   segsum_onehot_kernel      <- _segsum_onehot_call (pallas_ops.py:236)
 //   segsum_gather_rows_kernel <- _segsum_rows_call   (pallas_ops.py:203),
 //                                with the row gather of segsum_gather_rows
-//                                (pallas_ops.py:382) fused in.
+//                                (pallas_ops.py:382) fused in; and
+//   segsum_gather_rows_narrow_kernel, the same function for tables of at
+//                                most 16 columns (the width-1 Lanczos
+//                                matvecs).
 // The TPU kernels build a (rcap, chunk) segment one-hot in VMEM and
 // contract it on the MXU, then scatter the partial rows through a plan
 // (plan_segments). Here the kernels find the run boundaries themselves, so
@@ -89,6 +92,37 @@
 //     (num_slices, 2) segment ids. A second kernel adds each crossing
 //     run's partials in slice order and stores the row. No float atomics:
 //     two launches on the same input give bit-equal output.
+//   - accumulate = 1 adds each run's sum into `out` in place; rows without
+//     entries are not touched. The word-sorted product over a table larger
+//     than L2 (segsum.py, segsum_gather_rows_tiled) runs the kernel once
+//     per doc tile of a tile-ordered copy of the stream, each pass into the
+//     same output: a pass gathers only its tile's 65,536 rows (33.5 MB at
+//     W = 128), which stay in L2 after first touch, and moves only the
+//     output rows its tile reaches. Tile order, then the order within a
+//     tile: two runs stay bit-equal.
+//
+// segsum_gather_rows_narrow: the same sums for W <= 16, above all W = 1
+//   (the Lanczos matvecs, 632 launches a solve at the NYTimes shape).
+//   Bound: the stream, 12 bytes an entry: 0.17 ms for 47.5M entries at
+//   3.35 TB/s. The width-1 table (0.4-1.2 MB) sits whole in L2, so a row
+//   load is an L2 hit, and the wide kernel's 32 lanes across the row leave
+//   31 idle and each entry waiting on its own load.
+//   Design:
+//   - One warp per slice, persistent; the same cp.async double-buffered
+//     staging of (seg, idx, val) batches. Lanes go across entries: each
+//     takes kNarrowPer consecutive entries of the batch and issues all
+//     their row loads before it adds any. At W = 1 the loads go with
+//     lanes across consecutive entries (a frequent word's docs share
+//     sectors) and the products are passed through shared memory.
+//   - Each lane merges its entries left to right: runs that begin and end
+//     inside it are stored at once; its first and last runs may go on in
+//     the lanes around it. A segmented inclusive scan over the lanes'
+//     last runs (__shfl_up_sync, a head flag where a run begins) in a
+//     fixed tree order completes them; the lane where a run ends stores
+//     it, and the batch's last run is carried to the next batch.
+//   - Runs that cross a slice edge use the wide kernel's carry slots and
+//     segsum_rows_carry_kernel. No float atomics: two launches on one
+//     input are bit-equal.
 //
 // All kernels launch on the caller's stream, allocate nothing (the
 // wrapper allocates the output and the carry scratch), and the entry
@@ -966,6 +1000,331 @@ __global__ void __launch_bounds__(kRowsThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// segsum_gather_rows_narrow: the same sums for tables of at most 16 columns
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowMaxW = 16;
+constexpr int kNarrowWarps = 4;  // warps per block
+constexpr int kNarrowThreads = kNarrowWarps * 32;
+// Entries a lane merges per batch (a warp's batch is 32 of these), and the
+// blocks an SM must hold: the lane's rows in flight are kNarrowPer * WC
+// floats, so the wider tables take fewer entries a lane and fewer blocks.
+template <int WC>
+constexpr int kNarrowPer = WC <= 2 ? 4 : 2;
+template <int WC>
+constexpr int kNarrowMinBlocks = WC <= 2 ? 8 : (WC == 4 ? 6 : (WC == 8 ? 4 : 2));
+
+template <typename T, int N>
+struct VecOf;
+template <>
+struct VecOf<int, 4> {
+  using type = int4;
+};
+template <>
+struct VecOf<int, 2> {
+  using type = int2;
+};
+template <>
+struct VecOf<float, 4> {
+  using type = float4;
+};
+template <>
+struct VecOf<float, 2> {
+  using type = float2;
+};
+
+// dst = src[0, E): vector reads of shared memory (E is 2, 4 or 8 and src
+// is E-aligned), so that 32 lanes reading E consecutive entries each do
+// not queue on the same banks.
+template <int E, typename T>
+__device__ __forceinline__ void read_lane(const T* src, T (&dst)[E]) {
+  constexpr int N = E % 4 == 0 ? 4 : 2;
+  using V = typename VecOf<T, N>::type;
+#pragma unroll
+  for (int q = 0; q < E; q += N) {
+    const V v = *reinterpret_cast<const V*>(src + q);
+    dst[q] = v.x;
+    dst[q + 1] = v.y;
+    if constexpr (N == 4) {
+      dst[q + 2] = v.z;
+      dst[q + 3] = v.w;
+    }
+  }
+}
+
+// Stores the sum of run `s` of the slice: into carry slot 0 when the run
+// began in an earlier slice, slot 1 when it goes on in a later one (the
+// slots of segsum_gather_rows_kernel, so segsum_rows_carry_kernel adds
+// them), else into its output row, which no other warp writes.
+template <int WC>
+__device__ __forceinline__ void narrow_store(const RowsArgs& a,
+                                             const SliceEdges& e,
+                                             int64_t slice, int s,
+                                             const float (&x)[WC]) {
+  if (!in_rows(s, a.num_segments)) return;
+  float* dst;
+  bool add = false;
+  if (e.starts_before && s == e.first) {
+    dst = a.carry + 2 * slice * a.W;
+  } else if (e.continues_after && s == e.last) {
+    dst = a.carry + (2 * slice + 1) * a.W;
+  } else {
+    dst = a.out + static_cast<int64_t>(s) * a.W;
+    add = a.accumulate != 0;
+  }
+#pragma unroll
+  for (int c = 0; c < WC; ++c) {
+    if (c < a.W) dst[c] = add ? dst[c] + x[c] : x[c];
+  }
+}
+
+// One warp per slice, persistent over slices; lanes across entries (the
+// wide kernel puts them across the row, which at W = 1 leaves 31 of 32
+// idle). WC: W rounded up to 1, 2, 4, 8 or 16.
+template <int WC>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowMinBlocks<WC>)
+    segsum_gather_rows_narrow_kernel(const RowsArgs a) {
+  constexpr int E = kNarrowPer<WC>;
+  constexpr int kStg = 32 * E;
+  __shared__ __align__(16) int s_seg[kNarrowWarps][2][kStg];
+  __shared__ __align__(16) int s_idx[kNarrowWarps][2][kStg];
+  __shared__ __align__(16) float s_val[kNarrowWarps][2][kStg];
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * kNarrowWarps;
+  int64_t slice = static_cast<int64_t>(blockIdx.x) * kNarrowWarps + w;
+  if (slice >= a.num_slices) return;
+  const int W = a.W;
+  // whole rows as float4 where every row starts 16-byte aligned
+  const bool v4 = WC >= 4 && W == WC &&
+                  (reinterpret_cast<uintptr_t>(a.table) & 15) == 0;
+  const int S = a.num_segments;
+
+  SliceEdges e;
+  auto open_slice = [&]() {
+    e = slice_edges(a.seg, a.n, a.chunk, slice);
+    if (lane == 0) {
+      a.carry_seg[2 * slice] =
+          e.starts_before && in_rows(e.first, S) ? e.first : -1;
+      a.carry_seg[2 * slice + 1] = slot1_row(e, S);
+    }
+  };
+  open_slice();
+
+  // the run that the warp's last batch ended in, held by every lane
+  bool have = false;
+  int cseg = 0;
+  float C[WC];
+#pragma unroll
+  for (int c = 0; c < WC; ++c) C[c] = 0.0f;
+
+  int buf = 0;
+  int64_t st = e.b0;  // first entry of the batch in hand
+  stage_entries(lane, s_seg[w][0], s_idx[w][0], s_val[w][0], a.seg, a.idx,
+                a.val, st,
+                static_cast<int>(e.b1 - st < kStg ? e.b1 - st : kStg));
+  cp_async_commit();
+  for (;;) {
+    // the next batch: later in this slice, or the first of the next one
+    int64_t ns = slice, nst = st + kStg, nend = e.b1;
+    if (nst >= e.b1) {
+      ns = slice + nwarps;
+      if (ns < a.num_slices) {
+        nst = ns * a.chunk;
+        nend = nst + a.chunk < a.n ? nst + a.chunk : a.n;
+      }
+    }
+    if (ns < a.num_slices) {
+      stage_entries(lane, s_seg[w][buf ^ 1], s_idx[w][buf ^ 1],
+                    s_val[w][buf ^ 1], a.seg, a.idx, a.val, nst,
+                    static_cast<int>(nend - nst < kStg ? nend - nst : kStg));
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_one();
+    __syncwarp();
+
+    const int cnt = static_cast<int>(e.b1 - st < kStg ? e.b1 - st : kStg);
+    const int base = lane * E;
+    const int nv = cnt - base < 0 ? 0 : (cnt - base < E ? cnt - base : E);
+    const int last_lane = (cnt - 1) / E;  // the last lane with entries
+    int sj[E];
+    read_lane<E>(s_seg[w][buf] + base, sj);
+    // p: val * table[idx] of the lane's entries, every row load in flight
+    // before any is used; the table is small, so these are L2 (or L1) hits
+    float p[E][WC];
+    if constexpr (WC == 1) {
+      // the loads with lanes across consecutive entries (a frequent
+      // word's docs share sectors), the products written back over the
+      // staged values, then each lane reads its own E entries'
+      float* bv = s_val[w][buf];
+      const int* bi = s_idx[w][buf];
+      float x[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int i = j * 32 + lane;
+        const int row = bi[i];
+        x[j] = i < cnt && row >= 0 && row < a.table_rows
+                   ? __ldg(a.table + row)
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < E; ++j) bv[j * 32 + lane] *= x[j];
+      __syncwarp();
+      float q[E];
+      read_lane<E>(bv + base, q);
+#pragma unroll
+      for (int j = 0; j < E; ++j) p[j][0] = q[j];
+    } else {
+      int ij[E];
+      float vj[E];
+      read_lane<E>(s_idx[w][buf] + base, ij);
+      read_lane<E>(s_val[w][buf] + base, vj);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const bool ok = j < nv && ij[j] >= 0 && ij[j] < a.table_rows;
+        const float* row =
+            a.table + static_cast<int64_t>(ok ? ij[j] : 0) * W;
+        if constexpr (WC >= 4) {
+          if (v4) {
+#pragma unroll
+            for (int c = 0; c < WC; c += 4) {
+              const float4 q =
+                  ok ? __ldg(reinterpret_cast<const float4*>(row + c))
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              p[j][c] = q.x;
+              p[j][c + 1] = q.y;
+              p[j][c + 2] = q.z;
+              p[j][c + 3] = q.w;
+            }
+            continue;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < WC; ++c) {
+          p[j][c] = ok && c < W ? __ldg(row + c) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+#pragma unroll
+        for (int c = 0; c < WC; ++c) p[j][c] *= vj[j];
+      }
+    }
+
+    // the run carried in from the last batch goes on in lane 0's first
+    // entry, or ends at the batch edge and is stored
+    const bool cont = have && __shfl_sync(kFull, sj[0], 0) == cseg;
+    if (have && !cont && lane == 0) narrow_store<WC>(a, e, slice, cseg, C);
+
+    // the lane's entries merged left to right: its first run (F), the
+    // runs that begin and end inside it (stored here), its last run (acc)
+    float F[WC], acc[WC];
+    const bool join_carry = lane == 0 && cont;
+#pragma unroll
+    for (int c = 0; c < WC; ++c) {
+      acc[c] = (join_carry ? C[c] : 0.0f) + p[0][c];
+      F[c] = 0.0f;
+    }
+    bool multi = false;
+    const int s_first = sj[0];
+    int s_last = sj[0];
+#pragma unroll
+    for (int j = 1; j < E; ++j) {
+      if (j < nv) {
+        if (sj[j] != s_last) {
+          if (multi) {
+            narrow_store<WC>(a, e, slice, s_last, acc);
+          } else {
+#pragma unroll
+            for (int c = 0; c < WC; ++c) F[c] = acc[c];
+            multi = true;
+          }
+#pragma unroll
+          for (int c = 0; c < WC; ++c) acc[c] = p[j][c];
+          s_last = sj[j];
+        } else {
+#pragma unroll
+          for (int c = 0; c < WC; ++c) acc[c] += p[j][c];
+        }
+      }
+    }
+
+    // segmented inclusive scan of the lanes' last runs, in a fixed tree:
+    // x ends as the sum of run s_last over this lane and the lanes before
+    // it that the run reaches (a head: the run begins in this lane)
+    const int prev_last = __shfl_up_sync(kFull, s_last, 1);
+    const bool joins = lane > 0 && s_first == prev_last;
+    bool h = multi || !joins;
+    float x[WC];
+#pragma unroll
+    for (int c = 0; c < WC; ++c) x[c] = acc[c];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const bool hy = __shfl_up_sync(kFull, h, d);
+#pragma unroll
+      for (int c = 0; c < WC; ++c) {
+        const float y = __shfl_up_sync(kFull, x[c], d);
+        if (lane >= d && !h) x[c] = y + x[c];
+      }
+      if (lane >= d) h = h || hy;
+    }
+    // the first run of a lane that holds more than one ends in it: the
+    // lanes before it that the run reaches, then its own entries
+    float pred[WC];
+#pragma unroll
+    for (int c = 0; c < WC; ++c) pred[c] = __shfl_up_sync(kFull, x[c], 1);
+    if (multi && lane <= last_lane) {
+#pragma unroll
+      for (int c = 0; c < WC; ++c) F[c] = joins ? pred[c] + F[c] : F[c];
+      narrow_store<WC>(a, e, slice, s_first, F);
+    }
+    // the last run ends here unless the next lane goes on with it
+    const int next_first = __shfl_down_sync(kFull, s_first, 1);
+    if (lane < last_lane && next_first != s_last) {
+      narrow_store<WC>(a, e, slice, s_last, x);
+    }
+    // the batch's last run is carried to the next batch of the slice
+    cseg = __shfl_sync(kFull, s_last, last_lane);
+#pragma unroll
+    for (int c = 0; c < WC; ++c) C[c] = __shfl_sync(kFull, x[c], last_lane);
+    have = true;
+    if (st + kStg >= e.b1) {  // the slice's last batch
+      if (lane == 0) narrow_store<WC>(a, e, slice, cseg, C);
+      have = false;
+    }
+    __syncwarp();
+    if (ns >= a.num_slices) break;
+    if (ns != slice) {
+      slice = ns;
+      open_slice();
+    }
+    st = nst;
+    buf ^= 1;
+  }
+}
+
+template <int WC>
+cudaError_t launch_gather_rows_narrow(RowsArgs a, int device,
+                                      cudaStream_t stream) {
+  a.ntiles = 1;  // segsum_rows_carry_kernel<1>: lanes across the W columns
+  int grid = 0;
+  cudaError_t err = blocks_on_card(
+      reinterpret_cast<const void*>(segsum_gather_rows_narrow_kernel<WC>),
+      kNarrowThreads, device,
+      (a.num_slices + kNarrowWarps - 1) / kNarrowWarps, &grid);
+  if (err != cudaSuccess) return err;
+  segsum_gather_rows_narrow_kernel<WC>
+      <<<grid, kNarrowThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segsum_rows_carry_kernel<1>
+      <<<static_cast<int>((a.num_slices + kRowsWarps - 1) / kRowsWarps),
+         kRowsThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int VEC>
 cudaError_t launch_gather_rows(RowsArgs a, int device, cudaStream_t stream) {
   a.ntiles = (a.W / VEC + 31) / 32;
@@ -1083,6 +1442,52 @@ int isle_segsum_gather_rows_f32(const int* seg, const int* idx,
       W % 4 == 0 && aligned16(table) && aligned16(out) && aligned16(carry);
   return static_cast<int>(vec4 ? launch_gather_rows<4>(a, device, s)
                                : launch_gather_rows<1>(a, device, s));
+}
+
+// As isle_segsum_gather_rows_f32, on segsum_gather_rows_narrow_kernel:
+// W at most 16 (cudaErrorInvalidValue otherwise).
+int isle_segsum_gather_rows_narrow_f32(const int* seg, const int* idx,
+                                       const float* val, const float* table,
+                                       int64_t n, int64_t table_rows, int W,
+                                       int num_segments, int64_t chunk,
+                                       int accumulate, float* out,
+                                       float* carry, int* carry_seg,
+                                       int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (W > kNarrowMaxW) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || W <= 0 || chunk <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  RowsArgs a{};
+  a.seg = seg;
+  a.idx = idx;
+  a.val = val;
+  a.table = table;
+  a.out = out;
+  a.carry = carry;
+  a.carry_seg = carry_seg;
+  a.n = n;
+  a.table_rows = table_rows;
+  a.chunk = chunk;
+  a.num_slices = (n + chunk - 1) / chunk;
+  a.W = W;
+  a.num_segments = num_segments;
+  a.accumulate = accumulate;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (W == 1) {
+    err = launch_gather_rows_narrow<1>(a, device, s);
+  } else if (W <= 2) {
+    err = launch_gather_rows_narrow<2>(a, device, s);
+  } else if (W <= 4) {
+    err = launch_gather_rows_narrow<4>(a, device, s);
+  } else if (W <= 8) {
+    err = launch_gather_rows_narrow<8>(a, device, s);
+  } else {
+    err = launch_gather_rows_narrow<16>(a, device, s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

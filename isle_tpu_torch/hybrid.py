@@ -14,7 +14,9 @@ B is split as
     hold the head exactly, 0 and 1 being exact in bf16. Its products run
     on the tensor cores (head_dot).
   - B_tail: the other entries, a DocSparse in both sort orders with their
-    B values, on the segsum_gather_rows kernel like the COO layout.
+    B values, on the segsum_gather_rows kernel like the COO layout, and a
+    tile-ordered copy of its word stream (sparse.with_doc_tiles): B_tail Y
+    runs a pass per doc tile, each over one L2-sized slice of Y.
 
 isle_tpu pads each tail segment to a multiple of 8 and reduces octets
 before a scatter (_pad8_plan, _tail_gather_octsum, hybrid.py:182-311),
@@ -35,7 +37,8 @@ import torch
 
 from .bmatrix import threshold_and_copy
 from .segsum import DEFAULT_CHUNK
-from .sparse import DocSparse, b_y, bt_x, doc_l2sq, frobenius_sq, to_dense
+from .sparse import DocSparse, b_y, bt_x, doc_l2sq, frobenius_sq, \
+    to_dense, with_doc_tiles
 
 # isle_tpu builds the head by a scatter at an int32 flat index
 # r * (docs + 1) + d (hybrid.py:42-48), and so caps the head's rows at
@@ -140,7 +143,9 @@ def split_by_head(sp: DocSparse, head_words: torch.Tensor,
     """The hybrid layout of B (sp) with the given head words. The head is
     written by a non-accumulating index_put_ of ones at the int64 flat
     index r * stride + d, so its build is deterministic; the tail is
-    both of B's streams masked to the other words."""
+    both of B's streams masked to the other words, with the tile-ordered
+    copy of its word stream (every layout that builds a tail, in core,
+    streamed and sharded, builds it here)."""
     V, D = sp.vocab, sp.num_docs
     dev = sp.device
     R = head_words.numel()
@@ -155,11 +160,11 @@ def split_by_head(sp: DocSparse, head_words: torch.Tensor,
     base.index_put_((flat,), torch.ones((), dtype=torch.bfloat16,
                                         device=dev))
     keep_d, keep_w = ~in_head, rank[sp.w_word] < 0
-    tail = DocSparse(
+    tail = with_doc_tiles(DocSparse(
         d_word=sp.d_word[keep_d], d_doc=sp.d_doc[keep_d],
         d_val=sp.d_val[keep_d], w_word=sp.w_word[keep_w],
         w_doc=sp.w_doc[keep_w], w_val=sp.w_val[keep_w],
-        vocab=V, num_docs=D)
+        vocab=V, num_docs=D))
     return HybridSparse(head_words=head_words, head=head,
                         row_scale=row_scale.to(device=dev,
                                                dtype=torch.float32),

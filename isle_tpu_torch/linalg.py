@@ -216,9 +216,9 @@ def lanczos(
 
     Host-driven: the steps of a restart are enqueued without a
     synchronize; the host waits once a restart, for the projected matrix,
-    whose eigenproblem LAPACK solves (see block_ks). A width-1 SpMM uses
-    one lane of the gather kernel's 32-lane tile, so this is a validation
-    solver, not the production one.
+    whose eigenproblem LAPACK solves (see block_ks). Its width-1 SpMMs
+    run on the gather kernel's narrow form (segsum.NARROW_MAX_WIDTH),
+    lanes across entries.
 
     The start vector comes from draws.lanczos_start(dim) unless
     `start_vector` is given and nonzero. When the residual of a step falls

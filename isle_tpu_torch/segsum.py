@@ -9,7 +9,15 @@ Two wrappers, each over one hand-written CUDA kernel (csrc/segsum.cu):
       without `val`, float32 sums with it.
   segsum_gather_rows(seg, idx, val, table, S)  out[s, :] += val *
       table[idx, :]; idx outside [0, len(table)) adds nothing. The port's
-      SpMM (sparse.bt_x, sparse.b_y) runs on it.
+      SpMM (sparse.bt_x, sparse.b_y) runs on it. On the card a table of
+      at most NARROW_MAX_WIDTH columns takes the narrow kernel (lanes
+      across entries: the width-1 Lanczos matvecs), a wider one the wide
+      kernel (lanes across the row).
+  segsum_gather_rows_tiled(seg, idx, val, table, S, tile_starts)  the
+      same sums over a stream cut into doc tiles (sparse.with_doc_tiles):
+      one pass of the wide kernel per tile, each adding into the same
+      output, so that each pass gathers from one L2-sized slice of the
+      table. sparse.b_y takes it where gather_path says so.
 
 Both return (S + 1) rows with the spill row last, the shape of the JAX
 wrappers; entries whose segment lies outside [0, S] add nothing. The
@@ -26,11 +34,14 @@ csrc/segsum.cu describes both designs.
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain PyTorch version beside each wrapper (index_add_ on a flat
 index), a CUDA tensor launches the kernel or raises. Each wrapper counts
-its kernel launches in `.launches`.
+its kernel launches in `.launches`; segsum_gather_rows.launches counts
+every product, whichever kernel or mode ran it, and
+segsum_gather_rows_narrow / segsum_gather_rows_tiled count their own.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -38,6 +49,18 @@ import torch
 DEFAULT_CHUNK = 2048  # entries per slice of either kernel
 MAX_CHUNK = 1 << 20
 PLAIN_CHUNK = 1 << 21  # entries per step of segsum_gather_rows_plain
+# The widest table segsum_gather_rows_narrow_kernel takes (kNarrowMaxW of
+# csrc/segsum.cu), and the widest that segsum_gather_rows gives it: at
+# every width up to it the narrow kernel ran 3-12x faster than the wide
+# one on B's two streams at the NYTimes shape on an H100 (chip_smoke.py
+# phase S3 times both at widths 1, 2, 4, 8 and 16; PERF.md).
+NARROW_MAX_WIDTH = 16
+# Slices a pass of segsum_gather_rows_tiled aims at: four for each warp the
+# wide kernel keeps resident on an H100 (132 SMs x 32 warps). A pass holds
+# one tile's share of the stream, and at the whole stream's slice length
+# (2048) half the warps of a pass over the hybrid tail sat idle; 256 or 512
+# entries a slice ran fastest (gather_probe.py, PERF.md).
+TILED_PASS_SLICES = 16384
 
 
 def _check_1d(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
@@ -209,20 +232,19 @@ def segsum_gather_rows_plain(
     return out
 
 
-def segsum_gather_rows(
-    seg: torch.Tensor,
-    idx: torch.Tensor,
-    val: torch.Tensor,
-    table: torch.Tensor,
-    num_segments: int,
-    init: Optional[torch.Tensor] = None,
-    chunk: int = DEFAULT_CHUNK,
-) -> torch.Tensor:
-    """(num_segments + 1, W): out[s, :] += val[e] * table[idx[e], :] over
-    entries with seg[e] == s. `seg` must be sorted (not checked here).
-    int32 seg/idx; float32 val and (rows, W) table. On the card the sums
-    are taken in a fixed order (no atomics): `chunk` entries per slice,
-    slices in stream order, so equal inputs give bit-equal outputs."""
+def gather_path(width: int, table_bytes: int, tile_rows: int = 0) -> str:
+    """The gather kernel a product takes on the card: "narrow" up to
+    NARROW_MAX_WIDTH columns; "tiled" for a stream with doc tiles of
+    `tile_rows` rows (0: none) whose table holds more than one tile;
+    else "wide"."""
+    if width <= NARROW_MAX_WIDTH:
+        return "narrow"
+    if tile_rows > 0 and table_bytes > tile_rows * width * 4:
+        return "tiled"
+    return "wide"
+
+
+def _check_rows_args(seg, idx, val, table, num_segments, init):
     n, dev = seg.numel(), seg.device
     _check_1d("seg", seg, torch.int32, n, dev)
     _check_1d("idx", idx, torch.int32, n, dev)
@@ -235,47 +257,201 @@ def segsum_gather_rows(
         )
     if num_segments < 0:
         raise ValueError(f"bad num_segments={num_segments}")
-    W = table.shape[1]
-    shape = (num_segments + 1, W)
-    _check_init(init, shape, torch.float32, dev)
-    if dev.type == "cpu":
-        return segsum_gather_rows_plain(seg, idx, val, table, num_segments,
-                                        init)
-    if dev.type != "cuda":
+    _check_init(init, (num_segments + 1, table.shape[1]), torch.float32, dev)
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"segsum_gather_rows runs on cpu or cuda, not {dev}")
-    _check_chunk(chunk, MAX_CHUNK)
+
+
+def _launch_rows(kernel: str, seg, idx, val, table, num_segments, out,
+                 accumulate: bool, chunk: int, scratch=None) -> None:
+    """One launch of the wide or narrow kernel on the stream, into `out`
+    ((num_segments + 1, W), added into when `accumulate`, else rows the
+    stream reaches overwritten). `scratch`: (carry, carry_seg) of at
+    least ceil(n / chunk) slices, or None to allocate them."""
+    n, W = seg.numel(), table.shape[1]
+    if n == 0 or W == 0:
+        return
     from ._build import kernels
 
     lib = kernels().lib
-    out = _out(init, shape, torch.float32, dev)
-    if n == 0 or W == 0:
-        return out
-    # the partial sums of the runs that cross a slice edge (csrc/segsum.cu)
     slices = -(-n // chunk)
-    carry = torch.empty((slices, 2, W), dtype=torch.float32, device=dev)
-    carry_seg = torch.empty((slices, 2), dtype=torch.int32, device=dev)
+    # the partial sums of the runs that cross a slice edge (csrc/segsum.cu)
+    carry, carry_seg = scratch or (
+        torch.empty((slices, 2, W), dtype=torch.float32, device=seg.device),
+        torch.empty((slices, 2), dtype=torch.int32, device=seg.device))
+    fn = (lib.isle_segsum_gather_rows_narrow_f32 if kernel == "narrow"
+          else lib.isle_segsum_gather_rows_f32)
     device, stream = _launch_args(seg)
-    rc = lib.isle_segsum_gather_rows_f32(
+    rc = fn(
         seg.data_ptr(), idx.data_ptr(), val.data_ptr(), table.data_ptr(), n,
-        table.shape[0], W, num_segments, chunk, int(init is not None),
+        table.shape[0], W, num_segments, chunk, int(accumulate),
         out.data_ptr(), carry.data_ptr(), carry_seg.data_ptr(), device,
         stream,
     )
+    _raise_on_error(f"segsum_gather_rows ({kernel} kernel)", rc)
+
+
+def segsum_gather_rows(
+    seg: torch.Tensor,
+    idx: torch.Tensor,
+    val: torch.Tensor,
+    table: torch.Tensor,
+    num_segments: int,
+    init: Optional[torch.Tensor] = None,
+    chunk: int = DEFAULT_CHUNK,
+    kernel: Optional[str] = None,
+) -> torch.Tensor:
+    """(num_segments + 1, W): out[s, :] += val[e] * table[idx[e], :] over
+    entries with seg[e] == s. `seg` must be sorted (not checked here).
+    int32 seg/idx; float32 val and (rows, W) table. On the card the sums
+    are taken in a fixed order (no atomics): `chunk` entries per slice,
+    slices in stream order, so equal inputs give bit-equal outputs.
+    `kernel` ("wide" or "narrow") picks the card's kernel; None lets
+    gather_path choose by the width."""
+    _check_rows_args(seg, idx, val, table, num_segments, init)
+    W = table.shape[1]
+    if kernel is None:
+        kernel = ("narrow" if gather_path(W, table.numel() * 4) == "narrow"
+                  else "wide")
+    if kernel not in ("wide", "narrow"):
+        raise ValueError(f"kernel must be 'wide' or 'narrow', got {kernel}")
+    if kernel == "narrow" and W > NARROW_MAX_WIDTH:
+        raise ValueError(f"the narrow kernel takes at most "
+                         f"{NARROW_MAX_WIDTH} columns, got {W}")
+    if seg.device.type == "cpu":
+        return segsum_gather_rows_plain(seg, idx, val, table, num_segments,
+                                        init)
+    _check_chunk(chunk, MAX_CHUNK)
+    out = _out(init, (num_segments + 1, W), torch.float32, seg.device)
+    if seg.numel() == 0 or W == 0:
+        return out
+    _launch_rows(kernel, seg, idx, val, table, num_segments, out,
+                 init is not None, chunk)
     segsum_gather_rows.launches += 1
-    _raise_on_error("segsum_gather_rows", rc)
+    if kernel == "narrow":
+        segsum_gather_rows_narrow.launches += 1
     return out
 
 
 segsum_gather_rows.launches = 0
 
 
+def segsum_gather_rows_narrow(
+    seg: torch.Tensor,
+    idx: torch.Tensor,
+    val: torch.Tensor,
+    table: torch.Tensor,
+    num_segments: int,
+    init: Optional[torch.Tensor] = None,
+    chunk: int = DEFAULT_CHUNK,
+) -> torch.Tensor:
+    """segsum_gather_rows on segsum_gather_rows_narrow_kernel (tables of
+    at most NARROW_MAX_WIDTH columns). `.launches` here counts that
+    kernel's launches, through this wrapper or segsum_gather_rows's
+    dispatch."""
+    return segsum_gather_rows(seg, idx, val, table, num_segments, init,
+                              chunk, kernel="narrow")
+
+
+segsum_gather_rows_narrow.launches = 0
+
+
+def tile_spans(tile_starts) -> list:
+    """(start, end) entry offsets of the non-empty tiles of a tile-ordered
+    stream, in tile order."""
+    return [(a, b) for a, b in zip(tile_starts[:-1], tile_starts[1:])
+            if b > a]
+
+
+def tiled_pass_chunk(tile_starts) -> int:
+    """The slice length of every pass of segsum_gather_rows_tiled: the
+    largest tile's entries over TILED_PASS_SLICES, rounded to a power of
+    two, at least 128 (a batch of the wide kernel) and at most
+    DEFAULT_CHUNK."""
+    most = max([b - a for a, b in tile_spans(tile_starts)], default=0)
+    c = 1 << max(round(math.log2(max(most / TILED_PASS_SLICES, 1.0))), 7)
+    return min(c, DEFAULT_CHUNK)
+
+
+def segsum_gather_rows_tiled_plain(seg, idx, val, table, num_segments,
+                                   tile_starts, init=None) -> torch.Tensor:
+    """Plain version of segsum_gather_rows_tiled:
+    segsum_gather_rows_plain over each tile's entries, in tile order,
+    each tile's output the next one's init."""
+    out = init
+    for a, b in tile_spans(tile_starts):
+        out = segsum_gather_rows_plain(seg[a:b], idx[a:b], val[a:b], table,
+                                       num_segments, out)
+    if out is None:
+        out = torch.zeros((num_segments + 1, table.shape[1]),
+                          dtype=table.dtype, device=seg.device)
+    return out
+
+
+def segsum_gather_rows_tiled(
+    seg: torch.Tensor,
+    idx: torch.Tensor,
+    val: torch.Tensor,
+    table: torch.Tensor,
+    num_segments: int,
+    tile_starts,
+    init: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """segsum_gather_rows over a stream cut into tiles: entries
+    [tile_starts[t], tile_starts[t + 1]) are tile t, each tile sorted by
+    seg (sparse.with_doc_tiles: tiles of docs, sorted by (word, doc)
+    within each). On the card one pass of the wide kernel per non-empty
+    tile, in tile order, each adding its run sums into the same output
+    (the kernel's accumulate mode), so a pass gathers only the table rows
+    of its tile; the passes' slices are `chunk` entries long, by default
+    tiled_pass_chunk(tile_starts). The sum order is tile order, then the
+    kernel's within a tile, and equal inputs give bit-equal outputs.
+    Counts one call in segsum_gather_rows.launches and one in .launches
+    here."""
+    _check_rows_args(seg, idx, val, table, num_segments, init)
+    starts = [int(x) for x in tile_starts]
+    if (not starts or starts[0] != 0 or starts[-1] != seg.numel()
+            or any(b < a for a, b in zip(starts[:-1], starts[1:]))):
+        raise ValueError(f"tile_starts must rise from 0 to {seg.numel()}, "
+                         f"got {starts[:3]}...{starts[-3:]}")
+    if seg.device.type == "cpu":
+        return segsum_gather_rows_tiled_plain(seg, idx, val, table,
+                                              num_segments, starts, init)
+    if chunk is None:
+        chunk = tiled_pass_chunk(starts)
+    _check_chunk(chunk, MAX_CHUNK)
+    W = table.shape[1]
+    out = _out(init, (num_segments + 1, W), torch.float32, seg.device)
+    spans = tile_spans(starts)
+    if spans and W > 0:
+        # one scratch for every pass: the passes run in order on one stream
+        slices = max(-(-(b - a) // chunk) for a, b in spans)
+        scratch = (torch.empty((slices, 2, W), dtype=torch.float32,
+                               device=seg.device),
+                   torch.empty((slices, 2), dtype=torch.int32,
+                               device=seg.device))
+        # the first pass overwrites the rows it reaches (the rest are 0)
+        # unless there is an init; every later pass adds into them
+        for p, (a, b) in enumerate(spans):
+            _launch_rows("wide", seg[a:b], idx[a:b], val[a:b], table,
+                         num_segments, out, p > 0 or init is not None,
+                         chunk, scratch)
+    segsum_gather_rows.launches += 1
+    segsum_gather_rows_tiled.launches += 1
+    return out
+
+
+segsum_gather_rows_tiled.launches = 0
+
+_COUNTED = (segsum_onehot, segsum_gather_rows, segsum_gather_rows_narrow,
+            segsum_gather_rows_tiled)
+
+
 def reset_launch_counts() -> None:
-    segsum_onehot.launches = 0
-    segsum_gather_rows.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {
-        "segsum_onehot": segsum_onehot.launches,
-        "segsum_gather_rows": segsum_gather_rows.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _COUNTED}

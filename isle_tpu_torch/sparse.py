@@ -15,16 +15,32 @@ one of the two sorted streams:
 
 `chunk` is the kernel's slice length (entries per slice); the CPU path
 ignores it.
+
+A layout may also carry a tile-ordered copy of the word-sorted stream
+(with_doc_tiles: the trainers' COO B and every hybrid tail do): the
+entries cut into tiles of DOC_TILE docs, sorted by (word, doc) within
+each tile. B Y then runs one pass of the gather kernel per tile
+(segsum.segsum_gather_rows_tiled), each gathering from one L2-sized
+slice of Y, where segsum.gather_path says so.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import segsum
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
+
+# Docs a tile of the tile-ordered word stream (with_doc_tiles): a (T, 128)
+# float32 slice of Y is 33.5 MB, inside the H100's 50 MB L2. One size for
+# every layout, so the in-core, sharded and streamed layouts of one B tile
+# alike. A module value, so that tests reach several tiles at a small
+# size.
+DOC_TILE = 65536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +53,13 @@ class DocSparse:
     w_val: torch.Tensor
     vocab: int
     num_docs: int
+    # the tile-ordered copy of the word stream (with_doc_tiles), or none
+    t_word: Optional[torch.Tensor] = None
+    t_doc: Optional[torch.Tensor] = None
+    t_val: Optional[torch.Tensor] = None
+    tile_rows: int = 0  # docs a tile; 0: no tiles
+    # entry offsets: tile t is [tile_starts[t], tile_starts[t + 1])
+    tile_starts: Tuple[int, ...] = ()
 
     @property
     def nnz(self) -> int:
@@ -95,10 +118,39 @@ def bt_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):
                               sp.num_docs, chunk=chunk)[:sp.num_docs]
 
 
+def with_doc_tiles(sp: DocSparse, tile_rows: Optional[int] = None
+                   ) -> DocSparse:
+    """sp with a tile-ordered copy of its word stream: the entries sorted
+    by (doc // T, word, doc), T = tile_rows (DOC_TILE by default), and the
+    entry offsets of the ceil(num_docs / T) tiles (an empty tile has two
+    equal offsets). One stable sort of the word stream by tile on the
+    device; 12 bytes an entry more."""
+    T = DOC_TILE if tile_rows is None else int(tile_rows)
+    if T < 1:
+        raise ValueError(f"tile_rows must be positive, got {T}")
+    tile = torch.div(sp.w_doc, T, rounding_mode="floor")
+    order = torch.sort(tile, stable=True).indices
+    ntiles = max(-(-sp.num_docs // T), 1)
+    counts = torch.bincount(tile.long(), minlength=ntiles)
+    starts = (0, *torch.cumsum(counts, 0).tolist())
+    return dataclasses.replace(
+        sp, t_word=sp.w_word[order], t_doc=sp.w_doc[order],
+        t_val=sp.w_val[order], tile_rows=T, tile_starts=starts)
+
+
 def b_y(sp: DocSparse, Y: torch.Tensor, chunk: int = DEFAULT_CHUNK):
-    """B Y: (vocab, width) from Y (num_docs, width)."""
-    return segsum_gather_rows(sp.w_word, sp.w_doc, sp.w_val, Y.contiguous(),
-                              sp.vocab, chunk=chunk)[:sp.vocab]
+    """B Y: (vocab, width) from Y (num_docs, width); over the doc tiles
+    where the layout has them and segsum.gather_path takes them (the
+    tiled passes choose their own slice length, so `chunk` is the
+    untiled kernel's)."""
+    Y = Y.contiguous()
+    if segsum.gather_path(Y.shape[1], Y.numel() * 4,
+                          sp.tile_rows) == "tiled":
+        return segsum.segsum_gather_rows_tiled(
+            sp.t_word, sp.t_doc, sp.t_val, Y, sp.vocab,
+            sp.tile_starts)[:sp.vocab]
+    return segsum_gather_rows(sp.w_word, sp.w_doc, sp.w_val, Y, sp.vocab,
+                              chunk=chunk)[:sp.vocab]
 
 
 def gram_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):

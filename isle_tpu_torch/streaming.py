@@ -52,7 +52,7 @@ from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
 from .matops import mat_bt_x, mat_spmm_flops
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 from .sharding import require_mesh
-from .sparse import DocSparse
+from .sparse import DocSparse, with_doc_tiles
 from .thresholds import freq_bound, hist_cols, zeta_from_hist
 from .topic_model import _contribution_weights, has_catchwords, \
     l1_normalize_columns, model_thresholds, top_two_topics
@@ -564,13 +564,16 @@ class StreamedTrainer:
 
         # the hybrid layout of the streamed B, with the head budget of
         # isle_tpu's streamed middle (isle_tpu/streaming.py:1259-1277):
-        # at least 8 head rows, or B stays COO
+        # at least 8 head rows, or B stays COO, its B Y over doc tiles
+        # (sparse.b_y) as the hybrid tail's
         budget = t.gpu.dense_head_bytes
+        num_head = min(V, budget // max(2 * B.num_docs, 1),
+                       max_head_rows(B.num_docs))
+        if budget > 0 and num_head >= 8:
+            B = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
+        else:
+            B = with_doc_tiles(B)
         if budget > 0:
-            num_head = min(V, budget // max(2 * B.num_docs, 1),
-                           max_head_rows(B.num_docs))
-            if num_head >= 8:
-                B = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
             t._mark("hybrid layout")
 
         if "svd" in ck:

@@ -22,6 +22,7 @@ JAX trainer wrote (and the other way round).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Optional, Tuple
 
@@ -49,7 +50,8 @@ from .obs import Logger, OpCounter, Timer, mark_stage_in_trace, \
 from .rng import Draws
 from .segsum import launch_counts
 from .sharding import Mesh, default_mesh, require_mesh
-from .sparse import DocSparse, frobenius_sq, gram_x, to_dense
+from .sparse import DocSparse, frobenius_sq, gram_x, to_dense, \
+    with_doc_tiles
 from .thresholds import compute_thresholds
 from .topic_model import _contribution_weights, construct_edge_topics_v2, \
     construct_topic_model, doc_topic_mass, has_catchwords, \
@@ -411,6 +413,8 @@ class Trainer:
         else:
             B, original_cols = threshold_and_copy(A, zetas, **select)
             frob_sq = float(frobenius_sq(B))
+            # B Y over doc tiles (sparse.b_y), as the hybrid tail's
+            B = with_doc_tiles(B)
         if "svd" in ck and not np.array_equal(original_cols,
                                               self.original_cols):
             raise ValueError(
@@ -713,13 +717,14 @@ class Trainer:
                 "docs first: enable_kmeans_on_lowd=False is ignored")
             lowd = True
 
-        B_op = B
         if self.gpu.dense_head_bytes > 0 and B.num_docs > 0:
             B_op = shard_hybrid(B, row_scale_from_zetas(zetas), mesh,
                                 self.gpu.dense_head_bytes)
             self.logger.diag(
                 f"sharded hybrid layout: {B_op.num_head} global head rows")
             self._mark("hybrid layout (sharded)")
+        else:  # the rank's B Y over doc tiles (sparse.b_y)
+            B_op = dataclasses.replace(B, local=with_doc_tiles(B.local))
 
         # 4-5. truncated SVD of B B^T: the operator ends in an all-reduce
         if "svd" in ck:

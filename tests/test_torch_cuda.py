@@ -268,6 +268,154 @@ def test_gather_rows_empty_stream(dev):
                                                  init=init), init)
 
 
+def _narrow_stream(n, S, rows, seed):
+    """_zipf_stream with a tenth of the gather indices outside the table
+    and a few entries in segments below 0 and past the spill row S."""
+    seg, idx, val = _zipf_stream(n, S, rows, seed)
+    rng = np.random.default_rng(seed + 1)
+    bad = rng.random(n) < 0.1
+    idx[bad] = rng.choice([-5, -1, rows, rows + 7], int(bad.sum()))
+    seg[:5] = -2
+    seg[-5:] = S + 3
+    return seg, idx, val
+
+
+def _within_abs_bound(got, s, i, v, tb, S, init=None):
+    """got within 1e-5 |B| |X| (+ |init|) of the float64 plain version."""
+    ref = segsum.segsum_gather_rows_plain(
+        s, i, v.double(), tb.double(), S,
+        init=None if init is None else init.double())
+    bound = segsum.segsum_gather_rows_plain(
+        s, i, v.double().abs(), tb.double().abs(), S,
+        init=None if init is None else init.double().abs())
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    err = (got.double() - ref).abs()
+    assert bool((err <= 1e-5 * bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("chunk", [7, 256, 2048])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8, 16])
+def test_narrow_kernel_matches_plain(dev, W, chunk):
+    """segsum_gather_rows_narrow_kernel: runs across batch and slice edges
+    (a head segment of 40% of the entries), indices outside the table,
+    segments outside [0, S], with and without init; two launches
+    bit-equal."""
+    n, S, rows = 60_000, 4_000, 2_500
+    seg, idx, val = _narrow_stream(n, S, rows, 11)
+    table = np.random.default_rng(12).normal(size=(rows, W)).astype(
+        np.float32)
+    s, i, v, tb = _cuda(dev, seg, idx, val, table)
+    init = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(S + 1, W)).astype(np.float32)).to(dev)
+    for start in (None, init):
+        before = segsum.launch_counts()
+        got = segsum.segsum_gather_rows_narrow(s, i, v, tb, S, init=start,
+                                               chunk=chunk)
+        after = segsum.launch_counts()
+        assert after["segsum_gather_rows_narrow"] == \
+            before["segsum_gather_rows_narrow"] + 1
+        assert after["segsum_gather_rows"] == before["segsum_gather_rows"] + 1
+        _within_abs_bound(got, s, i, v, tb, S, start)
+        again = segsum.segsum_gather_rows_narrow(s, i, v, tb, S, init=start,
+                                                 chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+    assert torch.equal(init, init.clone())
+
+
+@pytest.mark.parametrize("layout", ["one_run", "all_distinct", "spill_only",
+                                    "outside"])
+@pytest.mark.parametrize("W", [1, 4])
+def test_narrow_kernel_extreme_streams(dev, layout, W):
+    """test_extreme_streams's streams on the narrow kernel, at a slice of
+    512 entries and of 7 (shorter than a lane's batch)."""
+    n, S = 5000, 6000
+    rng = np.random.default_rng(2)
+    seg = {"one_run": np.full(n, 17), "all_distinct": np.arange(n),
+           "spill_only": np.full(n, S),
+           "outside": np.linspace(-300, S + 300, n).astype(np.int64),
+           }[layout].astype(np.int32)
+    val = rng.random(n).astype(np.float32)
+    table = rng.random((50, W)).astype(np.float32)
+    idx = rng.integers(-3, 53, n).astype(np.int32)
+    s, v, i, tb = _cuda(dev, seg, val, idx, table)
+    for chunk in (512, 7):
+        got = segsum.segsum_gather_rows_narrow(s, i, v, tb, S, chunk=chunk)
+        _within_abs_bound(got, s, i, v, tb, S)
+
+
+def test_dispatch_takes_the_narrow_kernel_at_width_one(dev):
+    seg, idx, val, table, S = gather_case(8, W=1)
+    args = _cuda(dev, seg, idx, val, table)
+    before = segsum.launch_counts()
+    got = segsum.segsum_gather_rows(*args, S)
+    after = segsum.launch_counts()
+    assert {k_: after[k_] - before[k_] for k_ in after} == {
+        "segsum_onehot": 0, "segsum_gather_rows": 1,
+        "segsum_gather_rows_narrow": 1, "segsum_gather_rows_tiled": 0}
+    _within_abs_bound(got, *args, S)
+    wide = segsum.segsum_gather_rows(*args, S, kernel="wide")
+    _within_abs_bound(wide, *args, S)
+
+
+def _tiled_sparse(dev, V=3_000, D=20_000, nnz=400_000, seed=14):
+    from isle_tpu_torch import sparse
+
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, D, nnz) * V
+                    + np.minimum((np.exp(rng.random(nnz) * np.log(V)) - 1)
+                                 .astype(np.int64), V - 1))
+    d, w = key // V, key % V
+    val = (rng.random(key.size) * 3 + 0.1).astype(np.float32)
+    return sparse.DocSparse.from_doc_sorted(w, d, val, V, D, dev)
+
+
+@pytest.mark.parametrize("W", [5, 100, 128])
+def test_tiled_passes_match_the_untiled_kernel(dev, W):
+    """segsum_gather_rows_tiled over doc tiles of 3,000 docs (7 tiles) on
+    the card: within 1e-5 |B| |X| of the untiled kernel and of the plain
+    version chained over the tiles, two runs bit-equal; sparse.b_y takes
+    it on a tiled layout."""
+    from isle_tpu_torch import sparse
+
+    sp = sparse.with_doc_tiles(_tiled_sparse(dev), 3_000)
+    assert len(sp.tile_starts) == 8
+    Y = torch.from_numpy(np.random.default_rng(W).normal(
+        size=(sp.num_docs, W)).astype(np.float32)).to(dev)
+    args = (sp.t_word, sp.t_doc, sp.t_val, Y, sp.vocab, sp.tile_starts)
+    before = segsum.launch_counts()
+    got = segsum.segsum_gather_rows_tiled(*args)
+    after = segsum.launch_counts()
+    assert after["segsum_gather_rows_tiled"] == \
+        before["segsum_gather_rows_tiled"] + 1
+    assert after["segsum_gather_rows"] == before["segsum_gather_rows"] + 1
+    again = segsum.segsum_gather_rows_tiled(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    w_stream = (sp.w_word, sp.w_doc, sp.w_val)
+    _within_abs_bound(got, *w_stream, Y, sp.vocab)
+    untiled = segsum.segsum_gather_rows(*w_stream, Y, sp.vocab,
+                                        kernel="wide")
+    bound = segsum.segsum_gather_rows_plain(
+        *w_stream[:2], w_stream[2].double().abs(), Y.double().abs(),
+        sp.vocab)
+    assert bool(((got.double() - untiled.double()).abs()
+                 <= 1e-5 * bound).all())
+    plain = segsum.segsum_gather_rows_tiled_plain(*args)
+    assert bool(((got.double() - plain.double()).abs()
+                 <= 1e-5 * bound).all())
+    init = torch.full_like(got, 0.25)
+    with_init = segsum.segsum_gather_rows_tiled(*args, init=init)
+    torch.testing.assert_close(with_init, got + 0.25, rtol=1e-6, atol=1e-5)
+    if W > segsum.NARROW_MAX_WIDTH:
+        before = segsum.launch_counts()
+        via = sparse.b_y(sp, Y)
+        assert segsum.launch_counts()["segsum_gather_rows_tiled"] == \
+            before["segsum_gather_rows_tiled"] + 1
+        assert torch.equal(via, got[:sp.vocab])
+
+
 def test_spmm_on_the_card_matches_plain(dev):
     """sparse.bt_x and sparse.b_y launch the kernel; each element within
     1e-5 of |B| |X| (the plain version on absolute values, in float64) of
@@ -451,6 +599,39 @@ def test_trainer_on_the_card_matches_the_cpu(dev, tmp_path, head_bytes):
     np.testing.assert_array_equal(g.edge_pairs, c.edge_pairs)
     np.testing.assert_allclose(g.edge_model, c.edge_model, rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("head_bytes", [0, 40_000])
+def test_trainer_with_tiles_on_the_card_matches_the_cpu(
+        dev, tmp_path, monkeypatch, head_bytes):
+    """test_trainer_on_the_card_matches_the_cpu's COO and partial-head
+    hybrid runs with B (or the tail) in doc tiles of 128 (5 tiles): the
+    card's B Y runs the tiled passes and the results equal the CPU
+    run's."""
+    from isle_tpu_torch import GpuConfig, TrainConfig, Trainer, sparse
+
+    monkeypatch.setattr(sparse, "DOC_TILE", 128)
+    corpus, k = _exact_corpus()
+    cfg = TrainConfig(num_topics=k, seed=2, compute_edge_topics=True,
+                      max_edge_topics=8)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        segsum.reset_launch_counts()
+        tr = Trainer(cfg, output_dir=str(tmp_path / device), quiet=True,
+                     gpu=GpuConfig(device=device,
+                                   dense_head_bytes=head_bytes))
+        tr.load_corpus(corpus)
+        tr.train()
+        tr.train_edge_topics()
+        runs[device] = (tr, segsum.launch_counts())
+    (g, counts), (c, _) = runs["cuda"], runs["cpu"]
+    assert counts["segsum_gather_rows_tiled"] >= 1, counts
+    np.testing.assert_array_equal(g.cluster_of_doc, c.cluster_of_doc)
+    np.testing.assert_allclose(g.evalues, c.evalues, rtol=1e-4)
+    np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)
+    for a, b in zip(g.top_pairs, c.top_pairs):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(g.edge_pairs, c.edge_pairs)
 
 
 def test_sharded_trainer_on_the_card_matches_the_single_device_one(
@@ -799,6 +980,12 @@ def test_lanczos_on_the_card_matches_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(g.model, c.model, rtol=1e-4, atol=1e-6)
 
 
+def _narrow_of(*widths):
+    """How many products of these widths the dispatch gives the narrow
+    kernel (no layout here has doc tiles)."""
+    return sum(segsum.gather_path(w, 0) == "narrow" for w in widths)
+
+
 def test_train_step_on_the_card_matches_the_cpu(dev):
     """sharding.sharded_train_step on the card (a mesh without a group)
     against the CPU, on the corpus of exact sums with integer X and doc
@@ -822,8 +1009,11 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
         outs[device] = [o.cpu() for o in sh.sharded_train_step(A, mesh, k)(
             A, X.to(device), centers)]
         if device == "cuda":
-            assert segsum.launch_counts() == {"segsum_onehot": 2,
-                                              "segsum_gather_rows": 4}
+            # X is 16 wide and k = 5: each width takes its kernel
+            assert segsum.launch_counts() == {
+                "segsum_onehot": 2, "segsum_gather_rows": 4,
+                "segsum_gather_rows_narrow": _narrow_of(16, 16, k, k),
+                "segsum_gather_rows_tiled": 0}
     for g, c in zip(outs["cuda"], outs["cpu"]):
         assert g.dtype == c.dtype and torch.equal(g, c)
     assert len(torch.unique(outs["cuda"][1])) > 1
@@ -839,8 +1029,11 @@ def test_graft_entry_on_the_card_matches_the_cpu(dev):
     assert args[0].device.type == "cuda"
     segsum.reset_launch_counts()
     got = [o.cpu() for o in fn(*args)]
-    assert segsum.launch_counts() == {"segsum_onehot": 1,
-                                      "segsum_gather_rows": 4}
+    # X is 128 wide and k = 16
+    assert segsum.launch_counts() == {
+        "segsum_onehot": 1, "segsum_gather_rows": 4,
+        "segsum_gather_rows_narrow": _narrow_of(128, 128, 16, 16),
+        "segsum_gather_rows_tiled": 0}
     cfn, cargs = graft_entry.entry("cpu")
     want = cfn(*cargs)
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)

@@ -133,6 +133,7 @@ def test_spmm_on_cpu_launches_no_kernel(name, width):
     got_y = sparse.b_y(A, torch.from_numpy(Y))
     assert segsum.launch_counts() == {
         "segsum_onehot": 0, "segsum_gather_rows": 0,
+        "segsum_gather_rows_narrow": 0, "segsum_gather_rows_tiled": 0,
     }
     assert got_x.shape == (J.num_docs, width)
     assert got_y.shape == (J.vocab, width)

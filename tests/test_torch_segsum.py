@@ -126,13 +126,17 @@ def test_cpu_path_launches_no_kernel():
     segsum.segsum_onehot(t(seg), t(col), None, S, k)
     assert segsum.launch_counts() == {
         "segsum_onehot": 0, "segsum_gather_rows": 0,
+        "segsum_gather_rows_narrow": 0, "segsum_gather_rows_tiled": 0,
     }
 
 
 def test_reset_launch_counts_clears_every_wrapper():
     segsum.segsum_onehot.launches = 3
     segsum.segsum_gather_rows.launches = 4
+    segsum.segsum_gather_rows_narrow.launches = 5
+    segsum.segsum_gather_rows_tiled.launches = 6
     segsum.reset_launch_counts()
     assert segsum.launch_counts() == {
         "segsum_onehot": 0, "segsum_gather_rows": 0,
+        "segsum_gather_rows_narrow": 0, "segsum_gather_rows_tiled": 0,
     }

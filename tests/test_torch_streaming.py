@@ -234,7 +234,9 @@ def test_stage_launches_follow_the_stages(tmp_path, corpus, sampled):
         want.remove("streamed doc sampling")
     assert labels == want
     for _, counts in got.stage_launches:
-        assert counts == {"segsum_onehot": 0, "segsum_gather_rows": 0}
+        assert counts == {"segsum_onehot": 0, "segsum_gather_rows": 0,
+                          "segsum_gather_rows_narrow": 0,
+                          "segsum_gather_rows_tiled": 0}
 
 
 def test_streamed_filter_clustered(corpus):
