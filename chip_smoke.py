@@ -102,6 +102,13 @@ stay) and says so on its own line. Phases, in order:
      tiled passes, in turn with the repeated runs (eigenvalues within
      rtol 1e-4). Printed, not gated: how far clusters and catchwords
      moved from the COO run, the walls of both dispatches.
+  H4. (right after H1) the layouts against each other where the clusters
+     are well defined: the NYTimes shape at k = 64 (the synthetic corpus
+     plants 64 word bands), trained in the default hybrid layout and in
+     COO: clusters equal on more than 99% of docs and eigenvalues within
+     rtol 1e-4 (tests/test_variants.py's cross-layout bounds); the
+     model's max abs difference and the topics with equal catchwords
+     printed.
 
 Between 7 and 8, with the in-core corpus off the card:
 
@@ -202,10 +209,30 @@ Between 7 and 8, with the in-core corpus off the card:
      original_cols equal H1's, eigenvalues within rtol 1e-4, every
      streamed pass one launch a chunk.
 
+After 8, with the NYTimes corpus freed:
+
+  M. the micro-benchmarks' kernels (isle_tpu_torch/micro_kernels.py,
+     csrc/micro.cu): both drivers' work (isle_tpu_torch/benchmarks/
+     micro_pallas.py at n = 2^24, W = 128, chunk 2048 over its two
+     segment streams and three modes; micro_pallas_gather.py at n = 2^22
+     rows of a 102,660 x 128 table over its four (chunk, depth)), every
+     launch count set to 0 just before and read just after (path
+     "micro"); then per stream the rank plan equal to its host version,
+     per mode the partials kernel within maxrel 1e-6 (max |out - ref| /
+     max |ref|) of its plain version, two launches bit-equal, rows at
+     unused ranks exactly zero, the partials plus the scatter within
+     maxrel 1e-6 (highest) and 1e-5 (split2) of float64 sums; the gather
+     bit-equal to index_select at every (chunk, depth), twice. Printed:
+     the plan's, the kernel's, the partials + scatter's, index_add_'s,
+     segsum_gather_rows(arange)'s and the plain version's ms beside the
+     bound (g, the ranks and the partials once at 3.35 TB/s, or the dense
+     one-hot product's bf16 operations at 989 TFLOP/s).
+
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
 "launches_by_path", the sharded, the sharded streamed, the traced, the
-three hybrid runs, the train step's and graft_entry's among them), max
+three hybrid runs, the train step's, graft_entry's and phase M's among
+them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
@@ -276,6 +303,15 @@ ONEHOT, GATHER = "segsum_onehot", "segsum_gather_rows"
 NARROW, TILED = "segsum_gather_rows_narrow", "segsum_gather_rows_tiled"
 # the widths at which phase S3 times the narrow kernel against the wide one
 CROSSOVER_WIDTHS = (1, 2, 4, 8, 16)
+# phase H4: the layouts held against each other at the synthetic corpus's
+# 64 planted word bands
+CROSS_LAYOUT_K = 64
+# phase M: the micro-benchmarks' kernels (micro_kernels.py) at the shapes of
+# benchmarks/micro_pallas.py and micro_pallas_gather.py
+PARTIALS, ROWGATHER = "chunk_partials", "row_gather_async"
+MICRO = dict(n=1 << 24, width=128, chunk=2048, gather_n=1 << 22,
+             gather_rows=102_660)
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 
 def synth_entries(shape: dict, seed: int):
@@ -514,10 +550,10 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str) -> None:
           f"err {err:.3e}")
 
 
-def bound(nbytes: int, ops: int) -> tuple:
+def bound(nbytes: int, ops: int, rate: float = FP32_FLOPS) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
-    the operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    the operations over `rate` (by default the float32 rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2259,6 +2295,45 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
     return hy, launches, per, uses, walls
 
 
+def cross_layout_phase(corpus, shape, seed, out) -> None:
+    """Phase H4: the two layouts held against each other where the
+    clusters are well defined: the corpus at k = CROSS_LAYOUT_K (the
+    synthetic corpus plants 64 word bands; at k = 100 they split in no
+    fixed way), trained in the default hybrid layout and in COO. Gates,
+    the bounds of tests/test_variants.py's cross-layout test: clusters
+    equal on more than 99% of docs, eigenvalues within rtol 1e-4. Prints
+    the model's max abs difference and the topics with equal
+    catchwords."""
+    k_shape = dict(shape, k=CROSS_LAYOUT_K)
+    runs, walls = {}, {}
+    for label, head_bytes in (("COO", 0), ("hybrid", None)):
+        t0 = time.perf_counter()
+        tr = train(corpus, k_shape, seed, "cuda",
+                   os.path.join(out, f"nyt_k{CROSS_LAYOUT_K}_{label}"),
+                   head_bytes=head_bytes)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        tr.A = None
+        torch.cuda.empty_cache()
+        runs[label] = tr
+    coo, hy = runs["COO"], runs["hybrid"]
+    same = float(np.mean(hy.cluster_of_doc == coo.cluster_of_doc))
+    ev_rel = float(np.abs(np.asarray(hy.evalues) / np.asarray(coo.evalues)
+                          - 1).max())
+    cw_same = sum(np.array_equal(a, b)
+                  for a, b in zip(hy.catchwords, coo.catchwords))
+    print(f"hybrid against COO at k = {CROSS_LAYOUT_K}: clusters equal on "
+          f"{same:.4%} of docs, eigenvalues max rel diff {ev_rel:.2e}, model "
+          f"max abs diff {np.abs(hy.model - coo.model).max():.3e}, "
+          f"{cw_same} of {len(coo.catchwords)} topics with equal catchwords "
+          f"({sum(len(c) for c in hy.catchwords)} catchwords, COO "
+          f"{sum(len(c) for c in coo.catchwords)}); walls COO "
+          f"{walls['COO']:.2f} s, hybrid {walls['hybrid']:.2f} s; "
+          f"{card_line()}")
+    assert same > 0.99, f"the layouts' clusters agree on only {same:.4%}"
+    np.testing.assert_allclose(hy.evalues, coo.evalues, rtol=1e-4)
+
+
 def train_untiled(corpus, shape, seed, out, first, head_bytes=0) -> float:
     """One training run on the dispatch before the narrow kernel and the
     tiled passes: no narrow or tiled launch, eigenvalues within rtol 1e-4
@@ -2363,6 +2438,178 @@ def hybrid_streamed_phase(corpus, shape, seed, out, hy) -> dict:
           f"{head_calls} head GEMMs; clusters equal the in-core hybrid "
           f"run's: {np.array_equal(st.cluster_of_doc, hy.cluster_of_doc)}")
     return launches
+
+
+def float64_segment_sum(seg, g, num_segments) -> torch.Tensor:
+    """(num_segments, W) float64 sums of g's rows by segment, a slice of
+    2^21 entries at a time (the reference the modes are held to)."""
+    out = torch.zeros((num_segments, g.shape[1]), dtype=torch.float64,
+                      device=g.device)
+    for a in range(0, seg.numel(), 1 << 21):
+        out.index_add_(0, seg[a:a + (1 << 21)], g[a:a + (1 << 21)].double())
+    return out
+
+
+def micro_streams_check(seed: int, timed: dict) -> list:
+    """Phase M's checks of chunk_partials, after the drive: per stream the
+    plan equal to its host version exactly; per mode the kernel within
+    maxrel 1e-6 of its plain version, two launches bit-equal, the rows at
+    unused ranks exactly zero, and the partials plus the scatter against
+    the float64 sums (highest within 1e-6, split2 within 1e-5). Returns
+    the uses."""
+    from isle_tpu_torch import micro_kernels as mk
+    from isle_tpu_torch.benchmarks import maxrel, micro_pallas as bp, min_ms
+
+    n, W, C = MICRO["n"], MICRO["width"], MICRO["chunk"]
+    rows = []
+    for label, avg_run, segments in bp.STREAMS:
+        nseg = segments(n)
+        seg, g = bp.stream_inputs(n, W, avg_run, nseg, seed, "cuda")
+        res = timed[label]
+        rank2d, ids, rcap = mk.plan_ranks(seg, C)
+        t0 = time.perf_counter()
+        r_h, i_h, c_h = mk.plan_ranks_plain(seg.cpu().numpy(), C)
+        plan_host_s = time.perf_counter() - t0
+        assert c_h == rcap == res["rcap"], (c_h, rcap)
+        assert np.array_equal(rank2d.cpu().numpy(), r_h), "plan: rank2d"
+        assert np.array_equal(ids.cpu().numpy(), i_h), "plan: ids"
+        rank, nchunks = rank2d.view(-1), n // C
+        used = torch.zeros(nchunks * rcap, dtype=torch.bool, device="cuda")
+        used[(torch.arange(n, device="cuda") // C) * rcap + rank] = True
+        used = used.view(nchunks, rcap)
+        ref = float64_segment_sum(seg, g, nseg)
+        part_bytes = n * W * 4 + n * 4 + nchunks * rcap * W * 4
+        scatter_bound = (nchunks * rcap * (W * 4 + 4) + nseg * W * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"[{label}] plan equal to its host version (rcap {rcap}, "
+              f"{int(used.sum())} of {nchunks * rcap} rank slots used; host "
+              f"plan {plan_host_s:.2f} s)")
+        for mode in mk.MODES:
+            part = mk.chunk_partials(rank, g, C, rcap, mode)
+            plain_ms = min_ms(lambda: mk.chunk_partials_plain(
+                rank, g, C, rcap, mode))
+            plain = mk.chunk_partials_plain(rank, g, C, rcap, mode)
+            err = maxrel(part, plain)
+            abs_err = float((part - plain).abs().max())
+            del plain
+            bit_equal = torch.equal(part, mk.chunk_partials(rank, g, C, rcap,
+                                                            mode))
+            zero = not part[~used].any()
+            err64 = maxrel(mk.scatter_partials(part, ids, nseg), ref)
+            del part
+            passes = {"highest": 0, "split2": 2, "default": 1}[mode]
+            if passes:  # the dense one-hot product, bf16 on the tensor cores
+                bound_ms, bound_by = bound(part_bytes,
+                                           passes * 2 * rcap * W * n,
+                                           BF16_FLOPS)
+            else:  # n W float32 adds
+                bound_ms, bound_by = bound(part_bytes, n * W)
+            r = res[mode]
+            print(f"[{label}] {mode:7s}: plan {res['plan']:.3f} ms, partials "
+                  f"kernel {r['kernel']:.3f} ms, partials + scatter "
+                  f"{r['with_scatter']:.3f} ms, index_add_ "
+                  f"{res['index_add']:.3f} ms, segsum_gather_rows(arange) "
+                  f"{res['arange']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}; the scatter "
+                  f"{scatter_bound:.3f} ms more); maxrelerr to plain "
+                  f"{err:.2e}, to float64 {err64:.2e}, to index_add_ "
+                  f"{r['maxrelerr']:.2e}; two launches bit-equal "
+                  f"{bit_equal}, unused ranks zero {zero}")
+            assert err <= 1e-6, (label, mode, "plain", err)
+            assert bit_equal and zero, (label, mode, bit_equal, zero)
+            if mode in ("highest", "split2"):
+                tol = 1e-6 if mode == "highest" else 1e-5
+                assert err64 <= tol, (label, mode, "float64", err64)
+            rows.append(dict(
+                use=f"{label.split()[0]} {mode}", launches=r["launches"],
+                max_abs_err=abs_err, ms=r["kernel"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=res["index_add"], rcap=rcap,
+                with_scatter_ms=r["with_scatter"],
+                scatter_bound_ms=scatter_bound, arange_ms=res["arange"],
+                plan_ms=res["plan"], maxrelerr_plain=err,
+                maxrelerr_float64=err64))
+        del seg, g, ref, used, rank2d, ids, rank
+        torch.cuda.empty_cache()
+    return rows
+
+
+def micro_gather_check(seed: int, timed: dict) -> list:
+    """Phase M's checks of row_gather_async, after the drive: at every
+    (chunk, depth) bit-equal to index_select, twice. Returns the uses."""
+    from isle_tpu_torch import micro_kernels as mk
+    from isle_tpu_torch.benchmarks import micro_pallas_gather as bg, min_ms
+
+    n, V, W = MICRO["gather_n"], MICRO["gather_rows"], MICRO["width"]
+    idx, tab = bg.gather_inputs(n, V, W, seed, "cuda")
+    base = torch.index_select(tab, 0, idx)
+    plain_ms = min_ms(lambda: mk.row_gather_plain(idx, tab))
+    bound_ms, bound_by = bound(n * 4 + V * W * 4 + n * W * 4, 0)
+    hbm_ms = (n * 4 + 2 * n * W * 4) / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for chunk, depth in bg.SWEEP:
+        r = timed[chunk, depth]
+        exact = [torch.equal(mk.row_gather_async(idx, tab, chunk, depth),
+                             base) for _ in range(2)]
+        print(f"row gather C={chunk} depth={depth}: {r['ms']:.3f} ms "
+              f"({n / r['ms'] / 1e3:.1f} Mrows/s), exact={r['exact']} (and "
+              f"{exact} again), index_select {timed['index_select']:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}; every row from HBM {hbm_ms:.3f} ms)")
+        assert r["exact"] and all(exact), (chunk, depth)
+        rows.append(dict(use=f"C={chunk} depth={depth}",
+                         launches=r["launches"], max_abs_err=0.0, ms=r["ms"],
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         library_ms=timed["index_select"]))
+    del idx, tab, base
+    torch.cuda.empty_cache()
+    return rows
+
+
+def micro_phase(seed: int) -> tuple:
+    """Phase M: the two micro-benchmark drivers' work
+    (isle_tpu_torch/benchmarks/micro_pallas.py and micro_pallas_gather.py)
+    at their full shapes, with every launch count reset just before and
+    read just after, then each kernel held against its plain version, a
+    float64 sum and the library. Returns ({kernel: uses}, the drive's
+    launch counts)."""
+    from isle_tpu_torch import micro_kernels as mk, segsum
+    from isle_tpu_torch.benchmarks import micro_pallas as bp, \
+        micro_pallas_gather as bg
+
+    n, W, C = MICRO["n"], MICRO["width"], MICRO["chunk"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launch_counts()
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = {}
+    for label, avg_run, segments in bp.STREAMS:
+        nseg = segments(n)
+        seg, g = bp.stream_inputs(n, W, avg_run, nseg, seed, "cuda")
+        timed[label] = bp.run_stream(label, seg, g, nseg, C)
+        del seg, g
+        torch.cuda.empty_cache()
+    idx, tab = bg.gather_inputs(MICRO["gather_n"], MICRO["gather_rows"], W,
+                                seed, "cuda")
+    gathered = bg.run_sweep(idx, tab)
+    del idx, tab
+    torch.cuda.synchronize()
+    launches = {**segsum.launch_counts(), **mk.launch_counts()}
+    print(f"micro path (both drivers; n {n}, W {W}, chunk {C}; gather n "
+          f"{MICRO['gather_n']} of {MICRO['gather_rows']} rows): "
+          f"{time.perf_counter() - t0:.1f} s wall, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
+          f"launches {launches}; {card_line()}")
+    uses = {PARTIALS: micro_streams_check(seed, timed),
+            ROWGATHER: micro_gather_check(seed, gathered)}
+    for name, rows in uses.items():
+        need = sum(u["launches"] for u in rows)
+        assert launches[name] == need > 0, (name, launches[name], need)
+    torch.cuda.empty_cache()
+    return uses, launches
 
 
 def main() -> int:
@@ -2476,6 +2723,7 @@ def main() -> int:
     # H1: the default configuration, the hybrid layout, beside the COO run
     hy, h_launches, h_per, h_uses, _ = hybrid_phase(
         corpus, shape, args.seed, out, tr, per_incore, tiny)
+    cross_layout_phase(corpus, shape, args.seed, out)
 
     # 7. the other training options and a small inference, card == CPU.
     # Lloyd's meets near ties that rounding decides, so the options run
@@ -2602,6 +2850,12 @@ def main() -> int:
     del corpus
     torch.cuda.empty_cache()
     infer_full(tr, entries, shape, args.seed, out)
+    del entries
+    # M: the micro-benchmarks' kernels, with the NYTimes corpus freed
+    m_uses, micro_launches = micro_phase(args.seed)
+    uses.update(m_uses)
+    for name in uses:
+        by_path.setdefault(name, {})["micro"] = micro_launches[name]
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "isle_tpu", "bench")]
     assert not bad, f"the port imported {bad}"
@@ -2614,15 +2868,19 @@ def main() -> int:
     for name, rows in uses.items():
         if any(launched(u) for u in rows):
             assert sum(by_path[name].values()) > 0, (name, by_path[name])
-    source = "isle_tpu_torch/csrc/segsum.cu"
+    source = {name: "isle_tpu_torch/csrc/segsum.cu" for name in uses}
+    source[PARTIALS] = source[ROWGATHER] = "isle_tpu_torch/csrc/micro.cu"
     replaces = {ONEHOT: "isle_tpu/pallas_ops.py:236",
                 GATHER: "isle_tpu/pallas_ops.py:203",
                 NARROW: "isle_tpu/pallas_ops.py:203",
-                TILED: "isle_tpu/pallas_ops.py:203"}
+                TILED: "isle_tpu/pallas_ops.py:203",
+                PARTIALS: "benchmarks/micro_pallas.py:163",
+                ROWGATHER: "benchmarks/micro_pallas_gather.py:69"}
 
     # the times are summed over the uses that a driven path launched
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=source, replaces=replaces[name],
+        dict(name=name, route="cuda", source=source[name],
+             replaces=replaces[name],
              launches=sum(by_path[name].values()),
              launches_by_path=by_path[name],
              max_abs_err=max(u["max_abs_err"] for u in rows),

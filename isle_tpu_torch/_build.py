@@ -3,9 +3,12 @@ with ctypes.
 
 The library goes into build/isle_tpu_torch/ at the repository root, named
 by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file. nvcc compiles the plain C
-interface in seconds; torch.utils.cpp_extension.load, which includes
-PyTorch's headers, takes minutes. A failed build raises.
+unchanged one loads the existing file; ptxas's register and spill report
+of the build is kept beside it and returned with it. Each source compiles in an nvcc of
+its own, all started together, and one more nvcc links the objects. nvcc
+compiles the plain C interface in seconds;
+torch.utils.cpp_extension.load, which includes PyTorch's headers, takes
+minutes. A failed build raises.
 """
 
 from __future__ import annotations
@@ -25,10 +28,9 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "build", "isle_tpu_torch",
 )
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -47,6 +49,10 @@ _SIGNATURES = {
     "isle_segsum_gather_rows_narrow_f32": [
         _P, _P, _P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P, _I, _P,
     ],
+    "isle_chunk_onehot_partials_f32": [
+        _P, _P, _I64, _I, _I64, _I, _I, _P, _I, _P,
+    ],
+    "isle_row_gather_bulk_f32": [_P, _P, _I64, _I, _I, _I64, _I, _P, _I, _P],
 }
 
 
@@ -55,7 +61,7 @@ class Kernels:
     lib: ctypes.CDLL
     path: str
     build_seconds: float  # 0.0 when an up-to-date library was found
-    ptxas_log: str  # nvcc's -Xptxas -v report of this build ("" if reused)
+    ptxas_log: str  # nvcc's -Xptxas -v report of the build that made `path`
 
 
 def _nvcc() -> str:
@@ -69,6 +75,12 @@ def _nvcc() -> str:
     )
 
 
+def _raise_if_failed(cmd: list, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {returncode}: "
+                           f"{' '.join(cmd)}\n{log}")
+
+
 def _build() -> tuple:
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -76,23 +88,39 @@ def _build() -> tuple:
         with open(s, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libisle_segsum_{h.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path, 0.0, ""
+    log_path = f"{path}.ptxas.log"
+    if os.path.exists(path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            return path, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for o, s in zip(objs, sources)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        _raise_if_failed(cmd, proc.returncode, log)
+    link = [nvcc, *GENCODE, "-shared", "-o", tmp, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    _raise_if_failed(link, proc.returncode, proc.stdout + proc.stderr)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    # atomic: a process building at the same time never loads a partial
-    # file
+    for o in objs:
+        os.remove(o)
+    log = "".join(logs)
+    # the report is kept beside the library, so that a reused build is
+    # still checked for spills; both are renamed into place, the library
+    # last (atomic: a process building at the same time never loads a
+    # partial file, and a library it finds has its report)
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", log_path)
     os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, log
 
 
 @functools.lru_cache(maxsize=None)

@@ -1040,3 +1040,136 @@ def test_graft_entry_on_the_card_matches_the_cpu(dev):
     assert torch.equal(got[1], want[1])
     for g, c in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# csrc/micro.cu: chunk_partials and row_gather_async (isle_tpu_torch/
+# micro_kernels.py) at the tolerances of chip_smoke.py's phase M: every
+# mode within maxrel 1e-6 (max |out - ref| / max |ref|) of its plain
+# version, the gather bit-equal to index_select.
+# ---------------------------------------------------------------------------
+
+
+def _maxrel(got, ref):
+    torch.cuda.synchronize()
+    ref = ref.double()
+    return float((got.double() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def _micro_stream(dev, n, W, avg_run, chunk, seed):
+    from isle_tpu_torch import micro_kernels as mk
+
+    seg = torch.from_numpy(mk.make_sorted_segments(
+        n, avg_run, max(1 << 12, 2 * n // avg_run), seed)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((n, W), generator=gen, device=dev)
+    rank2d, ids, rcap = mk.plan_ranks(seg, chunk)
+    return seg, g, rank2d.view(-1), ids, rcap
+
+
+@pytest.mark.parametrize("mode", ["highest", "split2", "default"])
+@pytest.mark.parametrize("W,avg_run,chunk", [
+    (128, 16, 2048), (128, 110, 2048), (8, 16, 512), (200, 3, 512)])
+def test_micro_chunk_partials_matches_plain(dev, mode, W, avg_run, chunk):
+    from isle_tpu_torch import micro_kernels as mk
+
+    seg, g, rank, ids, rcap = _micro_stream(dev, 1 << 16, W, avg_run, chunk,
+                                            W + avg_run)
+    before = mk.chunk_partials.launches
+    got = mk.chunk_partials(rank, g, chunk, rcap, mode)
+    assert mk.chunk_partials.launches == before + 1
+    ref = mk.chunk_partials_plain(rank, g, chunk, rcap, mode)
+    assert _maxrel(got, ref) <= 1e-6
+    # rows at unused ranks are exactly zero (the scatter's fill ids rely
+    # on it), and a second launch is bit-equal
+    used = torch.zeros_like(got[..., 0], dtype=torch.bool)
+    used.view(-1)[(torch.arange(rank.numel(), device=dev) // chunk) * rcap
+                  + rank] = True
+    assert not got[~used].any()
+    assert torch.equal(got, mk.chunk_partials(rank, g, chunk, rcap, mode))
+
+
+@pytest.mark.parametrize("mode", ["highest", "split2", "default"])
+@pytest.mark.parametrize("layout", ["distinct", "one_rank", "outside"])
+def test_micro_chunk_partials_extreme_ranks(dev, mode, layout):
+    """Every entry its own rank (rcap = chunk: the tensor-core kernel's two
+    passes of 256 rows, the exact kernel's four of 128), one rank for the
+    whole chunk, and ranks outside [0, rcap), which add nothing."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    C, n, W = 512, 4096, 128
+    if layout == "distinct":
+        rank = torch.arange(n, device=dev, dtype=torch.int32) % C
+        rcap = C
+    elif layout == "one_rank":
+        rank = torch.zeros(n, device=dev, dtype=torch.int32)
+        rcap = 8
+    else:
+        rank = torch.randint(-3, 40, (n,), device=dev, dtype=torch.int32)
+        rcap = 32
+    g = torch.randn((n, W), device=dev)
+    got = mk.chunk_partials(rank, g, C, rcap, mode)
+    ref = mk.chunk_partials_plain(rank, g, C, rcap, mode)
+    assert _maxrel(got, ref) <= 1e-6
+    if layout == "distinct" and mode == "highest":
+        assert torch.equal(got, g.view(n // C, C, W))
+
+
+def test_micro_plan_and_scatter_on_the_card(dev):
+    """plan_ranks on the card equals its host version exactly; partials
+    plus scatter_partials equal the segment sums in float64 (split2 within
+    1e-5 of the unsplit g, highest within 1e-6)."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    n, W, C = 1 << 16, 128, 2048
+    seg, g, rank, ids, rcap = _micro_stream(dev, n, W, 16, C, 5)
+    r2, i2, c2 = mk.plan_ranks_plain(seg.cpu().numpy(), C)
+    assert c2 == rcap
+    assert np.array_equal(rank.view(-1, C).cpu().numpy(), r2)
+    assert np.array_equal(ids.cpu().numpy(), i2)
+    S = int(seg.max()) + 1
+    ref = torch.zeros((S, W), dtype=torch.float64, device=dev)
+    ref.index_add_(0, seg.long(), g.double())
+    for mode, tol in (("highest", 1e-6), ("split2", 1e-5)):
+        part = mk.chunk_partials(rank, g, C, rcap, mode)
+        assert _maxrel(mk.scatter_partials(part, ids, S), ref) <= tol
+
+
+@pytest.mark.parametrize("chunk,depth", [(1024, 8), (1024, 32), (1024, 128),
+                                         (4096, 256), (100, 3)])
+def test_micro_row_gather_is_index_select(dev, chunk, depth):
+    from isle_tpu_torch import micro_kernels as mk
+
+    V, W, n = 3_001, 128, 40_000  # n % chunk != 0: a ragged last block
+    gen = torch.Generator(device=dev).manual_seed(depth)
+    tab = torch.randn((V, W), generator=gen, device=dev)
+    idx = torch.randint(0, V, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = mk.row_gather_async.launches
+    got = mk.row_gather_async(idx, tab, chunk, depth)
+    assert mk.row_gather_async.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.index_select(tab, 0, idx))
+    assert torch.equal(got, mk.row_gather_async(idx, tab, chunk, depth))
+    bad = idx.clone()
+    bad[::7] = -1
+    bad[1::7] = V
+    assert torch.equal(mk.row_gather_async(bad, tab, chunk, depth),
+                       mk.row_gather_plain(bad, tab))
+
+
+def test_micro_row_gather_rejects(dev):
+    """depth > chunk, a misaligned table and a row of 20 bytes raise: the
+    bulk copy needs 16-byte addresses and sizes, and there is no fallback."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    idx = torch.zeros(64, device=dev, dtype=torch.int32)
+    tab = torch.randn((10, 128), device=dev)
+    with pytest.raises(ValueError, match="depth"):
+        mk.row_gather_async(idx, tab, 32, 64)
+    shifted = torch.empty(10 * 128 + 1, device=dev)[1:].view(10, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        mk.row_gather_async(idx, shifted, 32, 8)
+    with pytest.raises(ValueError, match="16"):
+        mk.row_gather_async(idx, torch.randn((10, 5), device=dev), 32, 8)

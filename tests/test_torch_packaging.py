@@ -53,6 +53,8 @@ def test_pyproject_ships_the_port():
     "isle_tpu_torch.elkans_sharded", "isle_tpu_torch._build_capi",
     "isle_tpu_torch.streaming_sharded", "isle_tpu_torch.hybrid",
     "isle_tpu_torch.matops", "isle_tpu_torch.graft_entry",
+    "isle_tpu_torch.micro_kernels", "isle_tpu_torch.benchmarks.micro_pallas",
+    "isle_tpu_torch.benchmarks.micro_pallas_gather",
 ])
 def test_import_pulls_in_no_jax(module):
     """The card's host has no jax: importing a module of the port (and the
