@@ -226,7 +226,10 @@ After 8, with the NYTimes corpus freed:
      the plan's, the kernel's, the partials + scatter's, index_add_'s,
      segsum_gather_rows(arange)'s and the plain version's ms beside the
      bound (g, the ranks and the partials once at 3.35 TB/s, or the dense
-     one-hot product's bf16 operations at 989 TFLOP/s).
+     one-hot product's bf16 operations at 989 TFLOP/s), each kernel's
+     share of its bound, its factor against the library call
+     (index_add_, index_select) and its threads, shared memory,
+     registers and blocks an SM (micro_kernels.kernel_info).
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
@@ -2008,7 +2011,6 @@ def traced_phase(corpus, shape, seed, out, tr) -> tuple:
 # Phase H: the hybrid layout (hybrid.py), the port's default engine
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 # a partial head on the small corpus: 200 of its 2,000 words
 TINY_HEAD_BYTES = 2 * TINY["docs"] * 200
 # the in-core stages beside the hybrid run's that launch alike
@@ -2505,8 +2507,14 @@ def micro_streams_check(seed: int, timed: dict) -> list:
             else:  # n W float32 adds
                 bound_ms, bound_by = bound(part_bytes, n * W)
             r = res[mode]
+            info = mk.kernel_info(mode, n, W, C, rcap)
             print(f"[{label}] {mode:7s}: plan {res['plan']:.3f} ms, partials "
-                  f"kernel {r['kernel']:.3f} ms, partials + scatter "
+                  f"kernel {r['kernel']:.3f} ms ({bound_ms / r['kernel']:.0%} "
+                  f"of the bound, {res['index_add'] / r['kernel']:.2f}x "
+                  f"index_add_; {info['threads']} threads, "
+                  f"{info['smem_bytes']} B shared, {info['registers']} "
+                  f"registers, {info['blocks_per_sm']} blocks/SM), partials "
+                  f"+ scatter "
                   f"{r['with_scatter']:.3f} ms, index_add_ "
                   f"{res['index_add']:.3f} ms, segsum_gather_rows(arange) "
                   f"{res['arange']:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -2551,8 +2559,13 @@ def micro_gather_check(seed: int, timed: dict) -> list:
         r = timed[chunk, depth]
         exact = [torch.equal(mk.row_gather_async(idx, tab, chunk, depth),
                              base) for _ in range(2)]
+        info = mk.kernel_info("gather", n, W, chunk, depth)
         print(f"row gather C={chunk} depth={depth}: {r['ms']:.3f} ms "
-              f"({n / r['ms'] / 1e3:.1f} Mrows/s), exact={r['exact']} (and "
+              f"({n / r['ms'] / 1e3:.1f} Mrows/s; {bound_ms / r['ms']:.0%} "
+              f"of the bound, {timed['index_select'] / r['ms']:.2f}x "
+              f"index_select; {info['smem_bytes']} B shared, "
+              f"{info['registers']} registers, {info['blocks_per_sm']} "
+              f"blocks/SM), exact={r['exact']} (and "
               f"{exact} again), index_select {timed['index_select']:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}; every row from HBM {hbm_ms:.3f} ms)")

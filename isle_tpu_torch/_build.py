@@ -53,6 +53,7 @@ _SIGNATURES = {
         _P, _P, _I64, _I, _I64, _I, _I, _P, _I, _P,
     ],
     "isle_row_gather_bulk_f32": [_P, _P, _I64, _I, _I, _I64, _I, _P, _I, _P],
+    "isle_micro_kernel_info": [_I, _I64, _I, _I64, _I, _I, _P],
 }
 
 

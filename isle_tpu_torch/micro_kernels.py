@@ -24,7 +24,10 @@ benchmarks/micro_pallas_gather.py, with the host helpers their drivers
 chunk_partials and row_gather_async each wrap one hand-written kernel of
 csrc/micro.cu. As in segsum.py, a CPU tensor takes the plain PyTorch
 version beside the wrapper, a CUDA tensor launches the kernel or raises,
-and each wrapper counts its launches in `.launches`.
+and each wrapper counts its launches in `.launches`. gather_shape gives
+a gather launch's blocks and shared memory as its kernel sizes them;
+kernel_info asks the card what a launch of either kernel takes (threads,
+shared memory, registers, blocks an SM, grid).
 """
 
 from __future__ import annotations
@@ -34,10 +37,16 @@ import torch
 
 MODES = ("highest", "split2", "default")
 _MODE_CODE = {m: i for i, m in enumerate(MODES)}
-# The tensor-core kernel stages KTILE entries of a chunk at a time, and the
-# gather kernel's ring of row slots lives in shared memory (csrc/micro.cu).
+# chunk_partials takes chunks of a multiple of KTILE entries
+# (csrc/micro.cu: kChunkMultiple)
 KTILE = 64
-MAX_RING_BYTES = 200 * 1024
+# the gather kernel: one warp a block, a stage of up to GATHER_STAGE_ROWS
+# rows (one a lane)
+GATHER_STAGE_ROWS = 32
+# The shared memory a block can have on an H100 (227 KB): row_gather_async
+# holds its ring to it on every device, the CPU too. (The C entry also
+# refuses a ring past the opt-in limit of the device it runs on.)
+SMEM_BYTES = 232_448
 # One-hot cells a step of chunk_partials_plain holds (float64: 512 MiB).
 PLAIN_ONEHOT_CELLS = 1 << 26
 
@@ -178,12 +187,15 @@ def chunk_partials(rank: torch.Tensor, g: torch.Tensor, chunk: int,
     rank[e] == r; rows no entry reaches are exactly zero and a rank
     outside [0, rcap) adds nothing. int32 rank (n,), float32 g (n, W).
 
-    On the card: "split2" and "default" run the one-hot product on the
-    tensor cores (mma.sync bf16, float32 accumulation), the one-hot built
-    in registers from the ranks; "highest" sums the float32 rows on the
-    CUDA cores in entry order within each rank, each run of equal ranks in
-    float64 (a plan's sorted ranks: every partial its float64 sum rounded
-    once). Each needs chunk % KTILE == 0 and W % 8 == 0; equal inputs give
+    On the card each block takes a chunk's whole width (up to 128
+    columns) and keeps the sums of a pass's rank rows (up to 256) in
+    shared memory (kernel_info gives a launch's shape). "split2" and
+    "default" run the one-hot product on the tensor cores (mma.sync bf16,
+    float32 accumulation), the one-hot built in registers from the ranks,
+    only for the n8 tiles of rank rows that a k16 step's ranks reach;
+    "highest" sums the float32 rows on the CUDA cores in entry order
+    within each rank, each run of equal ranks in float64 (a plan's sorted
+    ranks: every partial its float64 sum rounded once). Each needs chunk % KTILE == 0 and W % 8 == 0; equal inputs give
     bit-equal outputs."""
     if mode not in _MODE_CODE:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -254,37 +266,53 @@ def row_gather_plain(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gather_shape(n: int, W: int, chunk: int, depth: int) -> dict:
+    """How row_gather_async's kernel cuts a launch (csrc/micro.cu): one
+    warp a block and a block a `chunk` rows, the ring of `depth` rows cut
+    into stages of up to GATHER_STAGE_ROWS (a shorter last one), and the
+    dynamic shared memory a block: the ring, an mbarrier a stage and the
+    chunk's indices."""
+    stage_rows = min(depth, GATHER_STAGE_ROWS)
+    stages = -(-depth // stage_rows)
+    return dict(threads=32, stage_rows=stage_rows, stages=stages,
+                blocks=-(-n // chunk),
+                smem_bytes=depth * W * 4 + stages * 8 + chunk * 4)
+
+
 def row_gather_async(idx: torch.Tensor, tab: torch.Tensor, chunk: int = 1024,
                      depth: int = 32) -> torch.Tensor:
     """(n, W) float32: out[i, :] = tab[idx[i], :], a zero row where idx
     lies outside [0, len(tab)). int32 idx (n,), float32 tab (V, W).
 
-    On the card one block per `chunk` rows: one thread issues a bulk
-    asynchronous copy (cp.async.bulk, Hopper's TMA engine) a row into a
-    ring of `depth` row slots in shared memory, each slot with its
-    mbarrier, and the other warps store each arrived row to `out` in row
-    order. It needs depth <= chunk, a ring of at most MAX_RING_BYTES, rows
-    of a multiple of 16 bytes and 16-byte aligned tensors, and raises
-    otherwise."""
+    On the card one warp a block and a block a `chunk` rows: the block's
+    indices are staged in shared memory, lane j issues a bulk asynchronous
+    copy (cp.async.bulk, Hopper's TMA engine) of row j of a stage of the
+    ring of `depth` rows, and each arrived stage leaves for `out` by one
+    bulk copy (gather_shape). It needs depth <= chunk, the ring and the
+    chunk's indices within SMEM_BYTES (an H100's limit, held on every
+    device), rows of a multiple of 16 bytes and 16-byte aligned tensors,
+    and raises otherwise."""
     _check_1d("idx", idx, torch.int32)
     _check_table("tab", tab, idx.device)
     n = idx.numel()
     if not 1 <= depth <= chunk:
         raise ValueError(f"need 1 <= depth <= chunk, got depth={depth}, "
                          f"chunk={chunk}")
+    W = tab.shape[1]
+    smem = gather_shape(n, W, chunk, depth)["smem_bytes"]
+    if smem > SMEM_BYTES:
+        raise ValueError(f"a ring of {depth} rows of {W * 4} bytes and "
+                         f"{chunk} staged indices need {smem} bytes of "
+                         f"shared memory, more than a block's {SMEM_BYTES}")
     dev = idx.device
     if dev.type == "cpu":
         return row_gather_plain(idx, tab)
     if dev.type != "cuda":
         raise ValueError(f"row_gather_async runs on cpu or cuda, not {dev}")
-    W = tab.shape[1]
     if (W * 4) % 16 or tab.data_ptr() % 16:
         raise ValueError(f"the bulk copy needs rows of a multiple of 16 "
                          f"bytes and a 16-byte aligned table, got W={W}, "
                          f"address {tab.data_ptr():#x}")
-    if depth * W * 4 > MAX_RING_BYTES:
-        raise ValueError(f"a ring of {depth} rows of {W * 4} bytes exceeds "
-                         f"{MAX_RING_BYTES} bytes of shared memory")
     from ._build import kernels
     from .segsum import _launch_args, _raise_on_error
 
@@ -301,6 +329,38 @@ def row_gather_async(idx: torch.Tensor, tab: torch.Tensor, chunk: int = 1024,
 
 
 row_gather_async.launches = 0
+
+# kernel_info's kinds: the C entry's `which`
+_INFO_KIND = {**_MODE_CODE, "gather": 3}
+
+
+def kernel_info(kind: str, n: int, W: int, chunk: int, arg: int,
+                device="cuda") -> dict:
+    """What the card gives a launch of one micro kernel, launching nothing:
+    kind "highest", "split2" or "default" (chunk_partials at rcap = arg)
+    or "gather" (row_gather_async at depth = arg). Returns threads,
+    smem_bytes (dynamic, a block), blocks_per_sm
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers (a
+    thread) and grid (blocks launched). Needs a CUDA device."""
+    import ctypes
+
+    from ._build import kernels
+    from .segsum import _raise_on_error
+
+    if kind not in _INFO_KIND:
+        raise ValueError(f"kind must be one of {tuple(_INFO_KIND)}, got "
+                         f"{kind!r}")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"kernel_info asks a CUDA device, not {dev}")
+    out = (ctypes.c_int64 * 5)()
+    _raise_on_error("kernel_info", kernels().lib.isle_micro_kernel_info(
+        _INFO_KIND[kind], n, W, chunk, arg,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.addressof(out)))
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                     "grid"), out))
+
 
 _COUNTED = (chunk_partials, row_gather_async)
 

@@ -1173,3 +1173,106 @@ def test_micro_row_gather_rejects(dev):
         mk.row_gather_async(idx, shifted, 32, 8)
     with pytest.raises(ValueError, match="16"):
         mk.row_gather_async(idx, torch.randn((10, 5), device=dev), 32, 8)
+
+
+def _ranks(layout, n, C, rng):
+    """(rank int32 (n,), rcap) of a stream laid out for the m-tile windows
+    of the partials kernels: each k16 step's ranks reach only their own
+    m16 tiles of rank rows."""
+    chunks = n // C
+    if layout == "random":  # every m-tile in every step's window
+        return rng.integers(0, 256, n), 256
+    if layout == "descending":
+        return np.tile(np.arange(C)[::-1] * 256 // C, chunks), 256
+    if layout == "one_rank":  # one rank a chunk, a different one each
+        return np.repeat(rng.integers(0, 256, chunks), C), 256
+    if layout == "runs_of_15":  # a window across an m-tile at every step
+        return np.tile(np.arange(C) // 15, chunks), 256
+    if layout == "outside":  # a sorted stream with ranks off both ends
+        rank = np.tile(np.arange(C) // 9, chunks)
+        bad = rng.random(n) < 0.1
+        rank[bad] = rng.choice([-7, -1, 256, 300], int(bad.sum()))
+        return rank, 256
+    if layout == "passes":  # rcap 512: two passes of 256 rank rows
+        return np.tile(np.arange(C) // 2, chunks), 512
+    raise ValueError(layout)
+
+
+@pytest.mark.parametrize("W", [8, 128, 200])
+@pytest.mark.parametrize("layout", ["random", "descending", "one_rank",
+                                    "runs_of_15", "outside", "passes"])
+@pytest.mark.parametrize("mode", ["highest", "split2", "default"])
+def test_micro_partials_rank_windows(dev, mode, layout, W):
+    """The partials kernels on rank layouts that the m-tile windows and
+    the passes over rank rows must get right: within maxrel 1e-6 of the
+    plain version, unused rows exactly zero, ranks outside [0, rcap)
+    adding nothing, and two launches bit-equal."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    C, n = 1024, 4096
+    rng = np.random.default_rng(len(layout) + W)
+    rank_np, rcap = _ranks(layout, n, C, rng)
+    rank = torch.from_numpy(rank_np.astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((n, W)).astype(
+        np.float32)).to(dev)
+    got = mk.chunk_partials(rank, g, C, rcap, mode)
+    ref = mk.chunk_partials_plain(rank, g, C, rcap, mode)
+    assert _maxrel(got, ref) <= 1e-6
+    ok = (rank >= 0) & (rank < rcap)
+    used = torch.zeros((n // C) * rcap, dtype=torch.bool, device=dev)
+    used[((torch.arange(n, device=dev) // C) * rcap + rank)[ok]] = True
+    assert not got.view(-1, W)[~used].any()
+    assert torch.equal(got, mk.chunk_partials(rank, g, C, rcap, mode))
+
+
+def test_micro_kernel_info_at_the_benchmark_shapes(dev):
+    """What the card gives the micro kernels at the drivers' shapes (n =
+    2^24, W = 128, chunk 2048; the gather's four (chunk, depth)): the
+    partials' persistent grid fills every SM, two blocks an SM at rcap 32
+    and one at rcap 256 (128 KB of sums); the gather a block a chunk, its
+    shared memory as gather_shape sizes it, at least one block an SM."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 1 << 24
+    for mode in mk.MODES:
+        for rcap, per_sm in ((32, 2), (256, 1)):
+            info = mk.kernel_info(mode, n, 128, 2048, rcap)
+            assert info["threads"] == (128 if mode == "highest" else 256)
+            assert info["blocks_per_sm"] == per_sm
+            assert info["grid"] == per_sm * sms
+            assert info["smem_bytes"] <= mk.SMEM_BYTES
+            assert info["registers"] > 0
+    for chunk, depth in ((1024, 8), (1024, 32), (1024, 128), (4096, 256)):
+        info = mk.kernel_info("gather", 1 << 22, 128, chunk, depth)
+        want = mk.gather_shape(1 << 22, 128, chunk, depth)
+        assert (info["threads"], info["smem_bytes"], info["grid"]) == (
+            want["threads"], want["smem_bytes"], want["blocks"])
+        assert info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("W", [4, 128])
+@pytest.mark.parametrize("depth", [1, 3, 8, 31, 33, 256])
+def test_micro_row_gather_stages(dev, depth, W):
+    """The bulk gather at depths that cut the ring into one short stage,
+    whole stages of 32 and a short last one, over a ragged last block
+    (n % chunk != 0), with out-of-range indices scattered and a whole
+    stage of them: bit-equal to index_select where the index is in range,
+    zero rows elsewhere."""
+    from isle_tpu_torch import micro_kernels as mk
+
+    V, n, chunk = 1_001, 20_000, 300  # 20,000 % 300 = 200
+    gen = torch.Generator(device=dev).manual_seed(depth + W)
+    tab = torch.randn((V, W), generator=gen, device=dev)
+    idx = torch.randint(0, V, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got = mk.row_gather_async(idx, tab, chunk, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.index_select(tab, 0, idx))
+    bad = idx.clone()
+    bad[::5] = -3
+    bad[2::11] = V
+    bad[600:664] = V + 7  # block 2's first 64 rows: whole stages of them
+    got = mk.row_gather_async(bad, tab, chunk, depth)
+    assert torch.equal(got, mk.row_gather_plain(bad, tab))
+    assert torch.equal(got, mk.row_gather_async(bad, tab, chunk, depth))

@@ -192,3 +192,96 @@ def test_wrappers_check_their_arguments():
     mk.chunk_partials(rank, g, 512, 8, "highest")
     mk.row_gather_async(rank, g, 32, 8)
     assert mk.launch_counts() == {"chunk_partials": 0, "row_gather_async": 0}
+
+
+def _rank_layout(layout, n, C, rng):
+    """(rank, rcap): the rank layouts the card's partials kernels are
+    tested on (tests/test_torch_cuda.py), each a window of rank rows a
+    k16 step reaches that the plain version must sum the same way."""
+    chunks = n // C
+    if layout == "random":
+        return rng.integers(0, 256, n), 256
+    if layout == "descending":
+        return np.tile(np.arange(C)[::-1] * 256 // C, chunks), 256
+    if layout == "one_rank":
+        return np.repeat(rng.integers(0, 256, chunks), C), 256
+    if layout == "runs_of_15":
+        return np.tile(np.arange(C) // 15, chunks), 256
+    if layout == "outside":  # a sorted stream with ranks off both ends
+        rank = np.tile(np.arange(C) // 9, chunks)
+        bad = rng.random(n) < 0.1
+        rank[bad] = rng.choice([-7, -1, 256, 300], int(bad.sum()))
+        return rank, 256
+    if layout == "passes":  # rcap 512
+        return np.tile(np.arange(C) // 2, chunks), 512
+    raise ValueError(layout)
+
+
+@pytest.mark.parametrize("W", [8, 200])
+@pytest.mark.parametrize("layout", ["random", "descending", "one_rank",
+                                    "runs_of_15", "outside", "passes"])
+@pytest.mark.parametrize("mode", mk.MODES)
+def test_partials_rank_layouts_match_the_pallas_kernel(mp, mode, layout, W):
+    """chunk_partials on the rank layouts of the card's tests (rcap 256
+    and 512, ranks random, descending, one a chunk, in runs across rank
+    tiles, off both ends) against make_pallas_segsum: within maxrel 1e-6,
+    rows no entry reaches exactly zero."""
+    C, n = 512, 2048
+    rng = np.random.default_rng(len(layout) + W)
+    rank_np, rcap = _rank_layout(layout, n, C, rng)
+    rank = rank_np.astype(np.int32)
+    g = rng.standard_normal((n, W)).astype(np.float32)
+    got = mk.chunk_partials(torch.from_numpy(rank), torch.from_numpy(g), C,
+                            rcap, mode)
+    ref = mp.make_pallas_segsum(C, rcap, mode)(
+        jnp.asarray(rank), _jax_g(g, mode), n // C, W)
+    assert got.shape == ref.shape == (n // C, rcap, W)
+    assert _maxrel(got, ref) <= 1e-6
+    used = np.zeros((n // C, rcap), bool)
+    ok = (rank >= 0) & (rank < rcap)
+    used[(np.arange(n) // C)[ok], rank[ok]] = True
+    assert not got.numpy()[~used].any()
+
+
+@pytest.mark.parametrize("depth,want", [
+    # (rows a stage, stages): stages of 32 rows, a shorter last one
+    (1, (1, 1)), (3, (3, 1)), (8, (8, 1)), (31, (31, 1)), (32, (32, 1)),
+    (33, (32, 2)), (128, (32, 4)), (256, (32, 8)), (257, (32, 9)),
+])
+def test_gather_shape(depth, want):
+    """How the bulk gather cuts a launch: one warp a block, a block a
+    chunk (a ragged last one), the ring's stages, and the shared memory:
+    the ring, an 8-byte mbarrier a stage and the chunk's indices."""
+    n, W, chunk = 40_000, 128, 1024
+    sh = mk.gather_shape(n, W, chunk, depth)
+    assert (sh["stage_rows"], sh["stages"]) == want
+    assert sh["stage_rows"] * (sh["stages"] - 1) < depth <= \
+        sh["stage_rows"] * sh["stages"]
+    assert sh["threads"] == 32 and sh["blocks"] == 40
+    assert sh["smem_bytes"] == depth * W * 4 + want[1] * 8 + chunk * 4
+
+
+def test_gather_refuses_what_shared_memory_cannot_hold():
+    """The ring and the chunk's staged indices must fit a block's shared
+    memory (227 KB): the wrapper raises past it, on any device, and takes
+    the benchmark's largest point, (4096, 256) at W = 128."""
+    idx = torch.zeros(8192, dtype=torch.int32)
+    tab = torch.zeros((4, 128))
+    assert mk.gather_shape(8192, 128, 4096, 256)["smem_bytes"] <= \
+        mk.SMEM_BYTES
+    mk.row_gather_async(idx, tab, 4096, 256)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.row_gather_async(idx, tab, 8192, 400)  # a 200 KB ring + 32 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.row_gather_async(idx, torch.zeros((4, 4)), 8192 * 8, 8)
+    big = mk.gather_shape(8192, 128, 8192, 400)["smem_bytes"]
+    assert big == 400 * 512 + 13 * 8 + 8192 * 4 > mk.SMEM_BYTES
+
+
+def test_kernel_info_asks_a_cuda_device():
+    """kernel_info reads launch shapes from the card: it refuses an unknown
+    kernel and a device that is not CUDA before loading anything."""
+    with pytest.raises(ValueError, match="kind"):
+        mk.kernel_info("tf32", 1 << 16, 128, 2048, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.kernel_info("gather", 1 << 16, 128, 1024, 8, device="cpu")
