@@ -77,7 +77,30 @@ stay) and says so on its own line. Phases, in order:
      Whether the two runs' weights are bit-equal is printed. MWU reaches
      no kernel: the launch counts of this run are printed, not required.
 
-  H1. (between 6 and 7) the hybrid layout, the port's default engine
+  E. (between 6 and H1) the eigensolver's two loops on phase 4's B
+     (rebuilt from the run's ζ, with its doc tiles): linalg.block_ks_device
+     (the default: the Ritz step a float64 eigh on the card) and
+     linalg.block_ks (the host-driven loop, LAPACK float32), the same
+     draws, three solves each in turn, launch counts set to 0 just before
+     and read just after every solve. Gates: the device loop's solves
+     bit-equal to each other and its eigenvalues to phase 4's; nconv,
+     restarts, operator calls and launch counts equal between the loops;
+     eigenvalues within rtol 1e-4 and U within atol 2e-4 up to sign; a
+     restart of the device loop waits on the host only for the stop test
+     and for eigh's own check (torch.cuda.set_sync_debug_mode("warn"),
+     recorded warnings: a full solve's waits less a max_restarts=0
+     solve's, over its restarts, equal eigh's waits plus one); two float64
+     eighs bit-equal. Printed: the waits of both loops, the Ritz eigh alone
+     on the card and LAPACK's on the host, the median walls, the peak
+     memory, and one traced solve of each loop (torch.profiler: device
+     idle time and the split of M4). With H4, the k = 64 corpus trained
+     in each layout with the device loop against H4's host-loop run of
+     the layout: eigenvalues within rtol 1e-4, and clusters equal on more
+     than 99% of docs where the k-means++ seeds are equal; where they
+     part, only at a tie of a draw (the first differing seed the next or
+     the previous doc), the agreement then printed with and without the
+     labels;
+  H1. (between E and 7) the hybrid layout, the port's default engine
      (GpuConfig's dense_head_bytes, 4 GiB, as isle_tpu's): first the
      small corpus with a 200-row head, card against CPU as in phase 3;
      then Trainer.train() + train_edge_topics() at the NYTimes shape
@@ -105,7 +128,9 @@ stay) and says so on its own line. Phases, in order:
   H4. (right after H1) the layouts against each other where the clusters
      are well defined: the NYTimes shape at k = 64 (the synthetic corpus
      plants 64 word bands), trained in the default hybrid layout and in
-     COO: clusters equal on more than 99% of docs and eigenvalues within
+     COO, both on the host eigensolver loop (with the device loop the COO
+     run's k-means++ parts from the host loop's at a tie of a draw):
+     clusters equal on more than 99% of docs and eigenvalues within
      rtol 1e-4 (tests/test_variants.py's cross-layout bounds); the
      model's max abs difference and the topics with equal catchwords
      printed.
@@ -144,9 +169,12 @@ Between 7 and 8, with the in-core corpus off the card:
      and native/capi_smoke.c run against it with ISLE_CAPI_DEVICE=cuda;
   M4. one more in-core run with GpuConfig.profile_dir: the Chrome trace
      must exist and hold CUDA kernel events and a marker for every stage;
-     from it, how the eigensolve's time splits into the SpMM kernels, QR,
+     from it, how the eigensolve's time (the default loop,
+     block_ks_device) splits into the SpMM kernels, the Ritz eigh, QR,
      the orthogonalization matmuls, other kernels, copies and idle device
-     time, with the host's time in the Ritz eigh and in synchronizes;
+     time (printed beside the host loop's 292 ms in an earlier trace of
+     this stage on an H100 80GB HBM3 at 700 W), with the
+     host's time in eigh, QR, the matmuls and synchronizes;
 
   S1. streamed training (isle_tpu_torch.streaming.StreamedTrainer) of the
      same corpus at full width, chunk_entries 2^22 (12 chunks), launch
@@ -252,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import collections
 import contextlib
 import datetime
 import json
@@ -346,14 +375,17 @@ def gpu_config(device: str, head_bytes=0, **kw):
 
 def train(corpus, shape: dict, seed: int, device: str, out: str,
           hyper=None, mesh=None, profile_dir: str = "", head_bytes=0,
-          **cfg_kw):
+          device_loop: bool = True, **cfg_kw):
+    """Trainer.train() + train_edge_topics(); `device_loop` is
+    GpuConfig.device_loop_solver (False: the host-driven block_ks)."""
     from isle_tpu_torch import HyperParams, TrainConfig, Trainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
                       compute_edge_topics=True, max_edge_topics=shape["edges"],
                       hyper=HyperParams(**(hyper or {})), **cfg_kw)
     tr = Trainer(cfg, output_dir=out, quiet=True, mesh=mesh,
-                 gpu=gpu_config(device, head_bytes, profile_dir=profile_dir))
+                 gpu=gpu_config(device, head_bytes, profile_dir=profile_dir,
+                                device_loop_solver=device_loop))
     tr.load_corpus(corpus)
     tr.train()
     tr.train_edge_topics()
@@ -1877,21 +1909,26 @@ def _union_seconds(intervals) -> float:
     return total
 
 
-def eigensolve_split(events: list) -> dict:
+def eigensolve_split(events: list, window=None) -> dict:
     """Where the eigensolve's time went, from the events of a
-    GpuConfig.profile_dir trace: the stage's window is cut by the
-    trainer's stage markers; a kernel belongs to the operator whose
-    CPU-side call launched it (by the trace's correlation ids).
-    Milliseconds."""
+    torch.profiler trace: the window (lo, hi) in the trace's
+    microseconds, by default the stage's, cut by the trainer's stage
+    markers of a GpuConfig.profile_dir trace; a kernel belongs to the
+    operator whose CPU-side call launched it (by the trace's correlation
+    ids). Milliseconds, and the CUDA runtime's synchronize calls in the
+    window by the outermost operator around each."""
     from isle_tpu_torch.obs import STAGE_MARK
 
     events = [e for e in events if e.get("ph") == "X"]
-    marks = sorted((e["ts"], e["name"][len(STAGE_MARK):]) for e in events
-                   if e.get("name", "").startswith(STAGE_MARK))
-    labels = [name for _, name in marks]
-    assert "eigen solve (B B^T)" in labels, labels
-    i = labels.index("eigen solve (B B^T)")
-    lo, hi = marks[i - 1][0], marks[i][0]
+    if window is None:
+        marks = sorted((e["ts"], e["name"][len(STAGE_MARK):])
+                       for e in events
+                       if e.get("name", "").startswith(STAGE_MARK))
+        labels = [name for _, name in marks]
+        assert "eigen solve (B B^T)" in labels, labels
+        i = labels.index("eigen solve (B B^T)")
+        window = marks[i - 1][0], marks[i][0]
+    lo, hi = window
 
     def inside(e):
         return lo <= e["ts"] < hi
@@ -1904,6 +1941,7 @@ def eigensolve_split(events: list) -> dict:
 
     qr_ops, qr_starts = spans("aten::linalg_qr")
     mm_ops, mm_starts = spans("aten::mm")
+    eigh_ops, eigh_starts = spans("aten::linalg_eigh")
 
     def within(ops, starts, ts):
         j = bisect.bisect_right(starts, ts) - 1
@@ -1913,6 +1951,7 @@ def eigensolve_split(events: list) -> dict:
                  if e.get("cat") == "cuda_runtime"
                  and "correlation" in e.get("args", {})}
     device = {"SpMM kernels (segsum_gather_rows)": 0.0,
+              "Ritz eigh (kernels launched by aten::linalg_eigh)": 0.0,
               "QR (kernels launched by aten::linalg_qr)": 0.0,
               "matmuls (kernels launched by aten::mm)": 0.0,
               "other kernels": 0.0, "copies": 0.0}
@@ -1928,6 +1967,8 @@ def eigensolve_split(events: list) -> dict:
             key = "copies"
         elif "segsum" in e["name"]:
             key = "SpMM kernels (segsum_gather_rows)"
+        elif within(eigh_ops, eigh_starts, ts):
+            key = "Ritz eigh (kernels launched by aten::linalg_eigh)"
         elif within(qr_ops, qr_starts, ts):
             key = "QR (kernels launched by aten::linalg_qr)"
         elif within(mm_ops, mm_starts, ts):
@@ -1936,7 +1977,7 @@ def eigensolve_split(events: list) -> dict:
             key = "other kernels"
         n_kernels += cat == "kernel"
         device[key] += e["dur"] / 1e3
-    window = (hi - lo) / 1e3
+    span_ms = (hi - lo) / 1e3
     host = {}
     for name in ("aten::linalg_eigh", "aten::linalg_qr", "aten::mm"):
         host[name] = sum(e["dur"] for e in events if e.get("cat") == "cpu_op"
@@ -1945,10 +1986,24 @@ def eigensolve_split(events: list) -> dict:
         e["dur"] for e in events if e.get("cat") == "cuda_runtime"
         and inside(e) and ("Synchronize" in e["name"]
                            or e["name"].startswith("cudaMemcpy"))) / 1e3
-    return dict(window_ms=window, device_ms=device,
-                device_idle_ms=window - _union_seconds(busy) / 1e3,
-                host_ms=host, kernels=n_kernels,
-                qr_calls=len(qr_ops), mm_calls=len(mm_ops))
+    # the runtime's synchronize calls by the outermost operator around
+    # each (the Python-level call that made it)
+    ops = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+           if e.get("cat") == "cpu_op" and inside(e)]
+    syncs = collections.Counter()
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and inside(e) \
+                and "Synchronize" in e["name"]:
+            around = [o for o in ops
+                      if o[0] <= e["ts"] and e["ts"] + e["dur"] <= o[1]]
+            outer = max(around, key=lambda o: o[1] - o[0])[2] if around \
+                else "no operator"
+            syncs[f"{e['name']} in {outer}"] += 1
+    return dict(window_ms=span_ms, device_ms=device,
+                device_idle_ms=span_ms - _union_seconds(busy) / 1e3,
+                host_ms=host, kernels=n_kernels, sync_calls=syncs,
+                qr_calls=len(qr_ops), mm_calls=len(mm_ops),
+                eigh_calls=len(eigh_ops))
 
 
 def traced_phase(corpus, shape, seed, out, tr) -> tuple:
@@ -1995,16 +2050,315 @@ def traced_phase(corpus, shape, seed, out, tr) -> tuple:
           f"included), trace {os.path.getsize(path) / 2**20:.1f} MiB, "
           f"{n_events} events, read in {time.perf_counter() - t0:.1f} s; "
           f"results equal the untraced run's; {card_line()}")
-    print(f"  eigensolve under the profiler: stage {stage:.3f} s, window "
-          f"between its markers {split['window_ms']:.1f} ms, "
-          f"{split['kernels']} kernels, {split['qr_calls']} QR calls, "
-          f"{split['mm_calls']} mm calls; device: "
+    loop = "block_ks_device" if traced.gpu.device_loop_solver else "block_ks"
+    print(f"  eigensolve under the profiler ({loop}): stage {stage:.3f} s, "
+          f"window between its markers {split['window_ms']:.1f} ms; "
+          f"device idle {split['device_idle_ms']:.1f} ms (the host loop "
+          f"block_ks in an earlier trace of this stage on an H100 80GB "
+          f"HBM3 at 700 W: {HOST_LOOP_EIGENSOLVE_IDLE_MS} ms)")
+    print_split(split)
+    return launches, stage_launches(traced)
+
+
+def print_split(split: dict) -> None:
+    print(f"    {split['kernels']} kernels, {split['eigh_calls']} eigh "
+          f"calls, {split['qr_calls']} QR calls, {split['mm_calls']} mm "
+          f"calls, {sum(split['sync_calls'].values())} synchronize calls ("
+          + "; ".join(f"{name} x {n}"
+                      for name, n in sorted(split["sync_calls"].items()))
+          + "); device: "
           + "; ".join(f"{name} {ms:.1f} ms"
                       for name, ms in split["device_ms"].items())
           + f"; device idle {split['device_idle_ms']:.1f} ms; host: "
           + "; ".join(f"{name} {ms:.1f} ms"
                       for name, ms in split["host_ms"].items()))
-    return launches, stage_launches(traced)
+
+
+# ---------------------------------------------------------------------------
+# Phase E: the eigensolver's two loops, linalg.block_ks_device (the
+# default) and linalg.block_ks (GpuConfig.device_loop_solver=False)
+# ---------------------------------------------------------------------------
+
+E_SOLVES = 3  # timed solves of each loop, in turn
+# the host loop's idle device time in a trace of the eigensolve stage at
+# the NYTimes shape, H100 80GB HBM3 at 700 W, before the device loop
+HOST_LOOP_EIGENSOLVE_IDLE_MS = 292.0
+LOOPS = ("block_ks_device", "block_ks")
+
+
+@contextlib.contextmanager
+def host_waits():
+    """The host's waits on the card inside the block as PyTorch reports
+    them: with torch.cuda.set_sync_debug_mode("warn") every synchronizing
+    call (a stream synchronize, a blocking copy, item(), eigh's check of
+    its info) warns. Each warning is counted by its site, the innermost
+    frame of isle_tpu_torch/linalg.py on the stack (function, source
+    line), else the warning's own file and line; the yielded namespace
+    holds the Counter `sites` and, at exit, the total `n`."""
+    import traceback
+    import warnings
+
+    box = SimpleNamespace(n=0, sites=collections.Counter())
+    linalg_py = os.path.join("isle_tpu_torch", "linalg.py")
+
+    def count(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.endswith(linalg_py)]
+        box.sites[(ours[-1].name, ours[-1].line.strip()) if ours else
+                  (os.path.basename(filename), f"line {lineno}")] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = count
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    box.n = sum(box.sites.values())
+
+
+def restart_waits(sites: collections.Counter) -> tuple:
+    """A device-loop solve's waits by where they stand: (inside a restart's
+    expand steps, Ritz step and truncate {site: n}, at the stop test's
+    readback, elsewhere: the start and the end)."""
+    inside = {site: n for site, n in sites.items()
+              if site[0] in ("_expand", "_ritz", "_truncate", "restart")}
+    stop = sum(n for site, n in sites.items()
+               if site[0] == "block_ks_device" and "int(nconv_d)" in site[1])
+    return inside, stop, sum(sites.values()) - sum(inside.values()) - stop
+
+
+def basis_groups(U: np.ndarray, U2: np.ndarray, evals: np.ndarray,
+                 rel_gap: float = 1e-2) -> list:
+    """Two eigenbases of one operator compared where each is determined:
+    the eigenvalues (descending) cut into groups wherever two neighbours
+    lie more than rel_gap apart (relative); for each group (first column,
+    size, the smallest singular value of U[:, G]^T U2[:, G]: 1 when both
+    span the same subspace, |cos| of the two columns for a single one).
+    With residuals below tol * lambda (the stop test) Davis-Kahan bounds
+    each basis's angle to the group's invariant subspace by tol /
+    rel_gap, 1e-2 at tol 1e-4, so the two agree to a cosine of at least
+    1 - 1e-3 whatever the rounding inside a group of close eigenvalues."""
+    M = U.astype(np.float64).T @ U2.astype(np.float64)
+    cuts = [0] + [j for j in range(1, len(evals))
+                  if evals[j - 1] - evals[j] > rel_gap * evals[j - 1]] \
+        + [len(evals)]
+    return [(a, b - a, float(np.linalg.svd(M[a:b, a:b],
+                                           compute_uv=False).min()))
+            for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def eig_solve(loop: str, B, tr, seed: int, max_restarts=None):
+    """One solve of linalg.<loop> on B B^T with the trainer's operator,
+    options and a fresh Draws(seed) (the main path's start block),
+    launch counts set to 0 just before and read just after, host waits
+    counted by site (host_waits). Returns (result, wall s, launch counts,
+    host waits by site, peak device bytes above what was held before)."""
+    from isle_tpu_torch import linalg, segsum
+    from isle_tpu_torch.matops import mat_gram_x
+    from isle_tpu_torch.rng import Draws
+
+    hp, chunk = tr.config.hyper, tr.gpu.seg_chunk
+    if max_restarts is None:
+        max_restarts = hp.block_ks_max_iters
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.reset_launch_counts()
+    with host_waits() as waits:
+        t0 = time.perf_counter()
+        res = getattr(linalg, loop)(
+            lambda X: mat_gram_x(B, X, chunk), B.vocab, tr.config.num_topics,
+            Draws(seed), B.device, blk=hp.block_ks_block_size,
+            tol=hp.block_ks_tolerance, max_restarts=max_restarts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (res, wall, segsum.launch_counts(), waits.sites,
+            torch.cuda.max_memory_allocated() - held)
+
+
+def traced_solve(loop: str, B, tr, seed: int, out: str) -> dict:
+    """One solve of `loop` under torch.profiler; its split
+    (eigensolve_split) over the window of a record_function around it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("phase E solve"):
+            eig_solve(loop, B, tr, seed)
+    path = os.path.join(out, f"phase_e_{loop}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("name") == "phase E solve"
+            and e.get("cat") == "user_annotation"]
+    assert len(span) == 1, span
+    return eigensolve_split(events, (span[0]["ts"],
+                                     span[0]["ts"] + span[0]["dur"]))
+
+
+def ritz_eigh_probe(Hs: torch.Tensor) -> dict:
+    """The Ritz step alone on one K x K projected matrix of a solve (float32
+    on the card): torch.linalg.eigh in float64 on the card, its host
+    waits, its ms by CUDA events and by the host's clock (mean of REPS
+    after a warm-up; each call waits for its own check), whether two
+    calls are bit-equal; beside it block_ks's step, float32 LAPACK on the
+    host with the copies both ways."""
+    H64 = Hs.to(torch.float64)
+    H64 = (H64 + H64.T) * 0.5
+    with host_waits() as waits:
+        torch.linalg.eigh(H64)
+    w1, W1 = torch.linalg.eigh(H64)
+    w2, W2 = torch.linalg.eigh(H64)
+    events_ms = time_ms(lambda: torch.linalg.eigh(H64))
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / REPS
+
+    def lapack():
+        w, W = torch.linalg.eigh(((Hs + Hs.T) * 0.5).cpu())
+        return w.to(Hs.device), W.to(Hs.device)
+
+    return dict(K=Hs.shape[0], waits=waits.n, events_ms=events_ms,
+                host_ms=host_ms(lambda: torch.linalg.eigh(H64)),
+                lapack_ms=host_ms(lapack),
+                bit_equal=bool(torch.equal(w1, w2) and torch.equal(W1, W2)))
+
+
+def device_loop_phase(tr, seed: int, out: str) -> None:
+    """Phase E at the NYTimes shape on phase 4's B (rebuilt from the run's
+    ζ, with the trainer's doc tiles): block_ks_device and block_ks with
+    the same draws, E_SOLVES solves each in turn. Gates: the device loop's
+    solves bit-equal to each other and its eigenvalues to the main
+    path's; nconv, restarts, operator calls and launch counts equal
+    between the loops, two gather calls an operator call; eigenvalues
+    within rtol 1e-4; the bases up to sign where an eigenvalue stands
+    alone and as subspaces where eigenvalues lie within 1% of each other
+    (basis_groups: every group's cosine at least 1 - 1e-3); a restart of
+    the device loop waits on the host only at eigh's own check and at
+    the stop test (host_waits by site: inside a restart only eigh's line,
+    as often as eigh alone waits, a truncate; one stop-test readback a
+    truncate); two float64 eighs on the card bit-equal. Printed: the
+    waits of both loops by site, the Ritz eigh alone on the card and
+    LAPACK's on the host, the median walls, the peak memory above what
+    was held, the largest elementwise difference of the lone columns,
+    and one traced solve of each loop: the device's idle time, the split
+    and the runtime's synchronize calls by the operator that made them."""
+    from isle_tpu_torch import bmatrix, linalg, sparse, thresholds
+
+    A = tr.A
+    hp, k = tr.config.hyper, tr.config.num_topics
+    zetas, _ = thresholds.compute_thresholds(
+        A, tr.corpus.avg_doc_sz, tr.corpus.nz_docs, k, hp)
+    B, cols = bmatrix.threshold_and_copy(A, zetas)
+    assert np.array_equal(cols, tr.original_cols), "B differs from the run's"
+    B = sparse.with_doc_tiles(B)
+    del zetas
+
+    # the first truncate alone, its projected matrix kept for the probe
+    kept = []
+    ritz = linalg._ritz
+
+    def keep_matrix(H, K, on_host):
+        kept.append(H[:K, :K].clone())
+        return ritz(H, K, on_host)
+
+    linalg._ritz = keep_matrix
+    try:
+        eig_solve("block_ks_device", B, tr, seed, max_restarts=0)
+    finally:
+        linalg._ritz = ritz
+    probe = ritz_eigh_probe(kept[-1])
+    del kept
+
+    runs = {loop: [] for loop in LOOPS}
+    for _ in range(E_SOLVES):
+        for loop in LOOPS:
+            runs[loop].append(eig_solve(loop, B, tr, seed))
+    dev, host = runs["block_ks_device"][0][0], runs["block_ks"][0][0]
+    truncates = dev.restarts + 1
+    U = dev.evecs.cpu().numpy()
+    U_host = linalg.align_signs(host.evecs.cpu().numpy(), U)
+    groups = basis_groups(U, U_host, dev.evals)
+    alone = [a for a, size, _ in groups if size == 1]
+    alone_diff = float(np.abs(U_host[:, alone] - U[:, alone]).max()) \
+        if alone else 0.0
+    worst = min(groups, key=lambda g: g[2])
+    ev_rel = np.abs(host.evals / dev.evals - 1)
+    inside, stop, elsewhere = restart_waits(runs["block_ks_device"][0][3])
+    walls = {loop: float(np.median([r[1] for r in rs]))
+             for loop, rs in runs.items()}
+    traced = {loop: traced_solve(loop, B, tr, seed, out) for loop in LOOPS}
+    card = card_line()
+    print(f"phase E, the eigensolver's loops on phase 4's B (K x K = "
+          f"{probe['K']} x {probe['K']}): " + "; ".join(
+              f"{loop} {rs[0][0].restarts} restarts, nconv "
+              f"{rs[0][0].nconv}/{k}, {rs[0][0].op_calls} operator calls, "
+              f"launches {rs[0][2]}, walls "
+              + ", ".join(f"{r[1]:.3f}" for r in rs)
+              + f" s (median {walls[loop]:.3f}), host waits "
+              + ", ".join(str(sum(r[3].values())) for r in rs)
+              + f", peak {max(r[4] for r in rs) / 2**20:.1f} MiB above "
+              f"what was held" for loop, rs in runs.items()) + f"; {card}")
+    print(f"  device loop against host loop: eigenvalues max rel diff "
+          f"{ev_rel.max():.3e}; {len(groups)} groups of eigenvalues within "
+          f"1% ({len(alone)} alone, the largest of "
+          f"{max(g[1] for g in groups)}), smallest cosine {worst[2]:.6f} "
+          f"(the group of {worst[1]} from column {worst[0]}, eigenvalue "
+          f"{dev.evals[worst[0]]:.6g}); the lone columns up to sign max abs "
+          f"diff {alone_diff:.3e}; groups (first column, size, cosine): "
+          + ", ".join(f"({a}, {n}, {c:.6f})" for a, n, c in groups if n > 1)
+          + "; the device loop's solves bit-equal to each other and its "
+          "eigenvalues to the main path's")
+    for loop, rs in runs.items():
+        print(f"  host waits of {loop} by site (sync debug mode, one solve, "
+              f"{rs[0][0].restarts + 1} truncates): " + "; ".join(
+                  f"{name}: {line} x {n}"
+                  for (name, line), n in sorted(rs[0][3].items())))
+    print(f"  the device loop's waits: {sum(inside.values())} inside its "
+          f"restarts (eigh's check), {stop} at the stop test, {elsewhere} "
+          f"at the start and the end: "
+          f"{(sum(inside.values()) + stop) / truncates:g} a restart; "
+          f"torch.linalg.eigh alone waits {probe['waits']} time(s) a call")
+    print(f"  the Ritz step alone on the first truncate's matrix: float64 "
+          f"eigh on the card {probe['events_ms']:.3f} ms (CUDA events), "
+          f"{probe['host_ms']:.3f} ms a call (host clock), two calls "
+          f"bit-equal: {probe['bit_equal']}; float32 LAPACK on the host "
+          f"with the copies {probe['lapack_ms']:.3f} ms; {card}")
+    for loop, split in traced.items():
+        print(f"  traced solve, {loop}: window {split['window_ms']:.1f} ms, "
+              f"device idle {split['device_idle_ms']:.1f} ms")
+        print_split(split)
+
+    for r in runs["block_ks_device"][1:]:
+        assert np.array_equal(r[0].evals, dev.evals) and torch.equal(
+            r[0].evecs, dev.evecs), "two device-loop solves differ"
+    assert np.array_equal(dev.evals, tr.evalues), \
+        "the device loop's eigenvalues differ from the main path's"
+    assert probe["bit_equal"], "two float64 eighs on the card differ"
+    for r in runs["block_ks"] + runs["block_ks_device"]:
+        assert (r[0].nconv, r[0].restarts, r[0].op_calls) == \
+            (dev.nconv, dev.restarts, dev.op_calls), \
+            (r[0].nconv, r[0].restarts, r[0].op_calls, dev.nconv,
+             dev.restarts, dev.op_calls)
+        assert r[2] == runs["block_ks_device"][0][2], (r[2], runs)
+    assert dev.nconv == k, f"nconv {dev.nconv}/{k}"
+    launches = runs["block_ks_device"][0][2]
+    assert launches[GATHER] == 2 * dev.op_calls, launches
+    np.testing.assert_allclose(host.evals, dev.evals, rtol=1e-4)
+    assert worst[2] >= 1 - 1e-3, f"the bases differ: {worst}"
+    assert {name for name, _ in inside} <= {"_ritz"} \
+        and sum(inside.values()) == truncates * probe["waits"], inside
+    assert stop == truncates, f"{stop} stop-test readbacks"
 
 
 # ---------------------------------------------------------------------------
@@ -2297,24 +2651,71 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
     return hy, launches, per, uses, walls
 
 
+@contextlib.contextmanager
+def seedings():
+    """The k-means seed doc ids of every training run inside the block,
+    in order (a list; trainer.kmeans_init_on_projected wrapped)."""
+    from isle_tpu_torch import trainer
+
+    seen = []
+    real = trainer.kmeans_init_on_projected
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(None if out[0] is None else out[0].cpu().numpy())
+        return out
+
+    trainer.kmeans_init_on_projected = keep
+    try:
+        yield seen
+    finally:
+        trainer.kmeans_init_on_projected = real
+
+
+def clusters_up_to_labels(a: np.ndarray, b: np.ndarray, k: int) -> float:
+    """Share of docs in the cluster of `b` that most of their cluster of
+    `a` went to: the agreement of two partitions whatever their labels."""
+    C = np.zeros((k, k), np.int64)
+    np.add.at(C, (a, b), 1)
+    return float(C.max(axis=1).sum() / len(a))
+
+
 def cross_layout_phase(corpus, shape, seed, out) -> None:
     """Phase H4: the two layouts held against each other where the
     clusters are well defined: the corpus at k = CROSS_LAYOUT_K (the
     synthetic corpus plants 64 word bands; at k = 100 they split in no
-    fixed way), trained in the default hybrid layout and in COO. Gates,
-    the bounds of tests/test_variants.py's cross-layout test: clusters
-    equal on more than 99% of docs, eigenvalues within rtol 1e-4. Prints
-    the model's max abs difference and the topics with equal
-    catchwords."""
+    fixed way), trained in the default hybrid layout and in COO, both
+    with the host-driven eigensolver loop (device_loop_solver=False: with
+    the default loop the COO run's k-means++ parts from the host loop's
+    at a tie of its draws, see phase E below). Gates, the bounds of
+    tests/test_variants.py's cross-layout test: clusters equal on more
+    than 99% of docs, eigenvalues within rtol 1e-4. Prints the model's
+    max abs difference and the topics with equal catchwords.
+
+    Then phase E's trainings: each layout once more with the default
+    loop, block_ks_device, held against its host-loop run. Eigenvalues
+    within rtol 1e-4; where the two runs' k-means++ seedings are equal,
+    clusters equal on more than 99% of docs; where they part, only at a
+    tie of the draw: the seeds equal up to the first that differs, and
+    that one the next or the previous doc (the uniform fell on the
+    boundary between two docs of the cumulative sum, which float32
+    rounding of the distances moves), the agreement then printed with and
+    without the labels."""
     k_shape = dict(shape, k=CROSS_LAYOUT_K)
-    runs, walls = {}, {}
-    for label, head_bytes in (("COO", 0), ("hybrid", None)):
+    runs, walls, seeds = {}, {}, {}
+    for label, head_bytes, device_loop in (
+            ("COO", 0, False), ("hybrid", None, False),
+            ("COO, device loop", 0, True), ("hybrid, device loop", None,
+                                            True)):
         t0 = time.perf_counter()
-        tr = train(corpus, k_shape, seed, "cuda",
-                   os.path.join(out, f"nyt_k{CROSS_LAYOUT_K}_{label}"),
-                   head_bytes=head_bytes)
-        torch.cuda.synchronize()
+        with seedings() as seen:
+            tr = train(corpus, k_shape, seed, "cuda",
+                       os.path.join(out, f"nyt_k{CROSS_LAYOUT_K}_"
+                                    f"{label.replace(', ', '_')}"),
+                       head_bytes=head_bytes, device_loop=device_loop)
+            torch.cuda.synchronize()
         walls[label] = time.perf_counter() - t0
+        seeds[label] = seen[-1]
         tr.A = None
         torch.cuda.empty_cache()
         runs[label] = tr
@@ -2324,7 +2725,8 @@ def cross_layout_phase(corpus, shape, seed, out) -> None:
                           - 1).max())
     cw_same = sum(np.array_equal(a, b)
                   for a, b in zip(hy.catchwords, coo.catchwords))
-    print(f"hybrid against COO at k = {CROSS_LAYOUT_K}: clusters equal on "
+    print(f"hybrid against COO at k = {CROSS_LAYOUT_K} (both on the host "
+          f"loop): clusters equal on "
           f"{same:.4%} of docs, eigenvalues max rel diff {ev_rel:.2e}, model "
           f"max abs diff {np.abs(hy.model - coo.model).max():.3e}, "
           f"{cw_same} of {len(coo.catchwords)} topics with equal catchwords "
@@ -2334,6 +2736,45 @@ def cross_layout_phase(corpus, shape, seed, out) -> None:
           f"{card_line()}")
     assert same > 0.99, f"the layouts' clusters agree on only {same:.4%}"
     np.testing.assert_allclose(hy.evalues, coo.evalues, rtol=1e-4)
+
+    stage = {label: dict((s, w) for s, w, _ in t.timer.phases)[
+        "eigen solve (B B^T)"] for label, t in runs.items()}
+    for layout in ("hybrid", "COO"):
+        on_card = f"{layout}, device loop"
+        dev, host = runs[on_card], runs[layout]
+        a, b = seeds[on_card], seeds[layout]
+        parted = int(np.argmax(a != b)) if not np.array_equal(a, b) \
+            else None
+        same = float(np.mean(dev.cluster_of_doc == host.cluster_of_doc))
+        relabeled = clusters_up_to_labels(host.cluster_of_doc,
+                                          dev.cluster_of_doc, CROSS_LAYOUT_K)
+        ev_rel = float(np.abs(np.asarray(dev.evalues)
+                              / np.asarray(host.evalues) - 1).max())
+        cw_same = sum(np.array_equal(x, y)
+                      for x, y in zip(dev.catchwords, host.catchwords))
+        seeding = "k-means++ seeds equal" if parted is None else (
+            f"k-means++ seeds part at pick {parted} (doc {a[parted]} / "
+            f"{b[parted]})")
+        print(f"phase E at k = {CROSS_LAYOUT_K}, {layout}: the device loop "
+              f"(block_ks_device) against the host loop (block_ks): "
+              f"{seeding}; clusters equal on {same:.4%} of docs "
+              f"({relabeled:.4%} up to labels), eigenvalues max rel diff "
+              f"{ev_rel:.2e}, model max abs diff "
+              f"{np.abs(dev.model - host.model).max():.3e}, {cw_same} of "
+              f"{len(host.catchwords)} topics with equal catchwords, "
+              f"operator calls {dev.op_counter.calls} / "
+              f"{host.op_counter.calls}; walls {walls[on_card]:.2f} / "
+              f"{walls[layout]:.2f} s, eigensolve stage "
+              f"{stage[on_card]:.3f} / {stage[layout]:.3f} s; "
+              f"{card_line()}")
+        np.testing.assert_allclose(dev.evalues, host.evalues, rtol=1e-4)
+        if parted is None:
+            assert same > 0.99, \
+                f"{layout}: the loops' clusters agree on only {same:.4%}"
+        else:
+            assert abs(int(a[parted]) - int(b[parted])) == 1, \
+                f"{layout}: the seedings part at pick {parted} away from " \
+                f"a tie: doc {a[parted]} / {b[parted]}"
 
 
 def train_untiled(corpus, shape, seed, out, first, head_bytes=0) -> float:
@@ -2732,6 +3173,9 @@ def main() -> int:
     print(f"result: {n_cw} catchwords, {tr.edge_model.shape[1]} edge topics, "
           f"{int(zero.sum())} empty topics, lambda_1 {ev[0]:.6g}, "
           f"lambda_k {ev[-1]:.6g}")
+
+    # E: the eigensolver's two loops on phase 4's B
+    device_loop_phase(tr, args.seed, out)
 
     # H1: the default configuration, the hybrid layout, beside the COO run
     hy, h_launches, h_per, h_uses, _ = hybrid_phase(

@@ -188,6 +188,13 @@ class GpuConfig:
     # in the same run directory (block_ks: the start block; lanczos: its
     # first column), isle_tpu's TpuConfig.eigen_warm_start.
     eigen_warm_start: bool = False
+    # Run the eigensolver's restart loop on the device, its Ritz step a
+    # float64 eigh there (linalg.block_ks_device: no host readback a
+    # restart but the stop test's), isle_tpu's
+    # TpuConfig.device_loop_solver; False takes the host-driven loop with
+    # per-restart diagnostics (linalg.block_ks). Lanczos and the dense
+    # oracle ignore it.
+    device_loop_solver: bool = True
     # Devices along the document axis, isle_tpu's TpuConfig.mesh_shape:
     # one process a card on torch.distributed, as many ranks as the shape
     # asks for (sharding.py). Trainer, StreamedTrainer and Inferencer

@@ -1,15 +1,18 @@
 """Truncated symmetric eigensolvers (the SVD engine): the port of
-isle_tpu.linalg.block_ks, the host-driven thick-restart block
-Krylov-Schur loop (isle_tpu/linalg.py:116-251), of lanczos_device, the
-single-vector thick-restart Lanczos kept beside it as an independent
-cross-check (isle_tpu/linalg.py:400-559), and of the dense oracle.
+isle_tpu.linalg's thick-restart block Krylov-Schur solver in both its
+loops, block_ks_device (the default: the restart loop and its Ritz step
+on the device, isle_tpu/linalg.py:276-397) and block_ks (the
+host-driven loop, :116-251), of lanczos_device, the single-vector
+thick-restart Lanczos kept beside them as an independent cross-check
+(:400-559), and of the dense oracle.
 
 Same shapes as the reference: block width `blk` (auto-shrunk for small
 dimensions), keep = round_up(nev, blk) Ritz pairs at restart, K = keep +
 s*blk square Krylov columns, ncv = K + blk basis columns; the same 2x DGKS
 re-orthogonalisation plus one post-QR pass absorbed into R; the same
-per-eigenpair relative-residual criterion with zero-mode handling. All
-products are float32 (the package turns TF32 off).
+per-eigenpair relative-residual criterion with zero-mode handling. The two
+block loops share their expand step and truncate. All products are
+float32 (the package turns TF32 off).
 """
 
 from __future__ import annotations
@@ -42,11 +45,11 @@ def _init_block(R: torch.Tensor, start: Optional[torch.Tensor]):
 def _converged_mask(w_nev: torch.Tensor, resid_norms: torch.Tensor,
                     tol: float):
     """Per-eigenpair convergence with zero-mode handling.
-    Returns (conv bool[nev], is_zero bool[nev])."""
-    tiny = torch.tensor(1e-30, dtype=w_nev.dtype, device=w_nev.device)
-    w_max = torch.maximum(torch.abs(w_nev[0]), tiny)
+    Returns (conv bool[nev], is_zero bool[nev]). The clamps take Python
+    floats: no tensor is made on the device from the host."""
+    w_max = torch.clamp(torch.abs(w_nev[0]), min=1e-30)
     is_zero = torch.abs(w_nev) <= RANK_TOL * w_max
-    rel = resid_norms / torch.maximum(torch.abs(w_nev), tiny)
+    rel = resid_norms / torch.clamp(torch.abs(w_nev), min=1e-30)
     conv = torch.where(is_zero, resid_norms <= tol * w_max, rel < tol)
     return conv, is_zero
 
@@ -87,6 +90,90 @@ def _sync(x: torch.Tensor) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def _krylov_shapes(dim: int, nev: int, blk: int,
+                   steps_per_restart: Optional[int]):
+    """(blk, keep, s, K, ncv) of both block loops: the block auto-shrunk
+    so that the Krylov space fits the operator dimension (small
+    vocabularies; nev too close to dim takes the dense oracle)."""
+    blk = min(blk, max(dim // 2, 1))
+    while True:
+        keep = _round_up(nev, blk)
+        s = steps_per_restart or max(1, keep // blk)
+        K = keep + s * blk
+        ncv = K + blk
+        if ncv <= dim or blk == 1:
+            break
+        blk = max(blk // 2, 1)
+    if ncv > dim:
+        raise ValueError(
+            f"ncv={ncv} exceeds dim={dim} even at blk=1; use the dense "
+            f"eigensolver (nev={nev})"
+        )
+    return blk, keep, s, K, ncv
+
+
+def _start_basis(dim: int, ncv: int, K: int, blk: int, draws, device,
+                 start_block: Optional[torch.Tensor]):
+    """The zero basis V (dim, ncv) with the orthonormal start block in its
+    first blk columns, and the zero projected matrix H (ncv, K)."""
+    V = torch.zeros((dim, ncv), dtype=torch.float32, device=device)
+    H = torch.zeros((ncv, K), dtype=torch.float32, device=device)
+    R0 = draws.krylov_start(dim, blk).to(device)
+    V[:, :blk] = _init_block(R0, start_block)
+    return V, H
+
+
+def _expand(op, V: torch.Tensor, H: torch.Tensor, m: int, blk: int) -> None:
+    """One block step in place: op on V's columns [m, m + blk),
+    orthogonalized against the basis, its coefficients into H's columns
+    [m, m + blk) with R below them, its Q into V's next block."""
+    F = op(V[:, m:m + blk])
+    F, Hk = _dgks_project(V, F, rounds=2)
+    Q, R, Cfix = _qr_ortho(V, F)
+    Hk = Hk + Cfix
+    Hk[m + blk:m + 2 * blk] = R
+    H[:, m:m + blk] = Hk
+    V[:, m + blk:m + 2 * blk] = Q
+
+
+def _ritz(H: torch.Tensor, K: int, on_host: bool):
+    """Eigenpairs (w, W) of the symmetrised K x K projected matrix, in a
+    stable descending order, float32 on H's device. on_host: LAPACK's
+    float32 eigh on the host (block_ks); else a float64 eigh on H's own
+    device (block_ks_device): the card's float32 eigh moved every
+    eigenvalue by ~1.7e-4 relative at K = 256 on an H100."""
+    Hs = H[:K, :K]
+    if on_host:
+        Hs = Hs.cpu()
+    else:
+        Hs = Hs.to(torch.float64)
+    w, W = torch.linalg.eigh((Hs + Hs.T) * 0.5)
+    order = torch.argsort(-w, stable=True)
+    return (w[order].to(H.device, torch.float32),
+            W[:, order].to(H.device, torch.float32))
+
+
+def _truncate(V: torch.Tensor, H: torch.Tensor, w: torch.Tensor,
+              W: torch.Tensor, nev: int, keep: int, tol: float):
+    """Thick restart (no locking): the Ritz pairs' residual norms and
+    convergence, and the new basis, the kept Ritz vectors rotated to the
+    front and the last block after them. Returns (V, H, residual norms,
+    conv, is_zero), all on V's device."""
+    K = W.shape[0]
+    ncv = V.shape[1]
+    blk = ncv - K
+    resid = H[K:ncv, :K] @ W  # (blk, K)
+    rnorm = torch.linalg.norm(resid[:, :nev], dim=0)
+    conv, is_zero = _converged_mask(w[:nev], rnorm, tol)
+    Vnew = torch.zeros_like(V)
+    Vnew[:, :keep] = V[:, :K] @ W[:, :keep]
+    Vnew[:, keep:keep + blk] = V[:, K:ncv]
+    Hnew = torch.zeros_like(H)
+    Hnew[:keep, :keep] = torch.diag(w[:keep])
+    Hnew[keep:keep + blk, :keep] = resid[:, :keep]
+    return Vnew, Hnew, rnorm, conv, is_zero
+
+
 def block_ks(
     op: Callable[[torch.Tensor], torch.Tensor],
     dim: int,
@@ -102,26 +189,13 @@ def block_ks(
 ) -> EigResult:
     """Top-`nev` eigenpairs of the symmetric PSD operator `op` on R^dim;
     op maps (dim, blk) -> (dim, blk) float32 tensors on `device`. The
-    random start block comes from draws.krylov_start(dim, blk)."""
-    blk = min(blk, max(dim // 2, 1))
-    while True:
-        keep = _round_up(nev, blk)
-        s = steps_per_restart or max(1, keep // blk)
-        K = keep + s * blk
-        ncv = K + blk
-        if ncv <= dim or blk == 1:
-            break
-        blk = max(blk // 2, 1)
-    if ncv > dim:
-        raise ValueError(
-            f"ncv={ncv} exceeds dim={dim} even at blk=1; use the dense "
-            f"eigensolver (nev={nev})"
-        )
+    random start block comes from draws.krylov_start(dim, blk).
 
-    V = torch.zeros((dim, ncv), dtype=torch.float32, device=device)
-    H = torch.zeros((ncv, K), dtype=torch.float32, device=device)
-    R0 = draws.krylov_start(dim, blk).to(device)
-    V[:, :blk] = _init_block(R0, start_block)
+    The host-driven loop (GpuConfig.device_loop_solver=False): each
+    restart solves its Ritz problem with LAPACK on the host, reads the
+    convergence back and logs a diagnostic line."""
+    blk, keep, s, K, ncv = _krylov_shapes(dim, nev, blk, steps_per_restart)
+    V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
 
     op_calls = 0
     op_seconds = 0.0
@@ -129,34 +203,15 @@ def block_ks(
     restarts = 0
     while True:
         t0 = time.perf_counter()
-        batch_calls = 0
-        while m < K:
-            F = op(V[:, m:m + blk])
-            F, Hk = _dgks_project(V, F, rounds=2)
-            Q, R, Cfix = _qr_ortho(V, F)
-            Hk = Hk + Cfix
-            Hk[m + blk:m + 2 * blk] = R
-            H[:, m:m + blk] = Hk
-            V[:, m + blk:m + 2 * blk] = Q
-            batch_calls += 1
-            m += blk
-        if batch_calls:
+        steps = (K - m) // blk
+        for i in range(steps):
+            _expand(op, V, H, m + i * blk, blk)
+        if steps:
             _sync(V)
             op_seconds += time.perf_counter() - t0
-            op_calls += batch_calls
-        # truncate (thick restart, no locking)
-        Hs = H[:K, :K]
-        Hs = (Hs + Hs.T) * 0.5
-        # The K x K Ritz problem is solved on the host (LAPACK): the
-        # card's float32 eigh was off by ~1e-4 relative at K = 256 on an
-        # H100, which moved every eigenvalue by that much.
-        w, W = torch.linalg.eigh(Hs.cpu())
-        order = torch.argsort(-w, stable=True)
-        w = w[order].to(device)
-        W = W[:, order].to(device)
-        resid = H[K:ncv, :K] @ W  # (blk, K)
-        rnorm = torch.linalg.norm(resid[:, :nev], dim=0)
-        conv, is_zero = _converged_mask(w[:nev], rnorm, tol)
+            op_calls += steps
+        w, W = _ritz(H, K, on_host=True)
+        V, H, rnorm, conv, is_zero = _truncate(V, H, w, W, nev, keep, tol)
         conv_h = conv.cpu().numpy()
         is_zero_h = is_zero.cpu().numpy()
         norms_h = (rnorm / torch.clamp(torch.abs(w[:nev]), min=1e-30)).cpu()
@@ -170,17 +225,8 @@ def block_ks(
                 f"block_ks restart {restarts}: nconv={nconv}/{nev} "
                 f"max_resid={float(norms_h.max()):.2e}"
             )
-        done = nconv >= nev or restarts >= max_restarts
-        # Rotate kept Ritz vectors to the front; the new start block follows.
-        Vnew = torch.zeros_like(V)
-        Vnew[:, :keep] = V[:, :K] @ W[:, :keep]
-        Vnew[:, keep:keep + blk] = V[:, K:ncv]
-        Hnew = torch.zeros_like(H)
-        Hnew[:keep, :keep] = torch.diag(w[:keep])
-        Hnew[keep:keep + blk, :keep] = resid[:, :keep]
-        V, H = Vnew, Hnew
         m = keep
-        if done:
+        if nconv >= nev or restarts >= max_restarts:
             break
         restarts += 1
 
@@ -191,6 +237,69 @@ def block_ks(
         restarts=restarts,
         op_calls=op_calls,
         op_seconds=op_seconds,
+    )
+
+
+def block_ks_device(
+    op: Callable[[torch.Tensor], torch.Tensor],
+    dim: int,
+    nev: int,
+    draws,
+    device,
+    blk: int = 128,
+    tol: float = 1e-4,
+    max_restarts: int = 100,
+    steps_per_restart: Optional[int] = None,
+    timer=None,
+    start_block: Optional[torch.Tensor] = None,
+) -> EigResult:
+    """block_ks with its restart loop on the device, the default solver
+    (GpuConfig.device_loop_solver; isle_tpu/linalg.py:276-397): the same
+    shapes, start block, expand step and truncate, but each Ritz problem
+    is solved in float64 on the tensors' own device and the convergence
+    mask, the count of converged pairs (the first unconverged index) and
+    the eigenvalues, zero modes set to 0, stay there. A restart waits on
+    the host only for that count, read back for the stop test, and for
+    torch.linalg.eigh's own check of its result (on CUDA it
+    synchronizes; a failed eigh raises). K/blk expand steps and a
+    truncate, then restarts of s steps and a truncate while
+    nconv < nev and restarts < max_restarts. One diagnostic line for the
+    solve; op_calls = K/blk + s * restarts, op_seconds the whole solve."""
+    blk, keep, s, K, ncv = _krylov_shapes(dim, nev, blk, steps_per_restart)
+    t0 = time.perf_counter()
+    V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
+
+    def restart(V, H, m):
+        for i in range(m, K, blk):
+            _expand(op, V, H, i, blk)
+        w, W = _ritz(H, K, on_host=False)
+        V, H, _, conv, is_zero = _truncate(V, H, w, W, nev, keep, tol)
+        # the longest converged prefix: an integer scan
+        nconv = torch.cumprod(conv.to(torch.int32), 0).sum()
+        return V, H, nconv, torch.where(is_zero, 0.0, w[:nev])
+
+    V, H, nconv_d, evals_d = restart(V, H, 0)
+    nconv = int(nconv_d)  # the stop test's readback
+    restarts = 0
+    while nconv < nev and restarts < max_restarts:
+        V, H, nconv_d, evals_d = restart(V, H, keep)
+        nconv = int(nconv_d)
+        restarts += 1
+    evals = evals_d.cpu().numpy()
+    _sync(V)
+    seconds = time.perf_counter() - t0
+    if timer is not None:
+        timer.diag(
+            f"block_ks_device: {restarts} restarts, nconv={nconv}/{nev}, "
+            f"{seconds:.2f}s"
+        )
+    return EigResult(
+        evals=evals,
+        evecs=V[:, :nev],
+        nconv=nconv,
+        restarts=restarts,
+        op_calls=K // blk + s * restarts,
+        op_seconds=seconds,
     )
 
 

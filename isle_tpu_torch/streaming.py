@@ -584,6 +584,7 @@ class StreamedTrainer:
             t.evalues, U, stats = solve_gram_eigens(
                 B, V, k, cfg, t.draws, chunk, timer=t.timer, logger=t.logger,
                 start_block=t._warm_start_block(V),
+                device_loop=t.gpu.device_loop_solver,
             )
             if stats is not None:
                 res, op_width = stats

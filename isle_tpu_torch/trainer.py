@@ -42,7 +42,7 @@ from .hybrid import hybrid_from_thresholds, max_head_rows, \
     row_scale_from_zetas
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
-from .linalg import block_ks, dense_topk_eigh, lanczos
+from .linalg import block_ks, block_ks_device, dense_topk_eigh, lanczos
 from .matops import mat_b_y, mat_bt_x, mat_gram_x, mat_spmm_flops, \
     mat_to_dense
 from .obs import Logger, OpCounter, Timer, mark_stage_in_trace, \
@@ -94,16 +94,18 @@ def state_from_numpy(ck: dict, device) -> dict:
 def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
                       draws, chunk: int, timer=None, logger=None,
                       start_block: Optional[torch.Tensor] = None,
-                      op=None, dense_gram=None):
+                      op=None, dense_gram=None, device_loop: bool = True):
     """Top-k eigenpairs of B B^T by hyper.eigensolver, shared by the
     in-core, the streamed and the sharded trainer: block Krylov-Schur,
     Lanczos, or the dense oracle when asked for or when k is too close to
-    V for a Krylov space. `start_block` (a previous run's U) seeds
-    block_ks's start block and, by its first column, Lanczos's start
-    vector. For a DocSparse or HybridSparse B the operator is
-    matops.mat_gram_x; the sharded
-    trainer hands in `op` (X -> (B B^T) X on every rank) and `dense_gram`
-    (-> the (V, V) float64 Gram matrix on the host).
+    V for a Krylov space. `device_loop` (GpuConfig.device_loop_solver)
+    runs block Krylov-Schur's restart loop on the device
+    (linalg.block_ks_device), else on the host (linalg.block_ks).
+    `start_block` (a previous run's U) seeds block Krylov-Schur's start
+    block and, by its first column, Lanczos's start vector. For a
+    DocSparse or HybridSparse B the operator is matops.mat_gram_x; the
+    sharded trainer hands in `op` (X -> (B B^T) X on every rank) and
+    `dense_gram` (-> the (V, V) float64 Gram matrix on the host).
     Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
     for the dense oracle and (EigResult, op width) otherwise."""
     hp = cfg.hyper
@@ -139,8 +141,9 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
         )
     else:
         op_width = hp.block_ks_block_size
-        res = block_ks(op, V, k, draws, B.device, blk=op_width, **common,
-                       start_block=start_block)
+        solver = block_ks_device if device_loop else block_ks
+        res = solver(op, V, k, draws, B.device, blk=op_width, **common,
+                     start_block=start_block)
     if res.nconv < k:
         if hp.block_ks_strict:
             raise RuntimeError(
@@ -451,6 +454,7 @@ class Trainer:
             self.evalues, U, stats = solve_gram_eigens(
                 B, V, k, cfg, self.draws, chunk, timer=self.timer,
                 logger=self.logger, start_block=self._warm_start_block(V),
+                device_loop=self.gpu.device_loop_solver,
             )
             if stats is not None:
                 res, op_width = stats
@@ -747,6 +751,7 @@ class Trainer:
                 start_block=None if start is None else start.to(dev),
                 op=lambda X: sharded_gram_x(B_op, X, mesh, chunk),
                 dense_gram=dense_gram,
+                device_loop=self.gpu.device_loop_solver,
             )
             U = mesh.broadcast(U.contiguous())
             self.evalues = mesh.broadcast(

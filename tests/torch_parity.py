@@ -22,6 +22,11 @@ REFERENCE_TPU = TpuConfig(
     spmm_chunk=1 << 12, device_loop_solver=False,
 )
 
+# The same with isle_tpu's default eigensolver loop, block_ks_device (the
+# port's GpuConfig default): the tests of the port's device loop.
+REFERENCE_TPU_DEVICE_LOOP = dataclasses.replace(REFERENCE_TPU,
+                                                device_loop_solver=True)
+
 # The same with the hybrid layout, isle_tpu's default engine, at a head
 # budget that leaves the head PARTIAL at test size (the default 4 GiB
 # would put every word in it): 48 of golden_corpus's 400 words, 30 of
@@ -29,6 +34,8 @@ REFERENCE_TPU = TpuConfig(
 HEAD_BYTES = 24_000
 REFERENCE_TPU_HYBRID = dataclasses.replace(REFERENCE_TPU,
                                            dense_head_bytes=HEAD_BYTES)
+REFERENCE_TPU_HYBRID_DEVICE_LOOP = dataclasses.replace(
+    REFERENCE_TPU_HYBRID, device_loop_solver=True)
 
 
 class JaxDraws:
