@@ -236,6 +236,24 @@ Between 7 and 8, with the in-core corpus off the card:
   H3. the 12-chunk StreamedTrainer with the hybrid layout: ζ and
      original_cols equal H1's, eigenvalues within rtol 1e-4, every
      streamed pass one launch a chunk.
+  R.  the resident corpus (streaming.ResidentLoader, the default loader:
+     S1-S5 and H3 set resident_corpus_bytes=0 and measure the wire
+     loader) and the middle's memory plan, each run with the launch
+     counts reset just before and read just after and every streamed
+     pass one launch a chunk: the default run (COO) equal to S1's bit
+     for bit (ζ, original_cols, B, clusters, catchwords, top-two topics,
+     model, edge model), one fill, every chunk's values equal to
+     corpus.vals bit for bit, bytes copied against S1's, the fill's
+     seconds, stage walls, wall and peak; the default hybrid run, held,
+     equal to H3's; then GpuConfig.hbm_bytes at 8, 4 and 2 GiB with the
+     default head budget: the head shrunk by plan_middle_budget (the
+     head rows built equal the plan's, eigenvalues within rtol 1e-4 of
+     the full head's), the slabs kept with no head (equal to S1's), the
+     slabs released before the middle and filled again (two fills, equal
+     to the held run's); last the sharded streamed trainer over M1's
+     mesh on the resident loader, equal to S5's. A cut corpus takes, in
+     place of a size that does not give its outcome, the hbm_bytes that
+     gives it, on a CUT line;
 
 After 8, with the NYTimes corpus freed:
 
@@ -262,8 +280,8 @@ After 8, with the NYTimes corpus freed:
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
 "launches_by_path", the sharded, the sharded streamed, the traced, the
-three hybrid runs, the train step's, graft_entry's and phase M's among
-them), max
+three hybrid runs, phase R's six runs, the train step's, graft_entry's
+and phase M's among them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
@@ -974,16 +992,24 @@ def run_dir_arrays(tr, stage: str) -> dict:
 
 
 def streamed_trainer(corpus, shape, seed, out, mesh=None, head_bytes=0,
-                     **cfg_kw):
+                     resident_bytes=0, hbm_bytes=0, **cfg_kw):
+    """A StreamedTrainer at chunk_entries STREAM_CHUNK_ENTRIES.
+    `resident_bytes` is GpuConfig.resident_corpus_bytes: 0, the wire
+    loader, for S1-S5 and H3, None for GpuConfig's default (phase R);
+    `hbm_bytes` is GpuConfig.hbm_bytes."""
     from isle_tpu_torch import TrainConfig
     from isle_tpu_torch.streaming import StreamedTrainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
                       compute_edge_topics=True,
                       max_edge_topics=shape["edges"], **cfg_kw)
+    gpu_kw = dict(hbm_bytes=hbm_bytes)
+    if resident_bytes is not None:
+        gpu_kw["resident_corpus_bytes"] = resident_bytes
     st = StreamedTrainer(cfg, output_dir=out, quiet=True,
                          chunk_entries=STREAM_CHUNK_ENTRIES,
-                         gpu=gpu_config("cuda", head_bytes), mesh=mesh)
+                         gpu=gpu_config("cuda", head_bytes, **gpu_kw),
+                         mesh=mesh)
     st.load_corpus(corpus)
     return st
 
@@ -1046,6 +1072,7 @@ def print_streamed_run(label, st, wall, peak, launches) -> None:
     loader = st.loader
     wait_s = loader.copy_wait_ms() / 1e3
     copied = loader.bytes_copied
+    st.run_bytes_copied = copied  # before any later pass over the loader
     print(f"{label}: train + edge topics {wall:.2f} s wall in "
           f"{len(loader.ranges)} chunks of at most {STREAM_CHUNK_ENTRIES} "
           f"entries, peak device memory {peak[0]:.2f} GiB ({peak[1]:.2f} "
@@ -1055,7 +1082,14 @@ def print_streamed_run(label, st, wall, peak, launches) -> None:
           f"corpus's word ids and values); the stream waited {wait_s:.4f} s "
           f"for copies ({wait_s / wall:.2%} of the wall), the host "
           f"{loader.host_wait_seconds:.4f} s for a free staging buffer "
-          f"({loader.host_wait_seconds / wall:.2%})")
+          f"({loader.host_wait_seconds / wall:.2%})"
+          + (f"; resident slabs ({loader.slab_bytes} bytes by isle_tpu's "
+             f"rule, " + ("values float32" if loader.count_dtype is None
+                          else f"counts {np.dtype(loader.count_dtype).name}")
+             + f") "
+             f"filled {loader.fill_count} time(s) in "
+             f"{loader.fill_seconds:.4f} s"
+             if hasattr(loader, "fill_count") else ""))
     for stage, w, _ in st.timer.phases:
         print(f"  {label} stage {stage}: {w:.3f} s")
 
@@ -1227,7 +1261,7 @@ def sharded_streamed_phase(corpus, shape, seed, out, st, B, mesh,
                            s_per) -> dict:
     """Phase S5: StreamedTrainer over the mesh against S1's streamed run
     `st` (B: S1's B on the card, s_per: its launches by stage). Returns
-    the run's launch counts."""
+    the run's launch counts and its trainer."""
     from isle_tpu_torch.streaming_sharded import sharded_streamed_build_b
 
     ss = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_ms"),
@@ -1307,7 +1341,7 @@ def sharded_streamed_phase(corpus, shape, seed, out, st, B, mesh,
           f"({len(loader.ranges)}-chunk pass): {exchange_ms:.3f} ms, the "
           f"single-device "
           f"filter {single_ms:.3f} ms")
-    return launches
+    return launches, ss
 
 
 def middle_chunk(tr, corpus, loader) -> SimpleNamespace:
@@ -2859,7 +2893,7 @@ def hybrid_sharded_phase(corpus, shape, seed, out, hy, h_per, mesh) -> dict:
 def hybrid_streamed_phase(corpus, shape, seed, out, hy) -> dict:
     """Phase H3: the 12-chunk streamed trainer with the hybrid layout
     against the in-core hybrid run, as S1 is held to the COO one. Returns
-    its launch counts."""
+    its launch counts and its trainer."""
     from isle_tpu_torch import hybrid
 
     st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_sh"),
@@ -2880,6 +2914,186 @@ def hybrid_streamed_phase(corpus, shape, seed, out, hy) -> dict:
           f"{np.abs(ours['evalues'] / ref['evalues'] - 1).max():.2e}; "
           f"{head_calls} head GEMMs; clusters equal the in-core hybrid "
           f"run's: {np.array_equal(st.cluster_of_doc, hy.cluster_of_doc)}")
+    return launches, st
+
+
+def assert_same_run(a, b, label: str) -> None:
+    """Run `a` ended bit for bit where run `b` ended: ζ and original_cols
+    (the svd checkpoints), clusters, catchwords, top-two topics, the model
+    and the edge model."""
+    ours, ref = run_dir_arrays(a, "svd"), run_dir_arrays(b, "svd")
+    for key in ("zetas", "original_cols"):
+        assert np.array_equal(ours[key], ref[key]), f"{label}: {key}"
+    assert np.array_equal(a.cluster_of_doc, b.cluster_of_doc), \
+        f"{label}: clusters"
+    for t, (x, y) in enumerate(zip(a.catchwords, b.catchwords)):
+        assert np.array_equal(x, y), f"{label}: catchwords of topic {t}"
+    for x, y in zip(a.top_pairs, b.top_pairs):
+        assert np.array_equal(x, y), f"{label}: top-two topics"
+    for key in ("model", "edge_model", "edge_pairs"):
+        assert np.array_equal(getattr(a, key), getattr(b, key)), \
+            f"{label}: {key}"
+
+
+@contextlib.contextmanager
+def head_rows_built():
+    """The head rows of every hybrid layout the streamed trainer builds
+    inside (streaming.to_hybrid's num_head), appended to the list
+    yielded."""
+    from isle_tpu_torch import streaming
+
+    real, rows = streaming.to_hybrid, []
+
+    def spy(B, num_head, *args, **kw):
+        rows.append(int(num_head))
+        return real(B, num_head, *args, **kw)
+
+    streaming.to_hybrid = spy
+    try:
+        yield rows
+    finally:
+        streaming.to_hybrid = real
+
+
+# phase R: GpuConfig.hbm_bytes (GiB) for each of the memory plan's other
+# outcomes at the NYTimes shape with the default 4 GiB head budget
+RESIDENT_PLANS = ((8, "head shrunk"), (4, "slabs kept, no head"),
+                  (2, "slabs released"))
+
+
+def plan_outcome(keep: bool, head: int, cfg_head: int) -> str:
+    if not keep:
+        return "slabs released"
+    return ("full head" if head == cfg_head else "head shrunk" if head
+            else "slabs kept, no head")
+
+
+def resident_hbm(gib: int, outcome: str, slab: int, nnz: int,
+                 cfg_head: int) -> int:
+    """`gib` GiB where it gives `outcome` (the NYTimes shape), else (a cut
+    corpus) the bytes that give it by plan_middle_budget's terms."""
+    from isle_tpu_torch.streaming import plan_middle_budget
+
+    hbm = gib << 30
+    if plan_outcome(*plan_middle_budget(hbm, slab, nnz, cfg_head),
+                    cfg_head) == outcome:
+        return hbm
+    hbm = slab + (1 << 30) + {
+        "head shrunk": 96 * nnz + cfg_head // 2,
+        "slabs kept, no head": 96 * nnz + (128 << 20),
+        "slabs released": 30 * nnz - 1}[outcome]
+    print(f"CUT: phase R takes hbm_bytes {hbm} for {outcome!r} "
+          f"({gib} GiB does not give it at this corpus)")
+    return hbm
+
+
+def resident_phase(corpus, shape, seed, out, st, B, ms, sh, mesh) -> dict:
+    """Phase R: the default loader (streaming.ResidentLoader) and the
+    middle's memory plan, against S1's wire run `st` (B: its B), H3's
+    `sh` and S5's `ms`. Returns {path: launch counts} of its runs."""
+    from isle_tpu_torch import streaming
+    from isle_tpu_torch.hybrid import max_head_rows
+
+    chunks = len(st.loader.ranges)
+    launches = {}
+    t0 = time.perf_counter()
+
+    def run(label, path, **kw):
+        rs = streamed_trainer(corpus, shape, seed,
+                              os.path.join(out, "nyt_R" + path),
+                              resident_bytes=None, **kw)
+        with head_rows_built() as rows:
+            wall, peak, launches[label], per = run_streamed(rs)
+        print_streamed_run(label, rs, wall, peak, launches[label])
+        check_streamed_launches(per, chunks, label)
+        assert isinstance(rs.loader, streaming.ResidentLoader), label
+        assert rs.loader.count_dtype == np.uint8, rs.loader.count_dtype
+        return rs, rows, per
+
+    # the default run (COO, as S1) against S1's wire run
+    rs, rows, per = run("streamed, resident", "")
+    loader = rs.loader
+    assert loader.fill_count == 1 and loader.held and not rows
+    assert_same_run(rs, st, "resident path")
+    z = torch.from_numpy(run_dir_arrays(rs, "svd")["zetas"]).cuda()
+    RB, cols = streaming.streamed_build_b(corpus, z, None, loader)
+    assert np.array_equal(cols, st.original_cols)
+    assert_same_b(RB, B)
+    del RB
+    vals = torch.from_numpy(corpus.vals)
+    off = corpus.offsets
+    for lo, hi, w, v, d in loader.chunks():
+        want = vals[int(off[lo]):int(off[hi])].cuda()
+        assert torch.equal(v.view(torch.int32), want.view(torch.int32)), \
+            f"resident path: the values of docs [{lo}, {hi})"
+    assert loader.fill_count == 1
+    slab, copied = loader.slab_bytes, rs.run_bytes_copied
+    print(f"resident checks: zetas, original_cols, B ({B.nnz} nnz), "
+          f"clusters, catchwords, top-two topics, model and edge model "
+          f"equal S1's bit for bit (eigenvalues too: "
+          f"{np.array_equal(rs.evalues, st.evalues)}); every chunk's "
+          f"values equal corpus.vals bit for bit; {copied} bytes copied "
+          f"to the card against S1's {st.run_bytes_copied} "
+          f"({st.run_bytes_copied / max(copied, 1):.2f} x), one fill in "
+          f"{loader.fill_seconds:.4f} s")
+    del rs, loader
+
+    # the planner's outcomes under the default head budget (hybrid)
+    held, full_rows, _ = run("streamed, resident, hybrid", "_h",
+                             head_bytes=None)
+    assert held.loader.fill_count == 1 and len(full_rows) == 1
+    assert_same_run(held, sh, "resident hybrid path")
+    nb, V = B.num_docs, shape["vocab"]
+    cfg_head = held.gpu.dense_head_bytes
+    for gib, outcome in RESIDENT_PLANS:
+        hbm = resident_hbm(gib, outcome, slab, B.nnz, cfg_head)
+        keep, head = streaming.plan_middle_budget(hbm, slab, B.nnz, cfg_head)
+        assert plan_outcome(keep, head, cfg_head) == outcome
+        label = f"streamed, resident, hbm {gib} GiB"
+        got, rows, per = run(label, f"_{gib}", head_bytes=None,
+                             hbm_bytes=hbm)
+        if outcome == "head shrunk":
+            assert keep and 0 < head < cfg_head, (keep, head)
+            want = min(V, head // (2 * nb), max_head_rows(nb))
+            assert rows == [want], (rows, want)
+            np.testing.assert_allclose(got.evalues, held.evalues, rtol=1e-4)
+            note = (f"head {head} bytes, {want} head rows against the full "
+                    f"head's {full_rows[0]}; eigenvalues max rel diff to "
+                    f"the full head's "
+                    f"{np.abs(got.evalues / held.evalues - 1).max():.2e}")
+        elif outcome == "slabs kept, no head":
+            assert keep and head == 0 and not rows
+            assert "hybrid layout" not in per
+            assert_same_run(got, st, label)
+            note = "no hybrid layout; the COO wire run's results (S1's)"
+        else:
+            assert not keep and head == cfg_head and rows == full_rows
+            assert got.loader.fill_count == 2
+            assert_same_run(got, held, label)
+            note = ("two fills; the held run's results "
+                    f"({got.loader.fill_seconds:.4f} s of fills)")
+        if outcome != "slabs released":
+            assert got.loader.fill_count == 1
+        print(f"{label}: {outcome}, hbm_bytes {hbm}, slabs {slab} bytes, "
+              f"nnz(B) {B.nnz} ({note})")
+        del got
+    del held
+
+    # the sharded streamed trainer on the resident loader against S5's
+    label = f"sharded streamed, resident, world size {mesh.world}"
+    rs = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_Rms"),
+                          mesh=mesh, resident_bytes=None)
+    with no_library_spmm():
+        wall, peak, launches[label], per = run_streamed(rs)
+    print_streamed_run(label, rs, wall, peak, launches[label])
+    check_streamed_launches(per, chunks, label)
+    assert isinstance(rs.loader, streaming.ResidentLoader)
+    assert rs.loader.fill_count == 1
+    assert list(per)[0] == "sharded resident corpus fill", list(per)
+    assert_same_run(rs, ms, label)
+    print(f"{label}: equal to S5's bit for bit; {rs.run_bytes_copied} bytes "
+          f"copied against S5's {ms.run_bytes_copied}")
+    print(f"phase R: {time.perf_counter() - t0:.1f} s; {card_line()}")
     return launches
 
 
@@ -3268,12 +3482,17 @@ def main() -> int:
                                            st.loader)
         ss_launches, ss_per = streamed_sampling_phase(corpus, shape,
                                                       args.seed, out, tr)
-        ms_launches = sharded_streamed_phase(corpus, shape, args.seed, out,
-                                             st, B, mesh, s_per)
+        ms_launches, ms = sharded_streamed_phase(corpus, shape, args.seed,
+                                                 out, st, B, mesh, s_per)
         # H2, H3: the hybrid layout over the mesh and out of core
         mh_launches = hybrid_sharded_phase(corpus, shape, args.seed, out, hy,
                                            h_per, mesh)
-        sh_launches = hybrid_streamed_phase(corpus, shape, args.seed, out, hy)
+        sh_launches, sh = hybrid_streamed_phase(corpus, shape, args.seed, out,
+                                                hy)
+        # R: the resident corpus and the memory plan, against S1, H3, S5
+        res_launches = resident_phase(corpus, shape, args.seed, out, st, B,
+                                      ms, sh, mesh)
+        del ms, sh
     finally:
         if mesh.group is not None:
             dist.destroy_process_group()
@@ -3299,7 +3518,8 @@ def main() -> int:
                       "sharded, hybrid": mh_launches[name],
                       "streamed, hybrid": sh_launches[name],
                       "train-step": t_launches[name],
-                      "graft-entry": g_launches[name]}
+                      "graft-entry": g_launches[name],
+                      **{path: n[name] for path, n in res_launches.items()}}
                for name in uses}
     del st, B
 

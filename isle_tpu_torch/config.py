@@ -5,7 +5,9 @@ isle_tpu/config.py's dataclasses: the same field names, defaults,
 validation and log_dir_name(), without the `tpu` field (TpuConfig's
 Pallas plans, precision modes and tunnel codecs have no counterpart
 here). GpuConfig holds the few knobs that map the pipeline onto the card,
-TpuConfig's dense_head_bytes (the hybrid layout, hybrid.py) among them.
+TpuConfig's dense_head_bytes (the hybrid layout, hybrid.py),
+resident_corpus_bytes and hbm_bytes (the streamed trainer's resident
+corpus and memory plan, streaming.py) among them.
 
 Defaults follow the reference's compile-time constants
 (include/hyperparams.h:8-82, include/types.h:23-86).
@@ -184,6 +186,23 @@ class GpuConfig:
     # default, so a default run of either package takes the same path;
     # 0 keeps all of B in the COO layout (sparse.py).
     dense_head_bytes: int = 4096 << 20
+    # Streamed (out-of-core) runs: the device bytes a resident copy of the
+    # corpus may take (streaming.ResidentLoader: word ids int32 and the
+    # raw counts in their smallest integer dtype, about 5 bytes an entry,
+    # or the values float32), so that the corpus crosses the host link
+    # once instead of once a pass. isle_tpu's
+    # TpuConfig.resident_corpus_bytes and its default, so a default run of
+    # either package takes the same loader; 0, or a corpus over the
+    # budget, copies the chunks on every pass (streaming.ChunkLoader).
+    resident_corpus_bytes: int = 6 << 30
+    # Device memory the streamed trainer plans its middle stages in
+    # (streaming.plan_middle_budget: whether the resident corpus stays
+    # held beside B's layout, and with how large a dense head) and the
+    # in-core trainer holds its footprint estimate against. 0 takes the
+    # card's total memory, and on a CPU device sets no limit (the slabs
+    # stay held, the configured head is built). isle_tpu's
+    # TpuConfig.hbm_bytes, whose 14 GiB describe a v5e.
+    hbm_bytes: int = 0
     # Seed the eigensolver from the U of the previous run's ckpt_svd.npz
     # in the same run directory (block_ks: the start block; lanczos: its
     # first column), isle_tpu's TpuConfig.eigen_warm_start.
@@ -212,3 +231,13 @@ class GpuConfig:
 
     def torch_device(self) -> torch.device:
         return torch.device(self.device)
+
+    def hbm_limit(self) -> Optional[int]:
+        """hbm_bytes as the planners read it: the bytes given, else the
+        card's total memory, else (0 on a CPU device) None, no limit."""
+        if self.hbm_bytes:
+            return self.hbm_bytes
+        dev = self.torch_device()
+        if dev.type == "cuda":
+            return torch.cuda.get_device_properties(dev).total_memory
+        return None

@@ -13,7 +13,8 @@ with documents as columns and words as rows, 0-based. TDF text files are
 The trainer and the inferencer read only a corpus's arrays (vocab_size,
 num_docs, offsets, rows, vals, avg_doc_sz, nz_docs, nnz, doc_ids()), so
 any object with those, isle_tpu.corpus.Corpus among them, can be handed
-to them.
+to them; the streamed trainer's resident loader reads `counts`,
+doc_sums() and vals_match() as well where the object has counts.
 """
 
 from __future__ import annotations
@@ -73,6 +74,40 @@ class Corpus:
             np.arange(self.num_docs, dtype=np.int32),
             np.diff(self.offsets).astype(np.int64),
         )
+
+    def doc_sums(self, empty_value: float = 1.0) -> np.ndarray:
+        """Per-doc raw count sums in float32 (requires counts). Empty docs
+        get `empty_value` (1.0 keeps later divisions harmless)."""
+        assert self.counts is not None
+        ds = np.full(self.num_docs, np.float32(empty_value), np.float32)
+        if self.nnz:
+            lengths = np.diff(self.offsets)
+            # a boundary-sampled cumsum, exact for integer counts in
+            # float64 (reduceat would misplace trailing empty docs)
+            cs = np.concatenate(
+                [[0.0], np.cumsum(self.counts, dtype=np.float64)]
+            )
+            s = (cs[self.offsets[1:]] - cs[self.offsets[:-1]]).astype(
+                np.float32
+            )
+            s[lengths == 0] = empty_value
+            ds[:] = s
+        return ds
+
+    def vals_match(self, expected_fn) -> bool:
+        """True when `vals` equals `expected_fn(counts, per-entry
+        doc_sums)` bit for bit on every entry: the check before a loader
+        rebuilds the values from the raw counts on the device. Checked in
+        full: Corpus is a plain dataclass whose vals callers can replace,
+        and a sampled check could pass where unsampled entries differ."""
+        if self.counts is None or self.nnz == 0:
+            return False
+        ds = self.doc_sums()
+        per_entry = np.repeat(ds, np.diff(self.offsets).astype(np.int64))
+        expect = expected_fn(self.counts, per_entry)
+        return bool(np.array_equal(
+            expect.astype(np.float32), self.vals.astype(np.float32)
+        ))
 
     @staticmethod
     def from_entries(

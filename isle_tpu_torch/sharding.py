@@ -137,6 +137,14 @@ class Mesh:
                 dist.all_reduce(t, group=self.group)
         return t
 
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise largest of `t` over the ranks, in place; returns
+        `t`."""
+        if self.group is not None:
+            with self._timed():
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """`t` as rank `src` holds it, in place; returns `t`. `src` counts
         within this mesh's group."""

@@ -27,16 +27,24 @@ float sums move within 1e-5. Between B and the finish the middle runs on
 the device as Trainer's does, on B's hybrid layout (hybrid.py) where
 GpuConfig.dense_head_bytes asks for one, as isle_tpu's streamed middle.
 
-isle_tpu's upload codecs, resident slabs and fill pipeline
-(isle_tpu/streaming.py:64-602) answer a slow host link and have no
-counterpart: ChunkLoader copies the corpus's own arrays through pinned
-staging buffers on a side stream, the next chunk's copy under the current
-chunk's work.
+The corpus reaches the device through one of two loaders: a
+ResidentLoader copies it once, into slabs that every pass decodes its
+chunks from (isle_tpu's ResidentLoader, isle_tpu/streaming.py:421-552),
+where its slabs fit GpuConfig.resident_corpus_bytes; a ChunkLoader copies
+every chunk on every pass otherwise. Both copy through pinned staging on a
+side stream. Between B and the middle, plan_middle_budget decides whether
+the slabs stay held and with how large a dense head, and a middle that
+runs out of device memory with the slabs held runs again with them
+released (planned_middle). isle_tpu's wire codecs (u16 word deltas,
+nibble-packed counts and their exception lists,
+isle_tpu/streaming.py:64-206) answer a slow host link and have no
+counterpart.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import time
 from typing import Iterator, List, Optional, Tuple
 
@@ -88,38 +96,35 @@ def doc_chunks(corpus, target_entries: int,
 
 
 class _Slot:
-    """One of ChunkLoader's two buffers: pinned staging and its device
-    copy for word ids and values, and the event of its last copy."""
+    """One of a loader's two staging slots: a pinned host buffer for each
+    field, the fields' device buffers where the slot has its own, and the
+    event of the slot's last copy."""
 
-    def __init__(self, cap: int, device: torch.device):
-        self.pin_w = torch.empty(cap, dtype=torch.int32, pin_memory=True)
-        self.pin_v = torch.empty(cap, dtype=torch.float32, pin_memory=True)
-        self.dev_w = torch.empty(cap, dtype=torch.int32, device=device)
-        self.dev_v = torch.empty(cap, dtype=torch.float32, device=device)
+    def __init__(self, cap: int, dtypes, device: torch.device, own: bool):
+        self.pin = [torch.empty(cap, dtype=dt, pin_memory=True)
+                    for dt in dtypes]
+        self.dev = ([torch.empty(cap, dtype=dt, device=device)
+                     for dt in dtypes] if own else [])
         self.copied = torch.cuda.Event()
 
 
-class ChunkLoader:
-    """Doc-range chunks of a host corpus on `device`, over the docs
-    `doc_range` = (lo, hi) (the whole corpus by default; a rank of a mesh
-    takes its own range).
+class Loader:
+    """What both chunk loaders share. A loader hands out doc-range chunks
+    of a host corpus on `device`, over the docs `doc_range` = (lo, hi)
+    (the whole corpus by default; a rank of a mesh takes its own range).
 
     load(lo, hi) -> (words int32, vals float32, docs int32), each
     offsets[hi] - offsets[lo] long (chunks are not padded): the entries of
     docs [lo, hi) in doc order, global doc ids. chunks() yields (lo, hi,
-    words, vals, docs) over doc_chunks(corpus, chunk_entries, doc_range)
-    with the next chunk's copy in flight. On a CPU device the tensors are
-    views of the corpus's arrays. On the card the word ids and values go
-    through two slots of pinned staging and device buffers, allocated once
-    here and sized by the range's largest chunk (none for an empty range):
-    a copy runs on a side stream after the work enqueued on the slot's
-    previous content, and the tensors returned are valid until the second
-    next load. The doc ids are built on the card from the range's offsets
-    (uploaded once).
+    words, vals, docs) over doc_chunks(corpus, chunk_entries, doc_range),
+    the next chunk's copy, where there is one, in flight.
 
     bytes_copied, host_wait_seconds (the host waiting for a staging buffer
     to be free) and copy_wait_ms() (the current stream waiting for a
-    chunk's copy) account for the copies.
+    chunk's copy) account for the copies to the card. A copy goes through
+    one of two slots of pinned staging on a side stream, after the work
+    enqueued so far on the current stream (which holds the last reader of
+    the slot's content).
     """
 
     def __init__(self, corpus, chunk_entries: int, device,
@@ -131,83 +136,73 @@ class ChunkLoader:
         self.doc_range = (int(lo), int(hi))
         self.ranges: List[Tuple[int, int]] = list(
             doc_chunks(corpus, self.chunk_entries, self.doc_range))
-        self._rows = torch.from_numpy(
-            np.ascontiguousarray(corpus.rows, np.int32))
-        self._vals = torch.from_numpy(
-            np.ascontiguousarray(corpus.vals, np.float32))
         self._offsets = np.asarray(corpus.offsets, np.int64)
-        range_offsets = self._offsets[lo:hi + 1]
-        self._off_dev = torch.from_numpy(range_offsets).to(self.device)
         self.bytes_copied = 0
         self.host_wait_seconds = 0.0
         self._waits: list = []
-        self._turn = 0
         self._slots: list = []
-        if self.device.type == "cuda" and self.ranges:
-            off = self._offsets
-            cap = max(int(off[b] - off[a]) for a, b in self.ranges)
-            self._stream = torch.cuda.Stream(self.device)
-            self._slots = [_Slot(cap, self.device) for _ in range(2)]
-            self.bytes_copied += range_offsets.nbytes
 
     def _span(self, lo: int, hi: int) -> Tuple[int, int]:
         return int(self._offsets[lo]), int(self._offsets[hi])
 
-    def _start_copy(self, lo: int, hi: int):
-        """Start the copy of docs [lo, hi) into the next slot."""
-        a, b = self._span(lo, hi)
-        if not self._slots:
-            return None
+    def _cap(self) -> int:
+        """The entries of the range's largest chunk."""
+        return max(b - a for a, b in (self._span(*r) for r in self.ranges))
+
+    def _open_staging(self, dtypes, own: bool) -> None:
+        self._stream = torch.cuda.Stream(self.device)
+        self._slots = [_Slot(self._cap(), dtypes, self.device, own)
+                       for _ in range(2)]
+        self._turn = 0
+
+    def _stage(self, srcs, dsts=None) -> _Slot:
+        """Copy the host tensors `srcs` (one length) into the device
+        tensors `dsts`, else into the next slot's own buffers."""
         slot = self._slots[self._turn]
         self._turn ^= 1
-        n = b - a
-        if n > slot.pin_w.numel():
-            raise ValueError(
-                f"docs [{lo}, {hi}) hold {n} entries, more than a chunk of "
-                f"this loader ({slot.pin_w.numel()})"
-            )
+        n = srcs[0].numel()
+        if n > slot.pin[0].numel():
+            raise ValueError(f"{n} entries are more than a chunk of this "
+                             f"loader ({slot.pin[0].numel()})")
         t0 = time.perf_counter()
         slot.copied.synchronize()  # the staging buffers are free again
         self.host_wait_seconds += time.perf_counter() - t0
-        slot.pin_w[:n].copy_(self._rows[a:b])
-        slot.pin_v[:n].copy_(self._vals[a:b])
-        # the work enqueued so far holds the last reader of the slot
+        for p, src in zip(slot.pin, srcs):
+            p[:n].copy_(src)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            slot.dev_w[:n].copy_(slot.pin_w[:n], non_blocking=True)
-            slot.dev_v[:n].copy_(slot.pin_v[:n], non_blocking=True)
+            for d, p in zip(slot.dev if dsts is None else dsts, slot.pin):
+                d[:n].copy_(p[:n], non_blocking=True)
             slot.copied.record(self._stream)
-        self.bytes_copied += 8 * n
+        self.bytes_copied += n * sum(p.element_size() for p in slot.pin)
         return slot
 
-    def _take(self, slot, lo: int, hi: int):
-        """The chunk's tensors, once the current stream has its copy."""
+    def _doc_ids(self, off_dev: torch.Tensor, lo: int, hi: int
+                 ) -> torch.Tensor:
+        """The global doc id of each entry of docs [lo, hi), from the
+        range's offsets on the device."""
         a, b = self._span(lo, hi)
-        if slot is None:
-            w, v = self._rows[a:b], self._vals[a:b]
-        else:
-            main = torch.cuda.current_stream(self.device)
-            before = torch.cuda.Event(enable_timing=True)
-            after = torch.cuda.Event(enable_timing=True)
-            before.record(main)
-            main.wait_event(slot.copied)
-            after.record(main)
-            self._waits.append((before, after))
-            w, v = slot.dev_w[:b - a], slot.dev_v[:b - a]
         base = self.doc_range[0]
-        lens = (self._off_dev[lo + 1 - base:hi + 1 - base]
-                - self._off_dev[lo - base:hi - base])
-        d = torch.repeat_interleave(
+        lens = (off_dev[lo + 1 - base:hi + 1 - base]
+                - off_dev[lo - base:hi - base])
+        return torch.repeat_interleave(
             torch.arange(lo, hi, dtype=torch.int32, device=self.device),
             lens, output_size=b - a)
-        return w, v, d
+
+    def _start(self, lo: int, hi: int):
+        """Start what chunk [lo, hi) needs before _take (a copy)."""
+        raise NotImplementedError
+
+    def _take(self, started, lo: int, hi: int):
+        """Chunk [lo, hi) as (words, vals, docs) on the device."""
+        raise NotImplementedError
 
     def load(self, lo: int, hi: int):
         first, end = self.doc_range
         if not first <= lo < hi <= end:
             raise ValueError(f"docs [{lo}, {hi}) are not a non-empty part "
                              f"of this loader's range [{first}, {end})")
-        return self._take(self._start_copy(lo, hi), lo, hi)
+        return self._take(self._start(lo, hi), lo, hi)
 
     def chunks(self):
         ranges = iter(self.ranges)
@@ -216,13 +211,13 @@ class ChunkLoader:
         def start_next():
             r = next(ranges, None)
             if r is not None:
-                pending.append((r, self._start_copy(*r)))
+                pending.append((r, self._start(*r)))
 
         start_next()
         start_next()
         while pending:
-            (lo, hi), slot = pending.popleft()
-            yield (lo, hi) + self._take(slot, lo, hi)
+            (lo, hi), started = pending.popleft()
+            yield (lo, hi) + self._take(started, lo, hi)
             start_next()
 
     def copy_wait_ms(self) -> float:
@@ -234,6 +229,315 @@ class ChunkLoader:
         ms = sum(a.elapsed_time(b) for a, b in self._waits)
         self._waits.clear()
         return ms
+
+
+class ChunkLoader(Loader):
+    """A Loader that copies every chunk on every pass. On a CPU device the
+    tensors are views of the corpus's arrays. On the card the word ids and
+    values go through the two slots, each with device buffers of its own,
+    allocated once here and sized by the range's largest chunk (none for
+    an empty range): the tensors returned are valid until the second next
+    load. The doc ids are built on the card from the range's offsets
+    (uploaded once)."""
+
+    def __init__(self, corpus, chunk_entries: int, device,
+                 doc_range: Optional[Tuple[int, int]] = None):
+        super().__init__(corpus, chunk_entries, device, doc_range)
+        self._rows = torch.from_numpy(
+            np.ascontiguousarray(corpus.rows, np.int32))
+        self._vals = torch.from_numpy(
+            np.ascontiguousarray(corpus.vals, np.float32))
+        lo, hi = self.doc_range
+        range_offsets = self._offsets[lo:hi + 1]
+        self._off_dev = torch.from_numpy(range_offsets).to(self.device)
+        if self.device.type == "cuda" and self.ranges:
+            self._open_staging((torch.int32, torch.float32), own=True)
+            self.bytes_copied += range_offsets.nbytes
+
+    def _start(self, lo: int, hi: int):
+        if not self._slots:
+            return None
+        a, b = self._span(lo, hi)
+        return self._stage((self._rows[a:b], self._vals[a:b]))
+
+    def _take(self, slot, lo: int, hi: int):
+        a, b = self._span(lo, hi)
+        if slot is None:
+            w, v = self._rows[a:b], self._vals[a:b]
+        else:
+            main = torch.cuda.current_stream(self.device)
+            before = torch.cuda.Event(enable_timing=True)
+            after = torch.cuda.Event(enable_timing=True)
+            before.record(main)
+            main.wait_event(slot.copied)
+            after.record(main)
+            self._waits.append((before, after))
+            w, v = slot.dev[0][:b - a], slot.dev[1][:b - a]
+        return w, v, self._doc_ids(self._off_dev, lo, hi)
+
+
+def counts_dtype(corpus) -> Optional[np.dtype]:
+    """The numpy dtype the resident counts form keeps a corpus's raw counts
+    in, or None where the values cannot be rebuilt from them: the rule of
+    isle_tpu's _compact_plan (isle_tpu/streaming.py:208-256). The counts
+    must be integral, and avg * (count / doc_sum) in float32, the count
+    cast to the dtype, must give `vals` bit for bit on every entry; the
+    dtype is uint8 below 256, uint16 below 65536, int32 otherwise."""
+    counts = getattr(corpus, "counts", None)
+    if counts is None:
+        return None
+    if corpus.nnz and not bool(np.all(counts == np.floor(counts))):
+        return None
+    cmax = float(counts.max()) if corpus.nnz else 0.0
+    dtype = np.dtype(np.uint8 if cmax < 256
+                     else np.uint16 if cmax < 65536 else np.int32)
+    avg = np.float32(corpus.avg_doc_sz)
+    if corpus.nnz and not corpus.vals_match(
+            lambda c, ds: avg * (c.astype(dtype).astype(np.float32) / ds)):
+        return None
+    return dtype
+
+
+# the dtype a slab holds counts of each dtype in: uint16 as its bits in
+# int16, the smallest dtype every PyTorch build moves and converts on the
+# card
+_COUNT_STORAGE = {np.dtype(np.uint8): (np.uint8, torch.uint8),
+                  np.dtype(np.uint16): (np.int16, torch.int16),
+                  np.dtype(np.int32): (np.int32, torch.int32)}
+
+
+def _count_values(c: torch.Tensor) -> torch.Tensor:
+    """A slab's counts as their values (uint16 counts are kept as their
+    bits in int16)."""
+    return c.to(torch.int32) & 0xFFFF if c.dtype == torch.int16 else c
+
+
+class ResidentLoader(Loader):
+    """A Loader that copies its range of the corpus to the device once, into
+    slabs that every pass decodes its chunks from: isle_tpu's
+    ResidentLoader (isle_tpu/streaming.py:421-552). Two forms:
+
+      - counts form, where counts_dtype(corpus) gives a dtype: word ids
+        int32, the raw counts in that dtype and the doc sums float32;
+        a chunk's values are avg * (count / doc_sum), the expression of
+        Corpus.from_entries in its order, so equal to `vals` bit for bit;
+      - vals form otherwise: word ids int32 and the values float32,
+        verbatim.
+
+    `form`: "auto" (counts_dtype's choice), or what counts_dtype returned
+    (None for the vals form). Doc ids come from the range's offsets, kept
+    on the device beside the slabs. The fill is lazy, on the first load
+    (a resume that skips every pass never pays it), and goes chunk by
+    chunk through the two staging slots into each chunk's part of the
+    slabs, allocated whole beforehand. fill_count and fill_seconds (host
+    clock, until the copies have ended) count the fills; release() frees
+    the slabs, and the next load fills them again. The tensors returned
+    are views of the slabs or made from them: valid until release().
+    """
+
+    def __init__(self, corpus, chunk_entries: int, device,
+                 doc_range: Optional[Tuple[int, int]] = None, form="auto"):
+        super().__init__(corpus, chunk_entries, device, doc_range)
+        self.count_dtype = counts_dtype(corpus) if form == "auto" else form
+        self.fill_count = 0
+        self.fill_seconds = 0.0
+        self._slabs = None
+
+    @staticmethod
+    def resident_bytes(corpus, chunk_entries: int, count_dtype,
+                       doc_range: Optional[Tuple[int, int]] = None) -> int:
+        """isle_tpu's ResidentLoader.resident_bytes (isle_tpu/streaming.py:
+        449-452) over the docs of `doc_range`: (entries + chunk_entries) x
+        (4 + the bytes of a count, or 4 of a value) + 8 x (docs + 8). The
+        chunk's slack and the 8 bytes a doc are the reference's (its padded
+        store window, its offsets and doc sums), kept so that both packages
+        take the same loader for the same corpus and budget."""
+        lo, hi = (0, corpus.num_docs) if doc_range is None else doc_range
+        entries = int(corpus.offsets[hi]) - int(corpus.offsets[lo])
+        size = 4 if count_dtype is None else np.dtype(count_dtype).itemsize
+        return (entries + chunk_entries) * (4 + size) + 8 * (hi - lo + 8)
+
+    @property
+    def slab_bytes(self) -> int:
+        return self.resident_bytes(self.corpus, self.chunk_entries,
+                                   self.count_dtype, self.doc_range)
+
+    @property
+    def held(self) -> bool:
+        """Whether the slabs are on the device."""
+        return self._slabs is not None
+
+    def fill(self) -> None:
+        """Copy the range to the device, unless the slabs are held."""
+        if self._slabs is not None:
+            return
+        t0 = time.perf_counter()
+        corpus, dev = self.corpus, self.device
+        first, end = self.doc_range
+        a0, b0 = self._span(first, end)
+        rows = np.ascontiguousarray(corpus.rows, np.int32)
+        if self.count_dtype is None:
+            host, dtype = np.ascontiguousarray(corpus.vals, np.float32), None
+            second = torch.empty(b0 - a0, dtype=torch.float32, device=dev)
+        else:
+            host = corpus.counts
+            dtype, storage = _COUNT_STORAGE[np.dtype(self.count_dtype)]
+            second = torch.empty(b0 - a0, dtype=storage, device=dev)
+        words = torch.empty(b0 - a0, dtype=torch.int32, device=dev)
+        cuda = dev.type == "cuda" and bool(self.ranges)
+        if cuda:
+            self._open_staging((torch.int32, second.dtype), own=False)
+        for lo, hi in self.ranges:
+            a, b = self._span(lo, hi)
+            srcs = (torch.from_numpy(rows[a:b]), torch.from_numpy(
+                host[a:b] if dtype is None
+                else host[a:b].astype(self.count_dtype).view(dtype)))
+            dsts = (words[a - a0:b - a0], second[a - a0:b - a0])
+            if cuda:
+                self._stage(srcs, dsts)
+            else:
+                for d, src in zip(dsts, srcs):
+                    d.copy_(src)
+        if cuda:
+            self._stream.synchronize()
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            self._slots = []  # the pinned staging goes with the fill
+        off = torch.from_numpy(self._offsets[first:end + 1]).to(dev)
+        if dev.type == "cuda":
+            self.bytes_copied += off.nbytes
+        doc_sums = avg = None
+        if dtype is not None:
+            # Corpus.doc_sums() of the range, from the slabs: the counts are
+            # integral, so their int64 sums are exact, and each rounds to
+            # float32 as the host's exact float64 sum does
+            sums = torch.zeros(end - first, dtype=torch.int64, device=dev)
+            for lo, hi in self.ranges:
+                a, b = self._span(lo, hi)
+                sums.index_add_(0, self._doc_ids(off, lo, hi) - first,
+                                _count_values(second[a - a0:b - a0]).long())
+            doc_sums = torch.where(off[1:] > off[:-1],
+                                   sums.to(torch.float32), 1.0)
+            avg = torch.tensor(np.float32(corpus.avg_doc_sz), device=dev)
+        self._slabs = (words, second, off, doc_sums, avg)
+        self.fill_count += 1
+        self.fill_seconds += time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Free the slabs: the next load fills them again."""
+        self._slabs = None
+
+    def _start(self, lo: int, hi: int):
+        self.fill()
+        return None
+
+    def _take(self, _, lo: int, hi: int):
+        words, second, off, doc_sums, avg = self._slabs
+        a, b = self._span(lo, hi)
+        a0 = int(self._offsets[self.doc_range[0]])
+        w, c = words[a - a0:b - a0], second[a - a0:b - a0]
+        d = self._doc_ids(off, lo, hi)
+        if doc_sums is None:
+            return w, c, d
+        # divided by the gathered float32 doc sums, never by a scalar (a
+        # scalar divisor becomes a multiply by its reciprocal on the card)
+        v = avg * (_count_values(c).to(torch.float32)
+                   / doc_sums[d - self.doc_range[0]])
+        return w, v, d
+
+
+def get_corpus_loader(corpus, chunk_entries: int, device,
+                      resident_bytes: int,
+                      doc_range: Optional[Tuple[int, int]] = None) -> Loader:
+    """The loader of the streamed passes over the docs `doc_range`: a
+    ResidentLoader where its slabs fit `resident_bytes`
+    (ResidentLoader.resident_bytes, the rule of isle_tpu's
+    get_corpus_loader, isle_tpu/streaming.py:590-602), else a
+    ChunkLoader."""
+    if resident_bytes and corpus.nnz:
+        form = counts_dtype(corpus)
+        if ResidentLoader.resident_bytes(corpus, chunk_entries, form,
+                                         doc_range) <= resident_bytes:
+            return ResidentLoader(corpus, chunk_entries, device, doc_range,
+                                  form)
+    return ChunkLoader(corpus, chunk_entries, device, doc_range)
+
+
+# isle_tpu's constants of the middle's memory plan
+# (isle_tpu/streaming.py:555-564): the peak temporaries of the hybrid
+# build beside a full head, measured at the PubMed shape, and those of the
+# middle without a head (B itself and the eigensolver and k-means state),
+# each a nonzero of B; a reserve; the smallest head worth building.
+_MIDDLE_TEMP_B_PER_NNZ = 96
+_MIDDLE_NOHEAD_B_PER_NNZ = 30
+_MIDDLE_RESERVE = 1 << 30
+_MIN_HEAD_BYTES = 256 << 20
+
+
+def plan_middle_budget(hbm_bytes: int, slab_bytes: int, nnz_b: int,
+                       cfg_head_bytes: int) -> Tuple[bool, int]:
+    """Whether the resident slabs stay held through the middle stages, and
+    with how large a dense head: isle_tpu's plan_middle_budget
+    (isle_tpu/streaming.py:567-587). A refill costs a pass over the host
+    link and the head saves seconds of SpMM, so where both do not fit the
+    head shrinks into what is left, then goes, and the slabs are released
+    only where even the middle without a head does not fit. Returns
+    (keep_slabs, head_bytes): the head budget to build with when the
+    slabs are kept, else the configured one."""
+    room = (hbm_bytes - slab_bytes - _MIDDLE_TEMP_B_PER_NNZ * nnz_b
+            - _MIDDLE_RESERVE)
+    if cfg_head_bytes > 0 and room >= _MIN_HEAD_BYTES:
+        return True, int(min(cfg_head_bytes, room))
+    room_nohead = (hbm_bytes - slab_bytes
+                   - _MIDDLE_NOHEAD_B_PER_NNZ * nnz_b - _MIDDLE_RESERVE)
+    if room_nohead >= 0:
+        return True, 0
+    return False, cfg_head_bytes
+
+
+def planned_middle(t, loader: Loader, nnz_b: int, run, agree=None):
+    """run(head_bytes, state) -> the middle's result, with the head budget
+    plan_middle_budget gives while `loader`'s resident slabs are held (on
+    GpuConfig.hbm_limit(); no plan without a limit), and once more with
+    the slabs released and the configured head if the held attempt runs
+    out of device memory: isle_tpu/streaming.py:1221-1350. `state` (a
+    dict) lasts over both attempts, so that the retry reuses the
+    eigenpairs, and the retry draws what the first attempt drew (the
+    trainer's draw source as it stood before it), as isle_tpu's retry
+    takes the same keys. Any other error, or running out of memory with
+    no slabs held, propagates. `agree` maps (slab bytes, nnz_b, limit) to
+    the values every rank of a mesh plans with."""
+    gpu = t.gpu
+    head = cfg_head = gpu.dense_head_bytes
+    held = isinstance(loader, ResidentLoader) and loader.held
+    limit = gpu.hbm_limit()
+    if held and limit is not None:
+        slab, nnz, limit = (loader.slab_bytes, nnz_b, limit) \
+            if agree is None else agree(loader.slab_bytes, nnz_b, limit)
+        keep, head = plan_middle_budget(limit, slab, nnz, cfg_head)
+        if not keep:
+            loader.release()
+            held = False
+        elif head != cfg_head:
+            t.logger.info(f"holding the resident corpus ({slab >> 20} MiB) "
+                          f"through the middle; dense head budget "
+                          f"{head >> 20} MiB")
+    state: dict = {}
+    draws = copy.deepcopy(t.draws) if held else None
+    try:
+        return run(head, state)
+    except torch.OutOfMemoryError:
+        if not held:
+            raise
+    # out of the except block: the error's frames, and the failed
+    # attempt's tensors with them, are gone
+    t.logger.warning("the middle stages ran out of device memory with the "
+                     "resident corpus held; releasing the slabs and "
+                     "retrying (the finish passes will refill)")
+    loader.release()
+    if t.device.type == "cuda":
+        torch.cuda.empty_cache()
+    t.draws = draws
+    return run(cfg_head, state)
 
 
 def word_slice_len(n: int, vocab: int, seg_chunk: int) -> int:
@@ -252,7 +556,7 @@ def _sort_by_word(w: torch.Tensor, *payloads: torch.Tensor):
     return (ws,) + tuple(p[perm] for p in payloads)
 
 
-def streamed_histogram(corpus, loader: ChunkLoader,
+def streamed_histogram(corpus, loader: Loader,
                        seg_chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """The running (V+1, F+1) int32 histogram of rounded frequencies over
     the loader's chunks: each chunk sorted by word and counted by
@@ -284,7 +588,7 @@ def zetas_of_histogram(hist: torch.Tensor, corpus, num_topics: int, hyper):
     return zeta.to(torch.float32), int(nnz_w.sum())
 
 
-def streamed_thresholds(corpus, num_topics: int, hyper, loader: ChunkLoader,
+def streamed_thresholds(corpus, num_topics: int, hyper, loader: Loader,
                         seg_chunk: int = DEFAULT_CHUNK):
     """Stage 1: the ζ cutoffs without A on the device, from the running
     histogram of the chunks. Returns (zetas float32[V], post-threshold
@@ -293,7 +597,7 @@ def streamed_thresholds(corpus, num_topics: int, hyper, loader: ChunkLoader,
                               corpus, num_topics, hyper)
 
 
-def streamed_doc_weights(corpus, zetas: torch.Tensor, loader: ChunkLoader,
+def streamed_doc_weights(corpus, zetas: torch.Tensor, loader: Loader,
                          seg_chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Stage 2 input: per-doc importance weights, the sum of ζ over a
     doc's entries that pass their threshold
@@ -317,7 +621,7 @@ def _concat(parts: list, dtype: torch.dtype, device) -> torch.Tensor:
 
 def streamed_build_b(corpus, zetas: torch.Tensor,
                      select_docs: Optional[torch.Tensor],
-                     loader: ChunkLoader) -> Tuple[DocSparse, np.ndarray]:
+                     loader: Loader) -> Tuple[DocSparse, np.ndarray]:
     """Stage 3: B (thresholded, sqrt-ζ, docs renumbered, dual-sorted) put
     together on the device from streamed chunks of the loader's range;
     with `select_docs` (a (D,) bool mask over the whole corpus) only those
@@ -358,7 +662,7 @@ def streamed_build_b(corpus, zetas: torch.Tensor,
 
 
 def streamed_filter_clustered(corpus, cluster_of_doc: torch.Tensor,
-                              loader: ChunkLoader) -> DocSparse:
+                              loader: Loader) -> DocSparse:
     """Stage 4 input: the entries of A whose doc has a cluster (global doc
     ids kept), as a device DocSparse for catchwords.rth_highest."""
     D, V = corpus.num_docs, corpus.vocab_size
@@ -379,7 +683,7 @@ def streamed_filter_clustered(corpus, cluster_of_doc: torch.Tensor,
 
 
 def streamed_doc_topic_mass(corpus, cw_topic: torch.Tensor, num_topics: int,
-                            loader: ChunkLoader,
+                            loader: Loader,
                             seg_chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Stage 5: the catchword mass of the loader's docs, (docs of its
     range, k); row 0 is the range's first doc. A chunk's docs are rows
@@ -395,7 +699,7 @@ def streamed_doc_topic_mass(corpus, cw_topic: torch.Tensor, num_topics: int,
     return mass
 
 
-def streamed_model_accumulation(corpus, W: torch.Tensor, loader: ChunkLoader,
+def streamed_model_accumulation(corpus, W: torch.Tensor, loader: Loader,
                                 seg_chunk: int = DEFAULT_CHUNK
                                 ) -> torch.Tensor:
     """Stage 6: A W over the loader's docs, (V, k), from their rows W
@@ -422,7 +726,7 @@ def streamed_topic_model(
     num_topics: int,
     rank_threshold: int,
     want_top_pairs: bool,
-    loader: ChunkLoader,
+    loader: Loader,
     seg_chunk: int = DEFAULT_CHUNK,
 ):
     """Stages 5-6 over streamed A, with the semantics of
@@ -453,7 +757,7 @@ class StreamedTrainer:
         self._t = Trainer(config, output_dir=output_dir, quiet=quiet,
                           **trainer_kw)
         self.chunk_entries = chunk_entries
-        self.loader: Optional[ChunkLoader] = None
+        self.loader: Optional[Loader] = None
         # output_doc_topic's mass comes from chunks too: a corpus that
         # needed this trainer does not fit the card for its report either
         self._t._doc_topic_mass = self._streamed_doc_topic_mass
@@ -461,28 +765,35 @@ class StreamedTrainer:
     def __getattr__(self, name):
         return getattr(self._t, name)
 
-    def _chunk_loader(self, doc_range: Optional[Tuple[int, int]] = None
-                      ) -> ChunkLoader:
-        """One loader (and one set of staging buffers) for every pass of
+    def _chunk_loader(self, doc_range: Optional[Tuple[int, int]] = None,
+                      resident_bytes: Optional[int] = None) -> Loader:
+        """One loader (and one set of buffers or slabs) for every pass of
         this trainer over its corpus's docs `doc_range` (all of them by
-        default)."""
+        default): get_corpus_loader's choice under `resident_bytes`,
+        GpuConfig.resident_corpus_bytes by default."""
         t = self._t
         want = (0, t.corpus.num_docs) if doc_range is None else doc_range
+        budget = (t.gpu.resident_corpus_bytes if resident_bytes is None
+                  else resident_bytes)
         if (self.loader is None or self.loader.corpus is not t.corpus
-                or self.loader.doc_range != tuple(want)):
-            self.loader = None  # its pinned buffers go before the next's
-            self.loader = ChunkLoader(t.corpus, self.chunk_entries, t.device,
-                                      want)
+                or self.loader.doc_range != tuple(want)
+                or (isinstance(self.loader, ResidentLoader) and not budget)):
+            self.loader = None  # its buffers go before the next's
+            self.loader = get_corpus_loader(t.corpus, self.chunk_entries,
+                                            t.device, budget, want)
         return self.loader
 
     def _streamed_doc_topic_mass(self, cw_topic: torch.Tensor
                                  ) -> torch.Tensor:
-        """The whole corpus's mass, through a loader over every doc: under
-        a mesh this is rank 0's report, with no collective."""
+        """The whole corpus's mass, through a loader over every doc: the
+        training loader on one device, and under a mesh rank 0's report,
+        with no collective, over the wire (a pass read once holds no
+        second copy of the corpus)."""
         t = self._t
+        loader = self._chunk_loader(
+            resident_bytes=None if t.mesh is None else 0)
         return streamed_doc_topic_mass(
-            t.corpus, cw_topic, t.config.num_topics, self._chunk_loader(),
-            t.gpu.seg_chunk)
+            t.corpus, cw_topic, t.config.num_topics, loader, t.gpu.seg_chunk)
 
     def train(self, resume: bool = False) -> None:
         """Run the streamed pipeline; with resume=True, completed stages
@@ -506,7 +817,7 @@ class StreamedTrainer:
         hp = cfg.hyper
         k = cfg.num_topics
         corpus = t.corpus
-        D, V = corpus.num_docs, corpus.vocab_size
+        D = corpus.num_docs
         chunk = t.gpu.seg_chunk
         dev = t.device
 
@@ -562,59 +873,10 @@ class StreamedTrainer:
                 "is too sparse for these hyperparameters"
             )
 
-        # the hybrid layout of the streamed B, with the head budget of
-        # isle_tpu's streamed middle (isle_tpu/streaming.py:1259-1277):
-        # at least 8 head rows, or B stays COO, its B Y over doc tiles
-        # (sparse.b_y) as the hybrid tail's
-        budget = t.gpu.dense_head_bytes
-        num_head = min(V, budget // max(2 * B.num_docs, 1),
-                       max_head_rows(B.num_docs))
-        if budget > 0 and num_head >= 8:
-            B = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
-        else:
-            B = with_doc_tiles(B)
-        if budget > 0:
-            t._mark("hybrid layout")
-
-        if "svd" in ck:
-            t.evalues = ck["svd"]["evalues"]
-            U = torch.from_numpy(ck["svd"]["U"]).to(dev)
-            t.logger.info("resumed eigenvectors from 'svd' checkpoint")
-        else:
-            t.evalues, U, stats = solve_gram_eigens(
-                B, V, k, cfg, t.draws, chunk, timer=t.timer, logger=t.logger,
-                start_block=t._warm_start_block(V),
-                device_loop=t.gpu.device_loop_solver,
-            )
-            if stats is not None:
-                res, op_width = stats
-                t.op_counter.add(res.op_seconds,
-                                 mat_spmm_flops(B, op_width) * res.op_calls,
-                                 res.op_calls)
-            t._mark("eigen solve (B B^T)")
-            t._checkpoint("svd", U=U.cpu().numpy(), evalues=t.evalues,
-                          zetas=zetas.cpu().numpy(),
-                          original_cols=original_cols)
-
-        # seeding and Lloyd's on the projected docs, then the full space
-        # (as isle_tpu's streamed trainer: always through the projection)
-        if not hp.enable_kmeans_on_lowd:
-            t.logger.warning(
-                "the streamed trainer always runs k-means on the projected "
-                "docs first: enable_kmeans_on_lowd=False is ignored")
-        P = mat_bt_x(B, U, chunk).T
-        _, centers_lowd, _ = kmeans_init_on_projected(
-            P, k, hp.kmeans_init_reps, t.draws,
-            method=hp.kmeans_init_method,
-            mcmc_sample_size=hp.kmeansmcmc_sample_size,
-        )
-        centers_lowd, _ = run_lloyds_projected(
-            P, centers_lowd, hp.max_kmeans_lowd_reps)
-        full_kmeans = (run_elkans if hp.kmeans_algo_for_sparse == "elkans"
-                       else run_lloyds_full)
-        centers_full, assign = full_kmeans(
-            B, centers_lowd @ U.T, hp.max_kmeans_reps, timer=t.timer,
-            chunk=chunk)
+        centers_full, assign = planned_middle(
+            t, loader, B.nnz,
+            lambda head, state: self._middle(B, zetas, original_cols, ck,
+                                             head, state))
         t.centers = centers_full.cpu().numpy()
         t._mark("k-means")
 
@@ -623,13 +885,82 @@ class StreamedTrainer:
         t.cluster_of_doc = cluster_of_doc
         t._checkpoint("kmeans", centers=t.centers,
                       cluster_of_doc=cluster_of_doc)
-        # B, the projection and the centers leave the device before the
-        # (D, k) working set of the last stages arrives
-        del B, U, P, centers_lowd, centers_full, assign
+        # B and the centers leave the device before the (D, k) working set
+        # of the last stages arrives
+        del B, centers_full, assign
         self._finish(cluster_of_doc, loader)
 
+    def _middle(self, B: DocSparse, zetas: torch.Tensor,
+                original_cols: np.ndarray, ck: dict, head_bytes: int,
+                state: dict):
+        """B's layout, the eigenpairs and k-means: returns (centers_full,
+        assign). The hybrid layout takes isle_tpu's streamed head rule
+        (isle_tpu/streaming.py:1259-1277) under `head_bytes`: at least 8
+        head rows, or B stays COO, its B Y over doc tiles (sparse.b_y) as
+        the hybrid tail's. The eigenpairs come from the svd checkpoint in
+        `ck`, else from `state` (an earlier attempt of this middle), else
+        from the solver, and are then checkpointed and kept in `state`."""
+        t = self._t
+        cfg = t.config
+        hp = cfg.hyper
+        k, V = cfg.num_topics, t.corpus.vocab_size
+        chunk = t.gpu.seg_chunk
+        num_head = min(V, head_bytes // max(2 * B.num_docs, 1),
+                       max_head_rows(B.num_docs))
+        if head_bytes > 0 and num_head >= 8:
+            Bh = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
+        else:
+            Bh = with_doc_tiles(B)
+        if head_bytes > 0:
+            t._mark("hybrid layout")
+
+        if "svd" in ck:
+            t.evalues = ck["svd"]["evalues"]
+            U = torch.from_numpy(ck["svd"]["U"]).to(t.device)
+            t.logger.info("resumed eigenvectors from 'svd' checkpoint")
+        elif "U" in state:
+            t.evalues, U = state["evalues"], state["U"]
+            t.logger.info("reusing the eigenvectors of the attempt that ran "
+                          "out of device memory")
+        else:
+            t.evalues, U, stats = solve_gram_eigens(
+                Bh, V, k, cfg, t.draws, chunk, timer=t.timer,
+                logger=t.logger, start_block=t._warm_start_block(V),
+                device_loop=t.gpu.device_loop_solver,
+            )
+            if stats is not None:
+                res, op_width = stats
+                t.op_counter.add(res.op_seconds,
+                                 mat_spmm_flops(Bh, op_width) * res.op_calls,
+                                 res.op_calls)
+            t._mark("eigen solve (B B^T)")
+            t._checkpoint("svd", U=U.cpu().numpy(), evalues=t.evalues,
+                          zetas=zetas.cpu().numpy(),
+                          original_cols=original_cols)
+            state["evalues"], state["U"] = t.evalues, U
+
+        # seeding and Lloyd's on the projected docs, then the full space
+        # (as isle_tpu's streamed trainer: always through the projection)
+        if not hp.enable_kmeans_on_lowd:
+            t.logger.warning(
+                "the streamed trainer always runs k-means on the projected "
+                "docs first: enable_kmeans_on_lowd=False is ignored")
+        P = mat_bt_x(Bh, U, chunk).T
+        _, centers_lowd, _ = kmeans_init_on_projected(
+            P, k, hp.kmeans_init_reps, t.draws,
+            method=hp.kmeans_init_method,
+            mcmc_sample_size=hp.kmeansmcmc_sample_size,
+        )
+        centers_lowd, _ = run_lloyds_projected(
+            P, centers_lowd, hp.max_kmeans_lowd_reps)
+        del P
+        full_kmeans = (run_elkans if hp.kmeans_algo_for_sparse == "elkans"
+                       else run_lloyds_full)
+        return full_kmeans(Bh, centers_lowd @ U.T, hp.max_kmeans_reps,
+                           timer=t.timer, chunk=chunk)
+
     def _finish(self, cluster_of_doc: np.ndarray,
-                loader: ChunkLoader) -> None:
+                loader: Loader) -> None:
         """Catchword statistics, catchwords and the topic matrix."""
         t = self._t
         cfg = t.config

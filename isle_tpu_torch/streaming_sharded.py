@@ -34,12 +34,20 @@ counts), and a rank that holds no doc of A or of B still joins every
 collective. Integer results equal the single-device streamed path's;
 float sums that pass an all-reduce agree to rounding.
 
-Not ported: ShardedResidentLoader and its decode (the device-resident,
-padded slabs; a rank's ChunkLoader copies its own range from pinned
-memory), the flat and padded indices _put / _flat_doc_index /
-_padded_row_index (the shards here are ragged), the resident_corpus_bytes
-refusal, plan_middle_budget with the OOM retry, and the hybrid layout of
-the middle.
+A rank's loader is a ResidentLoader over its own range (the counterpart
+of isle_tpu's ShardedResidentLoader, its slabs filled once, in the stage
+"sharded resident corpus fill") where the largest rank's slabs fit
+GpuConfig.resident_corpus_bytes, and a ChunkLoader on every rank
+otherwise (where isle_tpu refuses the run). The middle takes the memory
+plan and the out-of-memory retry of the single-device trainer
+(streaming.planned_middle) on the largest rank's slab bytes and nnz(B)
+and the smallest device memory, so that every rank decides alike; the
+retry assumes that every rank runs out of memory at the same step, as
+isle_tpu's single program does (a rank that fails alone leaves the others
+in a collective until the group's timeout).
+
+Not ported: the flat and padded indices _put / _flat_doc_index /
+_padded_row_index (the shards here are ragged).
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ from .catchwords import catchword_topic_map, find_catchwords
 from .segsum import DEFAULT_CHUNK
 from .sharding import Mesh, ShardedDocSparse, WordSharded, doc_range, \
     join_doc_shards, sharded_rth_highest, word_bounds_of_counts
-from .streaming import ChunkLoader, _concat, streamed_build_b, \
+from .streaming import Loader, ResidentLoader, _concat, \
+    counts_dtype, planned_middle, streamed_build_b, \
     streamed_doc_topic_mass, streamed_doc_weights, streamed_histogram, \
     streamed_model_accumulation, zetas_of_histogram
 from .topic_model import _contribution_weights, has_catchwords, \
@@ -65,7 +74,7 @@ _INF_BITS = 0x7F800000
 
 
 def sharded_streamed_thresholds(corpus, num_topics: int, hyper,
-                                loader: ChunkLoader, mesh: Mesh,
+                                loader: Loader, mesh: Mesh,
                                 seg_chunk: int = DEFAULT_CHUNK
                                 ) -> Tuple[torch.Tensor, int]:
     """ζ from the rank's chunks: its running histogram, one all-reduce of
@@ -77,7 +86,7 @@ def sharded_streamed_thresholds(corpus, num_topics: int, hyper,
 
 
 def sharded_streamed_doc_weights(corpus, zetas: torch.Tensor,
-                                 loader: ChunkLoader, mesh: Mesh,
+                                 loader: Loader, mesh: Mesh,
                                  seg_chunk: int = DEFAULT_CHUNK
                                  ) -> torch.Tensor:
     """The (D,) sampling weights of every doc on every rank: each rank's
@@ -88,7 +97,7 @@ def sharded_streamed_doc_weights(corpus, zetas: torch.Tensor,
 
 def sharded_streamed_build_b(corpus, zetas: torch.Tensor,
                              select_docs: Optional[torch.Tensor],
-                             loader: ChunkLoader, mesh: Mesh
+                             loader: Loader, mesh: Mesh
                              ) -> Tuple[ShardedDocSparse, np.ndarray]:
     """B from the rank's chunks, its kept docs renumbered from 0, as its
     part of a ShardedDocSparse; `select_docs` is a (D,) bool mask over
@@ -99,7 +108,7 @@ def sharded_streamed_build_b(corpus, zetas: torch.Tensor,
 
 
 def sharded_streamed_filter_clustered(corpus, cluster_of_doc: torch.Tensor,
-                                      loader: ChunkLoader, mesh: Mesh
+                                      loader: Loader, mesh: Mesh
                                       ) -> WordSharded:
     """The entries of A whose doc has a cluster (cluster_of_doc: (D,)
     global), word-sharded: each rank filters its chunks, the per-word
@@ -185,13 +194,38 @@ def sharded_top_two_topics(mass: torch.Tensor, mesh: Mesh):
             mesh.all_gather_rows(valid.to(torch.uint8)).to(torch.bool))
 
 
-def sharded_streamed_model(corpus, W: torch.Tensor, loader: ChunkLoader,
+def sharded_streamed_model(corpus, W: torch.Tensor, loader: Loader,
                            mesh: Mesh, seg_chunk: int = DEFAULT_CHUNK
                            ) -> torch.Tensor:
     """The (V, k) l1-normalized model on every rank: each rank's A W over
     its chunks (W: its (D_r, k) rows), one all-reduce."""
     model = streamed_model_accumulation(corpus, W, loader, seg_chunk)
     return l1_normalize_columns(mesh.all_reduce(model.contiguous()))
+
+
+def _rank_loader(st, doc_range: Tuple[int, int]) -> Loader:
+    """The rank's loader over its docs `doc_range`: a ResidentLoader on
+    every rank where the largest rank's slabs fit
+    GpuConfig.resident_corpus_bytes (one all-reduce), else a ChunkLoader
+    on every rank."""
+    t = st._t
+    budget = t.gpu.resident_corpus_bytes
+    corpus = t.corpus
+    if budget and corpus.nnz:
+        form = counts_dtype(corpus)
+        mine = ResidentLoader.resident_bytes(corpus, st.chunk_entries, form,
+                                             doc_range)
+        largest = int(t.mesh.all_max(torch.tensor(
+            [mine], dtype=torch.int64, device=t.device)))
+        if largest <= budget:
+            if not (isinstance(st.loader, ResidentLoader)
+                    and st.loader.corpus is corpus
+                    and st.loader.doc_range == tuple(doc_range)):
+                st.loader = None  # its buffers go before the next's
+                st.loader = ResidentLoader(corpus, st.chunk_entries,
+                                           t.device, doc_range, form)
+            return st.loader
+    return st._chunk_loader(doc_range, resident_bytes=0)
 
 
 def train_sharded_streamed(st, resume: bool = False) -> None:
@@ -216,7 +250,10 @@ def train_sharded_streamed(st, resume: bool = False) -> None:
         t._load_checkpoints() if resume and t.is_writer else {})
     if t._restore_model_checkpoint(ck):
         return
-    loader = st._chunk_loader(doc_range(D, mesh))
+    loader = _rank_loader(st, doc_range(D, mesh))
+    if isinstance(loader, ResidentLoader):
+        loader.fill()
+        t._mark("sharded resident corpus fill")
 
     if "svd" in ck:
         zetas = torch.from_numpy(ck["svd"]["zetas"]).to(dev)
@@ -267,14 +304,22 @@ def train_sharded_streamed(st, resume: bool = False) -> None:
             "is too sparse for these hyperparameters"
         )
 
-    cluster_of_doc = t._sharded_middle(B, zetas, original_cols, ck,
-                                       streamed=True)
+    def agree(slab: int, nnz_b: int, limit: int) -> Tuple[int, int, int]:
+        got = mesh.all_max(torch.tensor([slab, nnz_b, -limit],
+                                        dtype=torch.int64, device=dev))
+        return int(got[0]), int(got[1]), -int(got[2])
+
+    cluster_of_doc = planned_middle(
+        t, loader, B.local.nnz,
+        lambda head, state: t._sharded_middle(
+            B, zetas, original_cols, ck, head, streamed=True, state=state),
+        agree)
     del B
     _finish_sharded_streamed(st, cluster_of_doc, loader)
 
 
 def _finish_sharded_streamed(st, cluster_of_doc: np.ndarray,
-                             loader: ChunkLoader) -> None:
+                             loader: Loader) -> None:
     """Catchword statistics by word range, catchwords (rank 0's), and the
     topic model from the rank-local mass."""
     t = st._t

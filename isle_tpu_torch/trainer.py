@@ -365,6 +365,19 @@ class Trainer:
             return
         st = state_from_numpy(ck, self.device)
 
+        # isle_tpu's rough in-core footprint (isle_tpu/trainer.py:316-326):
+        # the dual-sorted A (6 arrays), the head budget and (D, k)-class
+        # working sets. Corpora past it belong in streaming.StreamedTrainer.
+        est = 6 * 4 * self.corpus.nnz + self.gpu.dense_head_bytes \
+            + 8 * 4 * D * k
+        limit = self.gpu.hbm_limit()
+        if limit is not None and est > limit:
+            self.logger.warning(
+                f"estimated device footprint ~{est / 2**30:.1f} GiB may "
+                f"exceed the device's {limit / 2**30:.1f} GiB; consider "
+                "streaming.StreamedTrainer (out-of-core) for this corpus"
+            )
+
         A = self._device_A()
         self._mark("upload A to device")
 
@@ -677,7 +690,8 @@ class Trainer:
                 "and eps2/eps3/w0_c"
             )
 
-        cluster_of_doc = self._sharded_middle(B, zetas, original_cols, ck)
+        cluster_of_doc = self._sharded_middle(B, zetas, original_cols, ck,
+                                              self.gpu.dense_head_bytes)
         del B
         sizes = np.bincount(cluster_of_doc[cluster_of_doc >= 0],
                             minlength=k).astype(np.int32)
@@ -685,11 +699,13 @@ class Trainer:
 
     def _sharded_middle(self, B, zetas: torch.Tensor,
                         original_cols: np.ndarray, ck: dict,
-                        streamed: bool = False) -> np.ndarray:
+                        head_bytes: int, streamed: bool = False,
+                        state: Optional[dict] = None) -> np.ndarray:
         """Stages 4-9 on the mesh from B (a ShardedDocSparse), shared by
         _train_sharded and the sharded streamed trainer
-        (streaming_sharded.py): with a dense head budget, B's hybrid
-        layout (sharding.shard_hybrid) for the products below; the
+        (streaming_sharded.py): with a dense head budget `head_bytes`
+        (GpuConfig.dense_head_bytes, or the streamed trainer's plan), B's
+        hybrid layout (sharding.shard_hybrid) for the products below; the
         eigensolve, whose operator ends in an all-reduce, with rank 0's U
         everywhere; the projected docs, gathered; the seeding and the
         projected Lloyd's, replicated, with rank 0's centers everywhere;
@@ -700,7 +716,9 @@ class Trainer:
         checkpoints and returns cluster_of_doc. `streamed` takes
         isle_tpu's streamed stage labels (the eigensolve's when it ran,
         then one for all of k-means) and always clusters through the
-        projection, as isle_tpu's streamed trainers do."""
+        projection, as isle_tpu's streamed trainers do. `state`, where
+        given, keeps the eigenpairs for a later call (the streamed
+        trainer's retry after running out of memory)."""
         from .elkans_sharded import sharded_run_elkans
         from .sharding import compact_doc_rows, pad_doc_rows, shard_hybrid, \
             sharded_b_y, sharded_bt_x, sharded_gram_x, \
@@ -721,9 +739,9 @@ class Trainer:
                 "docs first: enable_kmeans_on_lowd=False is ignored")
             lowd = True
 
-        if self.gpu.dense_head_bytes > 0 and B.num_docs > 0:
+        if head_bytes > 0 and B.num_docs > 0:
             B_op = shard_hybrid(B, row_scale_from_zetas(zetas), mesh,
-                                self.gpu.dense_head_bytes)
+                                head_bytes)
             self.logger.diag(
                 f"sharded hybrid layout: {B_op.num_head} global head rows")
             self._mark("hybrid layout (sharded)")
@@ -731,10 +749,15 @@ class Trainer:
             B_op = dataclasses.replace(B, local=with_doc_tiles(B.local))
 
         # 4-5. truncated SVD of B B^T: the operator ends in an all-reduce
+        reused = state is not None and "U" in state
         if "svd" in ck:
             self.evalues = ck["svd"]["evalues"]
             U = torch.from_numpy(np.ascontiguousarray(ck["svd"]["U"])).to(dev)
             self.logger.info("resumed eigenvectors from 'svd' checkpoint")
+        elif reused:
+            self.evalues, U = state["evalues"], state["U"]
+            self.logger.info("reusing the eigenvectors of the attempt that "
+                             "ran out of device memory")
         else:
             start = self._warm_start_block(V) if self.is_writer else None
             start = mesh.broadcast_object(
@@ -764,10 +787,12 @@ class Trainer:
                     res.op_calls,
                 )
                 self.logger.info(self.op_counter.summary())
+            if state is not None:
+                state["evalues"], state["U"] = self.evalues, U
         self._print_eigen_data(self.evalues, k)
         if not (streamed and "svd" in ck):
             self._mark("eigen solve (B B^T, sharded)")
-        if "svd" not in ck:
+        if "svd" not in ck and not reused:
             self._checkpoint("svd", U=U.cpu().numpy(), evalues=self.evalues,
                              zetas=zetas.cpu().numpy(),
                              original_cols=original_cols)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+streamed trainer's resident corpus against its wire loader, on the
 card. Every test here is marked `cuda` and skips without a CUDA device:
 the kernels have no CPU mode. The card's host has no jax, and
 tests/conftest.py imports it, so run this file there without the
@@ -905,7 +906,7 @@ def test_chunk_loader_over_a_doc_range_on_the_card(dev):
     off = corpus.offsets
     assert loader.ranges[0][0] == lo and loader.ranges[-1][1] == hi
     assert loader.bytes_copied == 8 * (hi - lo + 1)
-    assert loader._slots[0].pin_w.numel() == max(
+    assert loader._slots[0].pin[0].numel() == max(
         int(off[b] - off[a]) for a, b in loader.ranges)
     docs = corpus.doc_ids()
     seen = int(off[lo])
@@ -925,7 +926,8 @@ def test_chunk_loader_over_a_doc_range_on_the_card(dev):
 def test_group_less_mesh_streamed_on_the_card(dev, tmp_path):
     """StreamedTrainer with a mesh of one rank and no group on the card:
     the sharded streamed path, every pass launching its kernel once a
-    chunk, ending bit for bit where the single-device streamed run ends."""
+    chunk, ending bit for bit where the single-device streamed run ends
+    (both on the default, resident loader)."""
     from isle_tpu_torch import GpuConfig, TrainConfig
     from isle_tpu_torch.sharding import Mesh
     from isle_tpu_torch.streaming import StreamedTrainer
@@ -945,8 +947,8 @@ def test_group_less_mesh_streamed_on_the_card(dev, tmp_path):
     (g, g_counts), (c, c_counts) = runs["sharded"], runs["single"]
     assert g_counts == c_counts
     assert g.loader.doc_range == (0, corpus.num_docs)
-    assert [s for s, *_ in g.timer.phases][0] == \
-        "streamed thresholds (sharded)"
+    assert [s for s, *_ in g.timer.phases][:2] == [
+        "sharded resident corpus fill", "streamed thresholds (sharded)"]
     for f in ("original_cols", "cluster_of_doc", "evalues", "model"):
         np.testing.assert_array_equal(getattr(g, f), getattr(c, f), f)
     for a, b in zip(g.top_pairs, c.top_pairs):
@@ -1276,3 +1278,49 @@ def test_micro_row_gather_stages(dev, depth, W):
     got = mk.row_gather_async(bad, tab, chunk, depth)
     assert torch.equal(got, mk.row_gather_plain(bad, tab))
     assert torch.equal(got, mk.row_gather_async(bad, tab, chunk, depth))
+
+
+@pytest.mark.parametrize("doc_range", [None, (37, 121)])
+@pytest.mark.parametrize("name", ["uint8", "uint16", "int32", "unit_mass"])
+def test_resident_loader_on_the_card(dev, name, doc_range):
+    """streaming.ResidentLoader's fill through the pinned staging and its
+    decode on the card: every chunk equal bit for bit to the wire loader's
+    on the card and the values to the corpus's, in the counts form of each
+    dtype and the vals form; a release and a second fill give the same
+    chunks, and the bytes copied are the slabs' and the offsets' (a fill
+    each)."""
+    from isle_tpu_torch import streaming
+    from torch_cases import RESIDENT_CORPORA, resident_corpus
+
+    corpus = resident_corpus(name)
+    res = streaming.ResidentLoader(corpus, 64, dev, doc_range)
+    want = RESIDENT_CORPORA[name][2]
+    assert res.count_dtype == (None if want is None else np.dtype(want))
+    wire = streaming.ChunkLoader(corpus, 64, dev, doc_range)
+    first = [tuple(x.cpu() if torch.is_tensor(x) else x for x in c)
+             for c in res.chunks()]
+    got = [tuple(x.cpu() if torch.is_tensor(x) else x for x in c)
+           for c in wire.chunks()]
+    assert len(first) == len(got) > 1
+    for a, b in zip(first, got):
+        assert a[:2] == b[:2]
+        for x, y in zip(a[2:], b[2:]):
+            assert x.dtype == y.dtype and torch.equal(
+                x.view(torch.int32), y.view(torch.int32))
+    lo, hi = res.doc_range
+    off = corpus.offsets
+    vals = np.concatenate([c[3].numpy() for c in first])
+    assert np.array_equal(vals.view(np.int32),
+                          corpus.vals[off[lo]:off[hi]].view(np.int32))
+    once = res.bytes_copied  # the slabs and the offsets (the doc sums
+    # are summed on the card)
+    size = 4 + (4 if want is None else np.dtype(want).itemsize)
+    assert once == size * int(off[hi] - off[lo]) + 8 * (hi - lo + 1)
+    res.release()
+    again = [tuple(x.cpu() if torch.is_tensor(x) else x for x in c)
+             for c in res.chunks()]
+    for a, b in zip(first, again):
+        assert a[:2] == b[:2] and all(torch.equal(x, y)
+                                      for x, y in zip(a[2:], b[2:]))
+    assert res.fill_count == 2 and res.bytes_copied == 2 * once
+    assert res.copy_wait_ms() == 0.0

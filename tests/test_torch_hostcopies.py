@@ -95,6 +95,38 @@ def test_corpus_from_entries(opts):
 
 
 @pytest.mark.parametrize("opts", [
+    dict(), dict(normalize_to_one=True), dict(tf_idf=True),
+    dict(int_normalized=True), dict(vocab_size=400, num_docs=250),
+])
+def test_corpus_doc_sums_and_vals_match(opts):
+    """Corpus.doc_sums (empty docs at 1.0 or another value) and
+    Corpus.vals_match against isle_tpu's: the same sums bit for bit and the
+    same verdict, for the training expression and for one that fails;
+    without counts, vals_match is False on both."""
+    d, w, c = _entries(1)
+    keep = d % 7 != 3  # every seventh doc empty
+    d, w, c = d[keep], w[keep], c[keep]
+    ours = corpus.Corpus.from_entries(d, w, c, **opts)
+    ref = jcorpus.Corpus.from_entries(d, w, c, **opts)
+    assert (np.diff(ours.offsets) == 0).any()
+    for empty in (1.0, 0.0):
+        x, y = ours.doc_sums(empty), ref.doc_sums(empty)
+        assert x.dtype == y.dtype and np.array_equal(x.view(np.int32),
+                                                     y.view(np.int32))
+    avg = np.float32(ours.avg_doc_sz)
+    for fn in (lambda k, ds: avg * (k.astype(np.float32) / ds),
+               lambda k, ds: k.astype(np.float32) / ds):
+        assert ours.vals_match(fn) == ref.vals_match(fn)
+    assert ours.vals_match(
+        lambda k, ds: avg * (k.astype(np.float32) / ds)) == (
+        not opts.get("normalize_to_one") and not opts.get("int_normalized"))
+    none = dataclasses.replace(ours, counts=None)
+    assert not none.vals_match(lambda k, ds: k)
+    assert not dataclasses.replace(ref, counts=None).vals_match(
+        lambda k, ds: k)
+
+
+@pytest.mark.parametrize("opts", [
     dict(), dict(max_entries=1500, normalize_to_one=True),
     dict(doc_base_offset=3, num_docs=210),
 ])

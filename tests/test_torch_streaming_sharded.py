@@ -19,6 +19,7 @@ model_thresholds on the gathered mass."""
 import dataclasses
 import math
 import os
+import pathlib
 import shutil
 
 import jax.numpy as jnp
@@ -185,6 +186,41 @@ def _train_job(tmp, world, name, job_name=None, streamed=True, gpu=COO,
     return job
 
 
+# the resident loader's cases, at these world sizes: the wire run
+# (resident_corpus_bytes=0), a budget that every rank's slab but the
+# largest fits (every rank streams over the wire), slabs that the plan
+# releases (hbm_bytes=1: two fills) and an out-of-memory error in the
+# middle on every rank (one retry, one eigensolve)
+RESIDENT_WORLDS = [1, 2]
+
+
+def _slab_bytes(corpus_name, world):
+    """Each rank's ResidentLoader.resident_bytes at `world` ranks."""
+    corpus = _corpus(corpus_name)
+    form = streaming.counts_dtype(corpus)
+    D = corpus.num_docs
+    dps = -(-D // world)
+    return [streaming.ResidentLoader.resident_bytes(
+        corpus, CHUNK, form, (min(r * dps, D), min((r + 1) * dps, D)))
+        for r in range(world)]
+
+
+def _resident_jobs(tmp, world):
+    slabs = _slab_bytes("synth", world)
+    assert len(set(slabs)) == world  # the ranks' slabs differ
+    return [
+        _train_job(tmp, world, "base", "base_wire",
+                   gpu=dict(COO, resident_corpus_bytes=0)),
+        _train_job(tmp, world, "base", "base_largest_over",
+                   gpu=dict(COO, resident_corpus_bytes=max(slabs) - 1)),
+        _train_job(tmp, world, "base", "base_largest_fits",
+                   gpu=dict(COO, resident_corpus_bytes=max(slabs))),
+        _train_job(tmp, world, "base", "hybrid_released",
+                   gpu=dict(HYBRID, hbm_bytes=1)),
+        _train_job(tmp, world, "base", "base_oom", oom_once=True),
+    ]
+
+
 def _seed_checkpoints(src_run_dir, job, stages):
     run_dir = os.path.join(job["out_dir"], _config("base").log_dir_name())
     os.makedirs(run_dir, exist_ok=True)
@@ -256,6 +292,8 @@ def runs(tmp, single):
         jobs += [_train_job(tmp, world, name, name + "_incore",
                             streamed=False) for name in JOBS]
         jobs.append(_train_job(tmp, world, "base", "base_again"))
+        if world in RESIDENT_WORLDS:
+            jobs += _resident_jobs(tmp, world)
         if world in HYBRID_WORLDS:
             jobs += [_train_job(tmp, world, "base", "hybrid" + tag,
                                 streamed=not tag, gpu=HYBRID)
@@ -351,8 +389,7 @@ def test_hybrid_matches_the_incore_sharded_hybrid(runs, world):
 def test_hybrid_matches_isle_tpu_sharded_streamed_hybrid(runs, jax_hybrid):
     """World size 2 against isle_tpu's sharded streamed trainer with its
     hybrid layout on two devices: the results, and both name the layout's
-    stage alike (their other streamed labels differ: isle_tpu's resident
-    slabs have no counterpart)."""
+    stage alike."""
     r = runs[2]["hybrid"][0]
     _assert_same(r, jax_hybrid)
     label = "hybrid layout (sharded)"
@@ -363,10 +400,14 @@ def test_hybrid_matches_isle_tpu_sharded_streamed_hybrid(runs, jax_hybrid):
 @pytest.mark.parametrize("world", WORLDS)
 def test_every_rank_ends_with_the_same_bits(runs, world):
     """k- and vocab-sized state is replicated: each rank holds exactly
-    rank 0's results, and rank 0 alone holds the run directory's files."""
+    rank 0's results (the loader each took and its fills among them), and
+    rank 0 alone holds the run directory's files."""
     names = list(JOBS) + ["resume_svd", "resume_kmeans"]
     if world in HYBRID_WORLDS:
         names.append("hybrid")
+    if world in RESIDENT_WORLDS:
+        names += [j["name"] for j in _resident_jobs(pathlib.Path("."),
+                                                    world)]
     for name in names:
         rs = runs[world][name]
         assert rs[0]["holds_log_files"], name
@@ -422,14 +463,65 @@ def test_single_device_resumes_from_sharded_streamed_checkpoints(tmp, runs):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_stage_labels_are_the_references(runs, jax_runs, world):
-    """isle_tpu's labels, but for its resident corpus fill (there are no
-    resident slabs here)."""
+    """isle_tpu's labels, its resident corpus fill among them: a default
+    run fills each rank's slabs as isle_tpu's does."""
     for name in JOBS:
         want = [label for label, *_ in jax_runs[name].timer.phases
-                if "edge" not in label
-                and label != "sharded resident corpus fill"]
+                if "edge" not in label]
+        assert want[0] == "sharded resident corpus fill"
         got = [s for s in runs[world][name][0]["stages"] if "edge" not in s]
         assert got == want, name
+        assert bool(runs[world][name][0]["resident"])
+
+
+def _bit_equal_runs(got, want, label):
+    for key in want:
+        if key not in ("collective_calls", "stages", "resident",
+                       "fill_count", "solves", "lloyds"):
+            np.testing.assert_array_equal(got[key], want[key],
+                                          f"{label}: {key}")
+
+
+@pytest.mark.parametrize("world", RESIDENT_WORLDS)
+def test_resident_runs_equal_the_wire_run(runs, world):
+    """On the resident loader (each rank's own range, filled once) the
+    sharded streamed run ends bit for bit where the wire run ends; a
+    budget that the largest rank's slab exceeds sends every rank over the
+    wire, one that it fits keeps every rank resident."""
+    r = runs[world]
+    wire = r["base_wire"][0]
+    assert not wire["resident"]
+    assert "sharded resident corpus fill" not in list(wire["stages"])
+    for name, resident in (("base", True), ("base_largest_fits", True),
+                           ("base_largest_over", False)):
+        for rank in r[name]:
+            assert bool(rank["resident"]) == resident, name
+            assert int(rank["fill_count"]) == int(resident), name
+        _bit_equal_runs(r[name][0], wire, name)
+
+
+@pytest.mark.parametrize("world", RESIDENT_WORLDS)
+def test_released_slabs_refill_for_the_finish(runs, world):
+    """hbm_bytes too small for the middle beside the slabs: every rank
+    releases them before the middle and fills them again for the finish
+    passes, and the run ends where the held hybrid run ends."""
+    r = runs[world]["hybrid_released"]
+    for rank in r:
+        assert int(rank["fill_count"]) == 2
+    if world in HYBRID_WORLDS:
+        _bit_equal_runs(r[0], runs[world]["hybrid"][0], "released")
+
+
+@pytest.mark.parametrize("world", RESIDENT_WORLDS)
+def test_out_of_memory_in_the_middle_retries_once(runs, world):
+    """An out-of-memory error in the full-space Lloyd's on every rank:
+    the slabs are released, the middle runs once more without solving
+    again, and the run ends where the uninterrupted run ends."""
+    for rank in runs[world]["base_oom"]:
+        assert (int(rank["solves"]), int(rank["lloyds"])) == (1, 2)
+        assert int(rank["fill_count"]) == 2
+    _bit_equal_runs(runs[world]["base_oom"][0], runs[world]["base"][0],
+                    "retried")
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -617,8 +709,8 @@ def test_group_less_mesh_streams_in_process(tmp, single):
     mesh = Mesh("cpu")
     st = _streamed("base", tmp / "groupless", mesh=mesh)
     ref = single["base"]
-    assert [s for s, *_ in st.timer.phases][0] == \
-        "streamed thresholds (sharded)"
+    assert [s for s, *_ in st.timer.phases][:2] == [
+        "sharded resident corpus fill", "streamed thresholds (sharded)"]
     for f in ("original_cols", "cluster_of_doc", "evalues", "centers",
               "model", "edge_model"):
         np.testing.assert_array_equal(getattr(st, f), getattr(ref, f), f)

@@ -1,6 +1,6 @@
-"""Segment-sum inputs made with numpy from a seed, shared by the port's CPU
-tests and its card-only tests (this module imports no jax: the card's host
-has none)."""
+"""Segment-sum inputs and small corpora made with numpy from a seed, shared
+by the port's CPU tests and its card-only tests (this module imports no
+jax: the card's host has none)."""
 
 import numpy as np
 import torch
@@ -103,3 +103,43 @@ def dead_tail_entries(seed=0, V=200, D=400, k=4, nc=12, dead_from=300):
         words += ws.tolist()
         counts += c.tolist()
     return np.array(docs), np.array(words), np.array(counts)
+
+
+# name: (entries kind, Corpus.from_entries options, the counts dtype the
+# resident loader takes, None for its vals form)
+RESIDENT_CORPORA = {
+    "uint8": ("uint8", {}, np.uint8),
+    "uint16": ("uint16", {}, np.uint16),
+    "int32": ("int32", {}, np.int32),
+    "tf_idf": ("uint8", dict(tf_idf=True), np.uint8),
+    "unit_mass": ("uint8", dict(normalize_to_one=True), None),
+    "int_normalized": ("uint8", dict(int_normalized=True), None),
+}
+
+
+def resident_entries(kind: str, seed: int = 17):
+    """(docs, words, counts, V, D) with every fourth doc empty: counts of
+    1-7, or with a few large ones that need uint16 or int32."""
+    rng = np.random.default_rng(seed)
+    V, D = 50, 160
+    d = rng.integers(0, D, 1300)
+    d = np.sort(d[d % 4 != 3])
+    w = rng.integers(0, V, len(d))
+    key = np.unique(d.astype(np.int64) * V + w)
+    d, w = key // V, key % V
+    c = rng.integers(1, 8, len(key))
+    big = rng.choice(len(key), 5, replace=False)
+    if kind == "uint16":
+        c[big] = rng.integers(256, 65536, 5)
+    elif kind == "int32":
+        c[big] = rng.integers(65536, 1 << 20, 5)
+    return d, w, c, V, D
+
+
+def resident_corpus(name: str):
+    """RESIDENT_CORPORA[name] as the port's Corpus."""
+    from isle_tpu_torch.corpus import Corpus
+
+    kind, opts, _ = RESIDENT_CORPORA[name]
+    d, w, c, V, D = resident_entries(kind)
+    return Corpus.from_entries(d, w, c, vocab_size=V, num_docs=D, **opts)

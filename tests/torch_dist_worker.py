@@ -19,7 +19,9 @@ Job kinds:
   "train"     Trainer over the mesh (the draws replayed from an .npz file
               where given), optionally resumed, and optionally an
               inference of the training docs with the trained model; with
-              "chunk_entries" the out-of-core StreamedTrainer instead;
+              "chunk_entries" the out-of-core StreamedTrainer instead
+              (with "oom_once" its full-space Lloyd's runs out of memory
+              once on every rank);
   "streamed_stages"  every stage of isle_tpu_torch.streaming_sharded on
               the rank's chunks beside its in-core sharded counterpart,
               with the calls of the segment-sum wrappers counted by pass;
@@ -227,7 +229,31 @@ def job_train(job: dict, mesh) -> dict:
         tr = Trainer(cfg, **kw)
     assert tr.mesh is mesh and tr.is_writer == (mesh.rank == 0)
     tr.load_corpus(corpus)
-    tr.train(resume=job.get("resume", False))
+    calls = {"solves": 0, "lloyds": 0}
+    if job.get("oom_once"):
+        from isle_tpu_torch import sharding, trainer
+
+        real_solve, real_lloyds = (trainer.solve_gram_eigens,
+                                   sharding.sharded_run_lloyds_full)
+
+        def solve(*args, **kw):
+            calls["solves"] += 1
+            return real_solve(*args, **kw)
+
+        def lloyds(*args, **kw):
+            calls["lloyds"] += 1
+            if calls["lloyds"] == 1:
+                raise torch.OutOfMemoryError("injected")
+            return real_lloyds(*args, **kw)
+
+        trainer.solve_gram_eigens = solve
+        sharding.sharded_run_lloyds_full = lloyds
+    try:
+        tr.train(resume=job.get("resume", False))
+    finally:
+        if job.get("oom_once"):
+            trainer.solve_gram_eigens = real_solve
+            sharding.sharded_run_lloyds_full = real_lloyds
     if cfg.compute_edge_topics:
         tr.train_edge_topics()
     out = {f: getattr(tr, f) for f in TRAINER_FIELDS
@@ -239,6 +265,12 @@ def job_train(job: dict, mesh) -> dict:
     if tr.top_pairs is not None:
         out.update(zip(("t1", "t2", "valid"), tr.top_pairs))
     out["stages"] = np.array([label for label, _, _ in tr.timer.phases])
+    if job.get("chunk_entries"):
+        from isle_tpu_torch.streaming import ResidentLoader
+
+        out["resident"] = isinstance(tr.loader, ResidentLoader)
+        out["fill_count"] = getattr(tr.loader, "fill_count", 0)
+        out.update(calls)
     out["holds_log_files"] = bool(tr.logger._files)
     if job.get("infer"):
         unit = _corpus(job["corpus"], normalize_to_one=True)
