@@ -125,7 +125,25 @@ stay) and says so on its own line. Phases, in order:
      tiled passes, in turn with the repeated runs (eigenvalues within
      rtol 1e-4). Printed, not gated: how far clusters and catchwords
      moved from the COO run, the walls of both dispatches.
-  H4. (right after H1) the layouts against each other where the clusters
+  HC. (right after H1) GpuConfig.break_head_cap, the head past isle_tpu's
+     int32 row cap: Trainer.train() + train_edge_topics() at the NYTimes
+     shape with dense_head_bytes 8 GiB and 16 GiB and the switch (R =
+     14,316 and 28,633 by the rule min(vocab, budget // (2 docs)),
+     against the cap's 7,153), launch counts set to 0 just before each
+     and read just after (the "head-past-cap" path of the kernels line);
+     each: ζ and original_cols equal phase 4's, eigenvalues within rtol
+     1e-4 of it, model columns summing to 1 within 1e-5, the stages the
+     layout does not change launching what phase H1's did. Each run's
+     layout is rebuilt from its ζ, and the layout at 8 GiB without the
+     switch (R = 7,153, the cap): head words equal the host's, the
+     head's row sums counted on the card in float32 equal the host's
+     counts, head nnz + tail nnz = nnz(B), h_bt_x and h_b_y at width 128
+     within 1e-5 ||B|| ||X|| of the float64 COO product, two h_gram_x
+     bit-equal. Printed for R = 0 (phase 4) / 7,153 (H1) / 14,316 /
+     28,633: the head's share of nnz, the build's seconds, the head and
+     the tail part of h_bt_x and h_b_y at width 128 each beside its
+     bound, the eigensolve, k-means and train + edge walls, the peak.
+  H4. (right after HC) the layouts against each other where the clusters
      are well defined: the NYTimes shape at k = 64 (the synthetic corpus
      plants 64 word bands), trained in the default hybrid layout and in
      COO, both on the host eigensolver loop (with the device loop the COO
@@ -280,7 +298,7 @@ After 8, with the NYTimes corpus freed:
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
 "launches_by_path", the sharded, the sharded streamed, the traced, the
-three hybrid runs, phase R's six runs, the train step's, graft_entry's
+three hybrid runs, phase HC's two runs, phase R's six runs, the train step's, graft_entry's
 and phase M's among them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
@@ -393,9 +411,11 @@ def gpu_config(device: str, head_bytes=0, **kw):
 
 def train(corpus, shape: dict, seed: int, device: str, out: str,
           hyper=None, mesh=None, profile_dir: str = "", head_bytes=0,
-          device_loop: bool = True, **cfg_kw):
+          device_loop: bool = True, break_head_cap: bool = False,
+          **cfg_kw):
     """Trainer.train() + train_edge_topics(); `device_loop` is
-    GpuConfig.device_loop_solver (False: the host-driven block_ks)."""
+    GpuConfig.device_loop_solver (False: the host-driven block_ks),
+    `break_head_cap` GpuConfig.break_head_cap."""
     from isle_tpu_torch import HyperParams, TrainConfig, Trainer
 
     cfg = TrainConfig(num_topics=shape["k"], seed=seed,
@@ -403,7 +423,8 @@ def train(corpus, shape: dict, seed: int, device: str, out: str,
                       hyper=HyperParams(**(hyper or {})), **cfg_kw)
     tr = Trainer(cfg, output_dir=out, quiet=True, mesh=mesh,
                  gpu=gpu_config(device, head_bytes, profile_dir=profile_dir,
-                                device_loop_solver=device_loop))
+                                device_loop_solver=device_loop,
+                                break_head_cap=break_head_cap))
     tr.load_corpus(corpus)
     tr.train()
     tr.train_edge_topics()
@@ -2535,7 +2556,8 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
     to the first, the layout against a host recomputation, the products
     against the COO's, and the per-call numbers; the small corpus with a
     partial head, card against CPU. Returns (the run, its launch counts,
-    its launches by stage, the tail's uses, the run's walls)."""
+    its launches by stage, the tail's uses, {walls, peak, held}: the
+    runs' walls, the first run's peak GiB and what was held before it)."""
     from isle_tpu_torch import bmatrix, hybrid, segsum, sparse
 
     check_tiny(tiny, seed, out, "hybrid, 200 head rows",
@@ -2682,7 +2704,260 @@ def hybrid_phase(corpus, shape, seed, out, tr, per_incore, tiny) -> tuple:
           f"four hybrid runs {', '.join(f'{w:.2f}' for w in walls)} s; on "
           f"the dispatch before the tiled passes (runs 2 and 6 of six) "
           f"{', '.join(f'{w:.2f}' for w in before)} s; {card_line()}")
-    return hy, launches, per, uses, walls
+    return hy, launches, per, uses, dict(walls=walls, peak=peak, held=held)
+
+
+# ---------------------------------------------------------------------------
+# Phase HC: GpuConfig.break_head_cap, the head past isle_tpu's int32 cap
+# ---------------------------------------------------------------------------
+
+# the head budgets of phase HC, each with the switch: 2x and 4x the cap's
+# rows at the NYTimes shape (14,316 and 28,633 against 7,153)
+CAP_BREAK_BUDGETS = (8 << 30, 16 << 30)
+KMEANS_STAGES = ("k-means seeds initialization",
+                 "converging Lloyds k-means on B_k", "k-means on B")
+
+
+def stage_walls(tr) -> dict:
+    """The eigensolve's and k-means' seconds of a run."""
+    w = collections.defaultdict(float)
+    for label, sec, _ in tr.timer.phases:
+        w[label] += sec
+    return {"eigensolve": w["eigen solve (B B^T)"],
+            "k-means": sum(w[k] for k in KMEANS_STAGES)}
+
+
+def head_row_sums_exact(H, counts: np.ndarray) -> None:
+    """The head's row sums, counted on the card in float32 a block of
+    rows at a time (each at most the doc count, exact below 2^24),
+    equal the host's counts of its words."""
+    sums = torch.cat([H.head[r:r + 1024].sum(dim=1, dtype=torch.float32)
+                      for r in range(0, H.num_head, 1024)]).cpu().numpy()
+    want = counts[H.head_words.cpu().numpy()].astype(np.float32)
+    assert np.array_equal(sums, want), "head row sums differ from the host"
+
+
+def product_parts(H, X, Y) -> dict:
+    """The head part and the tail part of one h_bt_x and one h_b_y at X's
+    width (H a HybridSparse, or a COO DocSparse: all tail), each timed
+    with its bound: bytes (the head or the tail's stream, the operand
+    and the output once) over the HBM rate, or operations (the head's 3
+    x 2 R D W at the bf16 peak, the tail's 2 n W at the float32 one)."""
+    from isle_tpu_torch import hybrid, sparse
+
+    W = X.shape[1]
+    T = H.tail if isinstance(H, hybrid.HybridSparse) else H
+    V, D, n = T.vocab, T.num_docs, T.nnz
+    parts = {
+        "tail B^T X": (lambda: sparse.bt_x(T, X),
+                       bound(n * 12 + V * W * 4 + D * W * 4, 2 * n * W)),
+        "tail B Y": (lambda: sparse.b_y(T, Y),
+                     bound(n * 12 + D * W * 4 + V * W * 4, 2 * n * W)),
+    }
+    if T is not H:
+        R = H.num_head
+        hw = H.head_words.long()
+        head_bound = bound(R * D * 2 + R * W * 4 + D * W * 4,
+                           3 * 2 * R * D * W, BF16_FLOPS)
+
+        def head_b_y():
+            out = hybrid.head_dot(H.head, Y[:D], transpose=False)
+            return out * H.row_scale[hw][:, None]
+
+        parts["head B^T X"] = (lambda: hybrid.head_bt_x(H, X), head_bound)
+        parts["head B Y"] = (head_b_y, head_bound)
+    return {name: dict(ms=time_ms(fn), bound_ms=b[0], bound_by=b[1])
+            for name, (fn, b) in parts.items()}
+
+
+def cap_break_layout(A, z, budget: int, cap_off: bool, B, frob_b: float,
+                     X, Y) -> dict:
+    """The layout of phase HC's run, rebuilt from its ζ as the trainer
+    builds it, gated (head rows by the rule, head words and row sums
+    against the host, nnz, both products within 1e-5 ||B|| ||X|| of the
+    float64 COO product, two Gram operator calls bit-equal) and its
+    parts timed. Returns the row of the printed table."""
+    from isle_tpu_torch import hybrid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, _, _ = hybrid.hybrid_from_thresholds(A, z, budget,
+                                            break_head_cap=cap_off)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    R, D = H.num_head, H.num_docs
+    rule = min(B.vocab, max(8, budget // (2 * A.num_docs)))
+    want = rule if cap_off else min(rule, hybrid.max_head_rows(A.num_docs))
+    assert R == want, (R, want)
+    assert np.array_equal(H.head_words.cpu().numpy(), host_head_words(B, R))
+    counts = head_counts_host(B)
+    head_row_sums_exact(H, counts)
+    assert H.head_nnz == int(counts[H.head_words.cpu().numpy()].sum())
+    assert H.head_nnz + H.tail.nnz == B.nnz, (H.head_nnz, H.tail.nnz)
+    assert H.head.stride(0) % 8 == 0
+    errs = (within_norm_bound(hybrid.h_bt_x(H, X), B.d_doc, B.d_word,
+                              B.d_val, X, B.num_docs, frob_b),
+            within_norm_bound(hybrid.h_b_y(H, Y), B.w_word, B.w_doc, B.w_val,
+                              Y, B.vocab, frob_b))
+    g1, g2 = hybrid.h_gram_x(H, X), hybrid.h_gram_x(H, X)
+    assert torch.equal(g1, g2), f"R = {R}: two h_gram_x launches differ"
+    del g1, g2
+    row = dict(R=R, cap_off=cap_off, head_share=H.head_nnz / H.nnz,
+               build_s=build_s, head_gib=R * H.head.stride(0) * 2 / 2**30,
+               errs=errs, parts=product_parts(H, X, Y))
+    print(f"phase HC layout, budget {budget} "
+          f"({'break_head_cap' if cap_off else 'capped'}): R = {R} (rule "
+          f"{rule}, cap {hybrid.max_head_rows(A.num_docs)}), head {R} x {D} "
+          f"bf16 = {row['head_gib']:.2f} GiB, {H.head_nnz} of {H.nnz} nnz "
+          f"in the head ({row['head_share']:.2%}), tail {H.tail.nnz}, "
+          f"built in {build_s:.3f} s; head words and row sums equal the "
+          f"host's; h_bt_x, h_b_y ||err|| / (||B|| ||X||) {errs[0][0]:.2e}, "
+          f"{errs[1][0]:.2e}; two h_gram_x bit-equal")
+    del H
+    torch.cuda.empty_cache()
+    return row
+
+
+def cap_break_phase(corpus, shape, seed, out, tr, coo_run, hy, h_run,
+                    h_per) -> dict:
+    """Phase HC: Trainer.train() + train_edge_topics() with
+    GpuConfig(dense_head_bytes=8 GiB, then 16 GiB, break_head_cap=True)
+    at the NYTimes shape, each against phase 4's COO run `tr`
+    (eigenvalues within rtol 1e-4, ζ and original_cols equal) and phase
+    H1's hybrid run `hy` (the launches of the stages the layout does not
+    change), model columns summing to 1 within 1e-5; each run's layout
+    rebuilt and gated (cap_break_layout), and the layout at 8 GiB without
+    the switch, the cap's 7,153 rows. Prints the table of R = 0 (phase
+    4) / 7,153 / 14,316 / 28,633. Returns the kernels' launches over
+    both training runs."""
+    import gc
+
+    from isle_tpu_torch import bmatrix, hybrid, segsum, sparse
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # the words B holds: a head of as many rows leaves the tail empty, and
+    # then no stage launches a kernel on it (only on a cut corpus)
+    A = tr._device_A()
+    z = torch.from_numpy(run_dir_arrays(tr, "svd")["zetas"]).cuda()
+    B, _ = bmatrix.threshold_and_copy(A, z)
+    words = int(np.count_nonzero(head_counts_host(B)))
+    del B
+    total = collections.Counter()
+    runs = []
+    for budget in CAP_BREAK_BUDGETS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        segsum.reset_launch_counts()
+        head_calls = hybrid.head_dot.calls
+        t0 = time.perf_counter()
+        run = train(corpus, shape, seed, "cuda",
+                    os.path.join(out, f"nyt_hc{budget >> 30}"),
+                    head_bytes=budget, break_head_cap=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = segsum.launch_counts()
+        head_calls = hybrid.head_dot.calls - head_calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total.update(launches)
+        per = stage_launches(run)
+        assert run.gpu.break_head_cap and head_calls > 0
+        assert "creating thresholded matrix (fused hybrid)" in per, per
+        ours, ref = run_dir_arrays(run, "svd"), run_dir_arrays(tr, "svd")
+        assert np.array_equal(ours["zetas"], ref["zetas"])
+        assert np.array_equal(ours["original_cols"], ref["original_cols"])
+        np.testing.assert_allclose(run.evalues, tr.evalues, rtol=1e-4)
+        model = run.model
+        assert np.isfinite(model).all() and np.isfinite(run.edge_model).all()
+        sums = model.sum(axis=0, dtype=np.float64)
+        assert np.all(~model.any(axis=0) | (np.abs(sums - 1.0) <= 1e-5)), \
+            sums
+        # stage by stage phase H1's launches, but for the eigensolve's
+        # count of operator calls, which rounding may move (its tail B Y
+        # on the tiled passes where H1's took them)
+        blk = run.config.hyper.block_ks_block_size
+        tiled = segsum.gather_path(blk, 4 * blk * len(run.original_cols),
+                                   sparse.DOC_TILE) == "tiled"
+        R = min(corpus.vocab_size, budget // (2 * corpus.num_docs))
+        assert R < words or shape["docs"] != NYT["docs"], (R, words)
+        for stage in HYBRID_SHARED_STAGES if R < words else ():
+            got, want = per[stage], h_per[stage]
+            if stage.startswith("eigen"):
+                calls = run.op_counter.calls
+                assert got == {ONEHOT: 0, GATHER: 2 * calls, NARROW: 0,
+                               TILED: calls * tiled}, got
+                assert want[TILED] == hy.op_counter.calls * tiled, want
+            else:
+                assert got == want, (stage, got, want)
+        if R >= words:
+            print(f"CUT: phase HC's {R} head rows hold all {words} words of "
+                  "B: the tail is empty, the stage launches are not gated")
+        print(f"phase HC run, dense_head_bytes {budget}, break_head_cap: "
+              f"train + edge topics {wall:.2f} s wall, peak device memory "
+              f"{peak:.2f} GiB ({held:.2f} GiB held before the run), kernel "
+              f"launches {launches}, head GEMMs {head_calls}; eigenvalues "
+              f"max rel diff to the COO run "
+              f"{np.abs(run.evalues / tr.evalues - 1).max():.2e}, clusters "
+              f"equal to the COO run's on "
+              f"{np.mean(run.cluster_of_doc == tr.cluster_of_doc):.4%} of "
+              f"docs; {card_line()}")
+        for label, w, _ in run.timer.phases:
+            print(f"  phase HC stage {label}: {w:.3f} s")
+        runs.append(dict(run=run, wall=wall, peak=peak, held=held))
+        run.A = None
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the layouts, rebuilt from the runs' ζ (all equal phase 4's)
+    B, _ = bmatrix.threshold_and_copy(A, z)
+    frob_b = float(torch.sqrt(sparse.frobenius_sq(B)))
+    # X from the seed and Y = B^T X, as phase H1 takes them: a head word's
+    # terms in B Y share a sign, the hard case for one float32 sum
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((B.vocab, 128), generator=g).cuda()
+    Y = sparse.bt_x(B, X)
+    Bt = sparse.with_doc_tiles(B)
+    rows = [dict(R=0, head_share=0.0, build_s=0.0,
+                 parts=product_parts(Bt, X, Y))]
+    del Bt
+    rows.append(cap_break_layout(A, z, CAP_BREAK_BUDGETS[0], False, B,
+                                 frob_b, X, Y))
+    for budget in CAP_BREAK_BUDGETS:
+        rows.append(cap_break_layout(A, z, budget, True, B, frob_b, X, Y))
+    assert [r["R"] for r in rows] == [0, 7153, 14316, 28633] or \
+        shape["docs"] != NYT["docs"], [r["R"] for r in rows]
+    del A, B, X, Y
+    torch.cuda.empty_cache()
+
+    walls = [dict(wall=coo_run["wall"], peak=coo_run["peak"],
+                  held=coo_run["held"], **stage_walls(tr)),
+             dict(wall=h_run["walls"][0], peak=h_run["peak"],
+                  held=h_run["held"], **stage_walls(hy))]
+    walls += [dict(wall=r["wall"], peak=r["peak"], held=r["held"],
+                   **stage_walls(r["run"])) for r in runs]
+    print(f"phase HC table (width 128; ms, bound in brackets; walls s; peak "
+          f"GiB, what was held before the run in brackets; {card_line()}):")
+    print("  R | head share | build s | head B^T X | tail B^T X | head B Y "
+          "| tail B Y | eigensolve | k-means | train + edge | peak")
+    for row, w in zip(rows, walls):
+        p = row["parts"]
+
+        def cell(name):
+            if name not in p:
+                return "-"
+            return f"{p[name]['ms']:.3f} ({p[name]['bound_ms']:.3f})"
+
+        print(f"  {row['R']} | {row['head_share']:.2%} | "
+              f"{row['build_s']:.3f} | {cell('head B^T X')} | "
+              f"{cell('tail B^T X')} | {cell('head B Y')} | "
+              f"{cell('tail B Y')} | {w['eigensolve']:.3f} | "
+              f"{w['k-means']:.3f} | {w['wall']:.2f} | "
+              f"{w['peak']:.2f} ({w['held']:.2f})")
+    print(f"phase HC: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 @contextlib.contextmanager
@@ -3329,6 +3604,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (host)")
 
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     segsum.reset_launch_counts()
     t0 = time.perf_counter()
     tr = train(corpus, shape, args.seed, "cuda", os.path.join(out, "nyt"))
@@ -3336,9 +3612,10 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = segsum.launch_counts()
     per_incore = stage_launches(tr)
+    coo_run = dict(wall=wall, held=held,
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
     print(f"main path: train + edge topics {wall:.2f} s wall, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"kernel launches {launches}")
+          f"memory {coo_run['peak']:.2f} GiB, kernel launches {launches}")
     for label, w, _ in tr.timer.phases:
         print(f"  stage {label}: {w:.3f} s")
 
@@ -3392,8 +3669,11 @@ def main() -> int:
     device_loop_phase(tr, args.seed, out)
 
     # H1: the default configuration, the hybrid layout, beside the COO run
-    hy, h_launches, h_per, h_uses, _ = hybrid_phase(
+    hy, h_launches, h_per, h_uses, h_run = hybrid_phase(
         corpus, shape, args.seed, out, tr, per_incore, tiny)
+    # HC: GpuConfig.break_head_cap at 2x and 4x the head cap
+    hc_launches = cap_break_phase(corpus, shape, args.seed, out, tr, coo_run,
+                                  hy, h_run, h_per)
     cross_layout_phase(corpus, shape, args.seed, out)
 
     # 7. the other training options and a small inference, card == CPU.
@@ -3515,6 +3795,7 @@ def main() -> int:
                       "sharded_streamed": ms_launches[name],
                       "lanczos": l_launches[name],
                       "in-core, hybrid": h_launches[name],
+                      "head-past-cap": hc_launches[name],
                       "sharded, hybrid": mh_launches[name],
                       "streamed, hybrid": sh_launches[name],
                       "train-step": t_launches[name],

@@ -5,9 +5,9 @@ isle_tpu/config.py's dataclasses: the same field names, defaults,
 validation and log_dir_name(), without the `tpu` field (TpuConfig's
 Pallas plans, precision modes and tunnel codecs have no counterpart
 here). GpuConfig holds the few knobs that map the pipeline onto the card,
-TpuConfig's dense_head_bytes (the hybrid layout, hybrid.py),
-resident_corpus_bytes and hbm_bytes (the streamed trainer's resident
-corpus and memory plan, streaming.py) among them.
+TpuConfig's dense_head_bytes and break_head_cap (the hybrid layout,
+hybrid.py), resident_corpus_bytes and hbm_bytes (the streamed trainer's
+resident corpus and memory plan, streaming.py) among them.
 
 Defaults follow the reference's compile-time constants
 (include/hyperparams.h:8-82, include/types.h:23-86).
@@ -186,6 +186,14 @@ class GpuConfig:
     # default, so a default run of either package takes the same path;
     # 0 keeps all of B in the COO layout (sparse.py).
     dense_head_bytes: int = 4096 << 20
+    # Lift isle_tpu's int32 row cap on the dense head (hybrid.max_head_rows:
+    # 7,153 rows at 300,000 docs, about 4 GiB of head at any doc count),
+    # so that the in-core and streamed trainers build budget // (2 docs)
+    # rows; the sharded layouts keep the cap, as isle_tpu's do.
+    # isle_tpu's TpuConfig.break_head_cap and its default. The port
+    # indexes the head in int64, so no doc blocks are needed here; raise
+    # dense_head_bytes together with it.
+    break_head_cap: bool = False
     # Streamed (out-of-core) runs: the device bytes a resident copy of the
     # corpus may take (streaming.ResidentLoader: word ids int32 and the
     # raw counts in their smallest integer dtype, about 5 bytes an entry,

@@ -24,7 +24,15 @@ because scatters were slow on the TPU; the gather kernel reduces its runs
 on chip, so the tail here is a plain dual-sorted COO, cut out of B's two
 streams by a mask (both orders survive, no sort). The general mode (float
 head, per-entry tail values) has no caller in either package and is not
-ported, nor is break_head_cap's doc-blocked head build.
+ported.
+
+isle_tpu caps the head's rows so that its int32 flat scatter index fits
+(max_head_rows); TpuConfig.break_head_cap lifts the cap by building the
+head in doc blocks (_scatter_head, isle_tpu/hybrid.py:75-137). The port
+writes the head at an int64 index, so GpuConfig.break_head_cap lifts the
+same head-size rule and needs no blocks; it keeps isle_tpu's one refusal
+on that path (_check_doc_blocks), so both packages refuse the same
+inputs.
 """
 
 from __future__ import annotations
@@ -42,9 +50,10 @@ from .sparse import DocSparse, b_y, bt_x, doc_l2sq, frobenius_sq, \
 
 # isle_tpu builds the head by a scatter at an int32 flat index
 # r * (docs + 1) + d (hybrid.py:42-48), and so caps the head's rows at
-# max_head_rows. The port indexes in int64 but keeps that cap as its
-# head-size rule, so both packages choose the same head words. A module
-# value, so that tests reach the cap at a small size.
+# max_head_rows unless break_head_cap is set. The port indexes in int64
+# but keeps that cap as its head-size rule, so both packages choose the
+# same head words. A module value, so that tests reach the cap at a small
+# size.
 FLAT_CAP = (1 << 31) - (1 << 20)
 
 
@@ -70,17 +79,37 @@ def _head_cap(ncols: int, flat_cap: Optional[int]) -> int:
         raise ValueError(
             f"num_docs={ncols} exceeds the head capacity "
             f"(max_head_rows={cap}); disable the dense head "
-            "(dense_head_bytes=0) or shard the docs axis")
+            "(dense_head_bytes=0), shard the docs axis, or set "
+            "break_head_cap")
     return cap
 
 
+def _check_doc_blocks(num_head: int, ncols: int,
+                      flat_cap: Optional[int]) -> None:
+    """isle_tpu's refusal under break_head_cap (_scatter_head,
+    isle_tpu/hybrid.py:98-103): where the head's flat range passes the
+    cap, it is built in doc blocks of flat_cap // (num_head + 1) - 1
+    columns, and fewer than 8 are refused. The port builds no blocks but
+    refuses the same heads."""
+    cap = FLAT_CAP if flat_cap is None else flat_cap
+    if (num_head + 1) * (ncols + 1) > cap and cap // (num_head + 1) - 1 < 8:
+        raise ValueError(
+            f"num_head={num_head} leaves a column block < 8 under "
+            f"flat_cap={cap}; shrink the head budget")
+
+
 def head_rows(budget_bytes: int, vocab: int, ncols: int,
-              flat_cap: Optional[int] = None) -> int:
+              flat_cap: Optional[int] = None,
+              break_head_cap: bool = False) -> int:
     """isle_tpu's head size for a budget of bf16 cells over `ncols` docs
-    (hybrid.py:790-805, 839-855). Raises where the cap leaves fewer than
-    8 rows."""
-    return int(min(vocab, max(8, budget_bytes // max(2 * ncols, 1)),
-                   _head_cap(ncols, flat_cap)))
+    (hybrid.py:790-805, 839-855). Without break_head_cap it is capped at
+    max_head_rows and raises where the cap leaves fewer than 8 rows; with
+    it, it raises where isle_tpu's doc blocks would be narrower than 8."""
+    rows = int(min(vocab, max(8, budget_bytes // max(2 * ncols, 1))))
+    if break_head_cap:
+        _check_doc_blocks(rows, ncols, flat_cap)
+        return rows
+    return min(rows, _head_cap(ncols, flat_cap))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,13 +201,18 @@ def split_by_head(sp: DocSparse, head_words: torch.Tensor,
 
 
 def to_hybrid(sp: DocSparse, num_head: int, row_scale: torch.Tensor,
-              flat_cap: Optional[int] = None) -> HybridSparse:
+              flat_cap: Optional[int] = None,
+              break_head_cap: bool = False) -> HybridSparse:
     """The factored hybrid layout of B (isle_tpu/hybrid.py:313-399 with
-    row_scale): the num_head words of the most entries (at most the
-    cap, at most vocab) form the head. Raises where the cap leaves fewer
-    than 8 rows."""
-    num_head = int(min(num_head, sp.vocab,
-                       _head_cap(sp.num_docs, flat_cap)))
+    row_scale): the num_head words of the most entries (at most vocab,
+    and at most the cap without break_head_cap) form the head. Raises
+    where the cap leaves fewer than 8 rows, or with break_head_cap where
+    isle_tpu's doc blocks would be narrower than 8."""
+    num_head = int(min(num_head, sp.vocab))
+    if break_head_cap:
+        _check_doc_blocks(num_head, sp.num_docs, flat_cap)
+    else:
+        num_head = min(num_head, _head_cap(sp.num_docs, flat_cap))
     return split_by_head(sp, top_words(word_counts(sp), num_head), row_scale)
 
 
@@ -187,25 +221,28 @@ def hybrid_from_thresholds(
     sample_rate: Optional[float] = None,
     uniforms: Optional[torch.Tensor] = None,
     docs: Optional[np.ndarray] = None,
+    break_head_cap: bool = False,
     flat_cap: Optional[int] = None,
 ) -> Tuple[HybridSparse, np.ndarray, float]:
     """B = threshold_and_copy(A, zetas) in the hybrid layout, with
     isle_tpu's head budget (hybrid.py:758-893): over A.num_docs columns
-    without sampling, over the docs kept by sampling with it. isle_tpu
-    fuses the two steps to save TPU scatters; the layout is the same.
-    `docs` (a checkpoint's original_cols) selects B's docs in place of
-    the draws, under the budget rule of `sample_rate`. Returns (B,
-    original_cols, Frobenius norm of B squared)."""
+    without sampling, over the docs kept by sampling with it, capped at
+    max_head_rows unless break_head_cap is set. isle_tpu fuses the two
+    steps to save TPU scatters; the layout is the same. `docs` (a
+    checkpoint's original_cols) selects B's docs in place of the draws,
+    under the budget rule of `sample_rate`. Returns (B, original_cols,
+    Frobenius norm of B squared)."""
     if sample_rate is None:  # refused before any work, as isle_tpu's
         num_head = head_rows(head_budget_bytes, A.vocab, A.num_docs,
-                             flat_cap)
+                             flat_cap, break_head_cap)
     B, original_cols = threshold_and_copy(
         A, zetas, sample_rate=sample_rate, uniforms=uniforms, docs=docs)
     if sample_rate is not None:
         num_head = head_rows(head_budget_bytes, A.vocab, B.num_docs,
-                             flat_cap)
+                             flat_cap, break_head_cap)
     frob_sq = float(frobenius_sq(B))
-    return (to_hybrid(B, num_head, row_scale_from_zetas(zetas), flat_cap),
+    return (to_hybrid(B, num_head, row_scale_from_zetas(zetas), flat_cap,
+                      break_head_cap),
             original_cols, frob_sq)
 
 
@@ -303,7 +340,10 @@ def head_bt_x(h: HybridSparse, X: torch.Tensor,
               cols: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The head's part of B^T X, (num_docs, W), or of the docs `cols`
     only (Elkan's flagged docs, isle_tpu/elkans.py:150-158): the head
-    against X's head rows times their row scale."""
+    against X's head rows times their row scale. With `cols` the head's
+    columns are copied first: as much device memory again as the head
+    holds where most docs are flagged, 16 GiB at a 16 GiB head past the
+    cap (GpuConfig.break_head_cap)."""
     hw = h.head_words.long()
     head = h.head if cols is None else h.head[:, cols]
     return head_dot(head, X[hw] * h.row_scale[hw][:, None], transpose=True)

@@ -367,6 +367,9 @@ def shard_hybrid(ssp: ShardedDocSparse, row_scale: torch.Tensor, mesh: Mesh,
     V, S = ssp.vocab, mesh.world
     counts = mesh.all_reduce(word_counts(ssp.local))
     dps = ssp.docs_per_shard
+    # capped whatever GpuConfig.break_head_cap says, as isle_tpu's
+    # shard_hybrid is (isle_tpu/sharding.py:1023-1027): both packages
+    # choose the same head words on a mesh
     num_head = int(min(V, max(8, head_budget_bytes // max(2 * dps * S, 1)),
                        max_head_rows(dps, flat_cap)))
     local = split_by_head(ssp.local, top_words(counts, num_head), row_scale)

@@ -895,7 +895,8 @@ class StreamedTrainer:
                 state: dict):
         """B's layout, the eigenpairs and k-means: returns (centers_full,
         assign). The hybrid layout takes isle_tpu's streamed head rule
-        (isle_tpu/streaming.py:1259-1277) under `head_bytes`: at least 8
+        (isle_tpu/streaming.py:1259-1277) under `head_bytes`, capped at
+        max_head_rows unless GpuConfig.break_head_cap is set: at least 8
         head rows, or B stays COO, its B Y over doc tiles (sparse.b_y) as
         the hybrid tail's. The eigenpairs come from the svd checkpoint in
         `ck`, else from `state` (an earlier attempt of this middle), else
@@ -905,10 +906,12 @@ class StreamedTrainer:
         hp = cfg.hyper
         k, V = cfg.num_topics, t.corpus.vocab_size
         chunk = t.gpu.seg_chunk
-        num_head = min(V, head_bytes // max(2 * B.num_docs, 1),
-                       max_head_rows(B.num_docs))
+        num_head = min(V, head_bytes // max(2 * B.num_docs, 1))
+        if not t.gpu.break_head_cap:
+            num_head = min(num_head, max_head_rows(B.num_docs))
         if head_bytes > 0 and num_head >= 8:
-            Bh = to_hybrid(B, num_head, row_scale_from_zetas(zetas))
+            Bh = to_hybrid(B, num_head, row_scale_from_zetas(zetas),
+                           break_head_cap=t.gpu.break_head_cap)
         else:
             Bh = with_doc_tiles(B)
         if head_bytes > 0:

@@ -409,7 +409,8 @@ class Trainer:
 
         # 2-3. B (+ importance sampling of documents); on resume, the
         # checkpointed docs, which U was computed on. In the hybrid layout
-        # (isle_tpu/trainer.py:372-422) unless the head's cap refuses D.
+        # (isle_tpu/trainer.py:372-422) unless the head's cap refuses D
+        # and GpuConfig.break_head_cap does not lift it.
         sample = cfg.sample_rate if cfg.sample_docs else None
         select = dict(sample_rate=sample)
         if "svd" in ck:
@@ -417,7 +418,8 @@ class Trainer:
         elif sample is not None:
             select["uniforms"] = self.draws.doc_sample_uniforms(D)
         budget = self.gpu.dense_head_bytes
-        use_hybrid = budget > 0 and max_head_rows(D) >= 8
+        use_hybrid = budget > 0 and (self.gpu.break_head_cap
+                                     or max_head_rows(D) >= 8)
         if budget > 0 and not use_hybrid:
             self.logger.warning(
                 f"num_docs={D} exceeds the int32 flat-scatter head "
@@ -425,7 +427,8 @@ class Trainer:
             )
         if use_hybrid:
             B, original_cols, frob_sq = hybrid_from_thresholds(
-                A, zetas, budget, **select)
+                A, zetas, budget, break_head_cap=self.gpu.break_head_cap,
+                **select)
         else:
             B, original_cols = threshold_and_copy(A, zetas, **select)
             frob_sq = float(frobenius_sq(B))

@@ -539,6 +539,39 @@ def test_hybrid_products_on_the_card_match_the_cpu(dev):
         assert bool(((got.cpu().double() - ref).abs() <= 1e-5 * bound).all())
 
 
+def test_head_past_the_cap_on_the_card_matches_the_cpu(dev):
+    """GpuConfig.break_head_cap's layout: 150 head rows at a flat_cap
+    whose cap is 49 rows, built on the card (the int64 index_put_ of
+    split_by_head) equal to the CPU's, the head bit for bit; without the
+    switch both build the 49 rows of the cap."""
+    from isle_tpu_torch import hybrid, sparse
+
+    rng = np.random.default_rng(10)
+    V, D, nnz = 2_000, 3_001, 120_000
+    key = np.unique(rng.integers(0, D, nnz) * V
+                    + np.minimum((np.exp(rng.random(nnz) * np.log(V)) - 1)
+                                 .astype(np.int64), V - 1))
+    d, w = key // V, key % V
+    scale = (rng.random(V) * 3 + 0.5).astype(np.float32)
+    flat = 50 * (D + 1)
+    assert hybrid.max_head_rows(D, flat) == 49
+    for cap_off, rows in ((True, 150), (False, 49)):
+        layouts = {}
+        for device in ("cpu", dev):
+            sp = sparse.DocSparse.from_doc_sorted(w, d, scale[w], V, D,
+                                                  device)
+            layouts[str(device)] = hybrid.to_hybrid(
+                sp, 150, torch.from_numpy(scale).to(device), flat_cap=flat,
+                break_head_cap=cap_off)
+        c, g = layouts["cpu"], layouts[str(dev)]
+        assert g.num_head == c.num_head == rows
+        assert torch.equal(g.head_words.cpu(), c.head_words)
+        assert torch.equal(g.head.cpu(), c.head)
+        assert g.head_nnz == c.head_nnz and 0 < g.head_nnz < g.nnz
+        assert torch.equal(g.tail.d_word.cpu(), c.tail.d_word)
+        assert torch.equal(g.tail.w_doc.cpu(), c.tail.w_doc)
+
+
 def _exact_corpus():
     """(corpus, k): every doc's counts add up to 64, the corpus's average,
     so each normalized value is its count and each catchword mass an

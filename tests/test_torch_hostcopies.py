@@ -217,6 +217,26 @@ def test_sparse_model_round_trip(tmp_path):
         jio.top_words_per_topic(model, 4)
 
 
+@pytest.mark.parametrize("k", [5, 1])
+def test_dense_model_round_trip(tmp_path, k):
+    """A dense model written by either package reads back the same in
+    both, within the %.8g of the file; a file of the wrong shape is
+    refused by both."""
+    model = _model(7, k=k)
+    for tag, io in (("ours", io_text), ("ref", jio)):
+        path = str(tmp_path / f"M_hat_avg.{tag}")
+        io.write_dense_model(path, model)
+        got = io_text.load_dense_model(path, k, 60)
+        assert got.dtype == np.float32 and got.shape == (60, k)
+        assert got.flags.c_contiguous
+        assert np.array_equal(got, jio.load_dense_model(path, k, 60))
+        np.testing.assert_allclose(got, model, rtol=1e-7)
+        with pytest.raises(ValueError, match="dense model"):
+            io_text.load_dense_model(path, k, 59)
+        with pytest.raises(AssertionError):
+            jio.load_dense_model(path, k, 59)
+
+
 def test_diagnostics_match():
     d, w, c = _entries(7, n=3000, V=60, D=150)
     ours = corpus.Corpus.from_entries(d, w, c, vocab_size=60)

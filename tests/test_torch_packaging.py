@@ -256,3 +256,57 @@ def test_import_pins_float32_matmul_precision():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
+
+
+# TpuConfig's fields that GpuConfig does not carry with the same name and
+# default, each with the reason. A field added to TpuConfig that is in
+# neither GpuConfig nor this table fails test_config_surface.
+NOT_IN_GPU_CONFIG = {
+    "lane": "TPU padding: the vector unit's 128 lanes",
+    "sublane": "TPU padding: the vector unit's 8 sublanes",
+    "spmm_chunk": "the chunk of isle_tpu's scanned XLA SpMM; the kernels "
+                  "here take seg_chunk",
+    "mesh_axis_names": "a jax.sharding.Mesh's axis names; the port's mesh "
+                       "is one process group along the docs",
+    "pallas_segsum": "the port always runs its kernels on the card",
+    "pallas_chunk": "its counterpart is seg_chunk",
+    "precise_matmul": "read nowhere in isle_tpu; the port turns TF32 off "
+                      "on import (isle_tpu_torch/__init__.py)",
+}
+# fields of both whose defaults differ, with the reason
+OTHER_DEFAULT = {
+    "mesh_shape": "None means one device, as isle_tpu's ()",
+    "hbm_bytes": "0 takes the card's memory; isle_tpu's 14 GiB describe "
+                 "a v5e",
+}
+# GpuConfig's own fields
+GPU_ONLY = {"device", "seg_chunk"}
+
+
+def test_config_surface():
+    """Every field of isle_tpu's TpuConfig has a GpuConfig field of the
+    same name and default, or stands in one of the tables above with its
+    reason; GpuConfig adds only its own fields."""
+    import dataclasses
+
+    from isle_tpu.config import TpuConfig
+    from isle_tpu_torch.config import GpuConfig
+
+    ref = {f.name: f.default for f in dataclasses.fields(TpuConfig)}
+    ours = {f.name: f.default for f in dataclasses.fields(GpuConfig)}
+    for name, default in ref.items():
+        if name in NOT_IN_GPU_CONFIG:
+            assert name not in ours, name
+        elif name in OTHER_DEFAULT:
+            assert name in ours and ours[name] != default, name
+        else:
+            assert name in ours, f"TpuConfig.{name} has no counterpart"
+            assert ours[name] == default, name
+    assert set(NOT_IN_GPU_CONFIG) | set(OTHER_DEFAULT) <= set(ref)
+    assert set(ours) - set(ref) == GPU_ONLY
+    assert "break_head_cap" in ours and ours["break_head_cap"] is False
+    assert ours["seg_chunk"] == ref["pallas_chunk"]
+    # precise_matmul is declared in isle_tpu's config and read nowhere
+    readers = [p.name for p in (ROOT / "isle_tpu").rglob("*.py")
+               if "precise_matmul" in p.read_text()]
+    assert readers == ["config.py"], readers

@@ -17,7 +17,8 @@ Job kinds:
               an .npz file, sharded_train_step on the corpus's shards
               and on B's;
   "train"     Trainer over the mesh (the draws replayed from an .npz file
-              where given), optionally resumed, and optionally an
+              where given, with "flat_cap" as hybrid.FLAT_CAP), optionally
+              resumed, and optionally an
               inference of the training docs with the trained model; with
               "chunk_entries" the out-of-core StreamedTrainer instead
               (with "oom_once" its full-space Lloyd's runs out of memory
@@ -211,6 +212,17 @@ TRAINER_FIELDS = ("original_cols", "evalues", "centers", "cluster_of_doc",
 
 
 def job_train(job: dict, mesh) -> dict:
+    from isle_tpu_torch import hybrid
+
+    cap = hybrid.FLAT_CAP
+    hybrid.FLAT_CAP = job.get("flat_cap", cap)
+    try:
+        return _train(job, mesh)
+    finally:
+        hybrid.FLAT_CAP = cap
+
+
+def _train(job: dict, mesh) -> dict:
     from isle_tpu_torch import GpuConfig, HyperParams, InferConfig, \
         Inferencer, StreamedTrainer, TrainConfig, Trainer
 
