@@ -271,7 +271,43 @@ Between 7 and 8, with the in-core corpus off the card:
      to the held run's); last the sharded streamed trainer over M1's
      mesh on the resident loader, equal to S5's. A cut corpus takes, in
      place of a size that does not give its outcome, the hbm_bytes that
-     gives it, on a CUT line;
+     gives it, on a CUT line. Last a real out-of-memory retry: the
+     default hybrid run once more with a ballast tensor placed at the
+     middle's start that leaves OOM_FREE_BYTES free and goes with the
+     failed attempt (ballast_middle): the first attempt must raise
+     torch.OutOfMemoryError with the slabs held, planned_middle's one
+     retry must finish with them released (two fills), equal to the
+     released run bit for bit;
+  Z.  the bite corpus (isle_tpu_torch.synth.bite_counts: phase 4's pairs
+     with Zipf(2) counts capped at 1000 and every doc d % 100 == 7 flat
+     but its first entry; 824 ζ histogram columns, ζ above 1 on 130
+     words, nnz(B) 38,008,938, counts uint16) at k = 100, every run with
+     the launch counts set to 0 just before and read just after.
+     Z1 in core (COO): ζ, nnz(B) and original_cols equal isle_tpu's
+     results pinned in BITE_PINS (full shape and seed 0 only; a cut
+     corpus prints them on a CUT line), B equal to threshold_and_copy run
+     on the CPU on a host copy of A, the result checks of phase 6, each
+     kernel at this corpus's shapes as phase 5 does it (launches at least
+     the uses), the stage table. Z2 the default hybrid layout: ζ and
+     original_cols equal Z1's, eigenvalues within rtol 1e-4, the cluster
+     agreement with Z1 printed. Z5 each drop flag alone: ζ (+inf count),
+     nnz(B) and original_cols equal the pins, the result checks. Z6 every
+     entry of OPTIONS and Lanczos on the default eigensolver: the result
+     checks, segsum_onehot launched at least 4 times and
+     segsum_gather_rows at least twice an operator call plus 2; Elkan's
+     on the same clusters as Z1's Lloyd's for at least ELKANS_AGREEMENT
+     of docs (its bound arrays' bytes printed); the explicit projected
+     matrix off equal to Z1 bit for bit; the others' agreement printed.
+     Z4 the sharded trainer over M1's mesh, held to Z1 as M1 to phase 4.
+     Z3 out of core in 12 chunks on the wire and the resident loader
+     (which must keep the counts as uint16, every chunk's values equal to
+     corpus.vals, the run equal to the wire run bit for bit): ζ,
+     original_cols and B equal Z1's, eigenvalues within rtol 1e-4, the
+     model within 1e-6; then both sampled at 0.5 as S1's third part,
+     resident equal to wire bit for bit, and original_cols equal to Z6's
+     in-core sampled run, eigenvalues within rtol 1e-4, the model within
+     1e-6. Z7 inference of the 300,000 docs with Z1's model as phase 8,
+     the top-5 run's weights required equal to the full run's;
 
 After 8, with the NYTimes corpus freed:
 
@@ -298,8 +334,8 @@ After 8, with the NYTimes corpus freed:
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
 "launches_by_path", the sharded, the sharded streamed, the traced, the
-three hybrid runs, phase HC's two runs, phase R's six runs, the train step's, graft_entry's
-and phase M's among them), max
+three hybrid runs, phase HC's two runs, phase R's seven runs, phase Z's
+runs, the train step's, graft_entry's and phase M's among them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
@@ -337,7 +373,8 @@ REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # kCells of csrc/segsum.cu: the cells of a warp's window of output rows in
-# segsum_onehot (one row of the ζ histogram's 635 columns, 10 of 100)
+# segsum_onehot (one row of the ζ histogram's 635 columns, or of the bite
+# corpus's 824; 10 rows of 100)
 ONEHOT_WINDOW_CELLS = 1024
 
 
@@ -380,6 +417,8 @@ PARTIALS, ROWGATHER = "chunk_partials", "row_gather_async"
 MICRO = dict(n=1 << 24, width=128, chunk=2048, gather_n=1 << 22,
              gather_rows=102_660)
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# the arrays of a DocSparse's two sort orders
+B_FIELDS = ("d_word", "d_doc", "d_val", "w_word", "w_doc", "w_val")
 
 
 def synth_entries(shape: dict, seed: int):
@@ -572,17 +611,21 @@ def mwu_sample_check(entries, shape: dict, model: np.ndarray, weights,
     return err
 
 
-def infer_full(tr, entries, shape: dict, seed: int, out: str) -> None:
-    """Phase 8: infer the NYTimes docs with the trained model."""
+def infer_full(tr, entries, shape: dict, seed: int, out: str,
+               label: str = "inference", top_equal: bool = False,
+               name: str = "infer_nyt") -> None:
+    """Phase 8 (and Z7 on the bite corpus): infer the NYTimes docs with
+    the trained model. `top_equal`: the top-5 run's kept weights are
+    required equal to the full run's, else printed."""
     from isle_tpu_torch import segsum
 
     t0 = time.perf_counter()
     corpus = make_corpus(entries, shape, normalize_to_one=True)
-    print(f"inference corpus: {corpus.num_docs} docs normalized to unit "
+    print(f"{label} corpus: {corpus.num_docs} docs normalized to unit "
           f"mass in {time.perf_counter() - t0:.1f} s (host)")
     runs = {}
     for top_n in (5, 0):
-        inf = inferencer(tr.model, "cuda", os.path.join(out, "infer_nyt"))
+        inf = inferencer(tr.model, "cuda", os.path.join(out, name))
         assert inf.device.type == "cuda"
         torch.cuda.reset_peak_memory_stats()
         segsum.reset_launch_counts()
@@ -595,7 +638,7 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str) -> None:
             "pack inference batch"]
         runs[top_n] = res
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"inference top_n={top_n}: {wall:.3f} s wall "
+        print(f"{label} top_n={top_n}: {wall:.3f} s wall "
               f"(build_infer_batch {pack:.3f} s host), converged "
               f"{res.num_converged}/{corpus.num_docs}, avg LLH per "
               f"converged doc {res.avg_llh_per_converged_doc:.6f}, avg LLH "
@@ -616,8 +659,10 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str) -> None:
     # the top-5 run's kept weights against the same entries of the full run
     kept = (top.weights > 0) & conv[:, None]
     bit_equal = bool(np.array_equal(top.weights[kept], full.weights[kept]))
+    assert bit_equal or not top_equal, \
+        f"{label}: the top-5 run's weights differ from the full run's"
     err = mwu_sample_check(entries, shape, tr.model, full.weights, conv, seed)
-    print(f"inference checks: rows sum to 1 within "
+    print(f"{label} checks: rows sum to 1 within "
           f"{np.abs(sums - 1.0).max():.2e}; top-5 run bit-equal to the full "
           f"run: {bit_equal}; {min(MWU_SAMPLE, shape['docs'])}-doc sample "
           f"vs float64 CPU max abs "
@@ -1117,7 +1162,7 @@ def print_streamed_run(label, st, wall, peak, launches) -> None:
 
 def assert_same_b(B, IB) -> None:
     assert B.num_docs == IB.num_docs
-    for f in ("d_word", "d_doc", "d_val", "w_word", "w_doc", "w_val"):
+    for f in B_FIELDS:
         assert torch.equal(getattr(B, f), getattr(IB, f)), f"streamed B: {f}"
 
 
@@ -1206,22 +1251,29 @@ def streamed_resume_phase(corpus, shape, seed, out, tr, loader) -> dict:
     return launches
 
 
-def streamed_sampling_phase(corpus, shape, seed, out, tr) -> tuple:
-    """Phase S1's third part: a streamed run with document sampling, and
-    its selection and B against the in-core stage's with the same draws.
-    Returns (launch counts, launches by stage)."""
+def streamed_sampling_phase(corpus, shape, seed, out, tr,
+                            name: str = "nyt_ss", label: str = "streamed path",
+                            resident_bytes=0) -> tuple:
+    """Phase S1's third part (and Z3's sampled pair on the bite corpus): a
+    streamed run with document sampling, written under `name`, printed as
+    `label`, on the loader `resident_bytes` chooses (streamed_trainer),
+    and its selection and B against the in-core stage's with the same
+    draws (the in-core run `tr`'s ζ). Returns (launch counts, launches by
+    stage, the trainer)."""
     from isle_tpu_torch import bmatrix, streaming
     from isle_tpu_torch.rng import Draws
     from isle_tpu_torch.sparse import DocSparse
 
     rate, D = STREAM_SAMPLE_RATE, shape["docs"]
-    st = streamed_trainer(corpus, shape, seed, os.path.join(out, "nyt_ss"),
-                          sample_docs=True, sample_rate=rate)
+    st = streamed_trainer(corpus, shape, seed, os.path.join(out, name),
+                          resident_bytes=resident_bytes, sample_docs=True,
+                          sample_rate=rate)
     wall, peak, launches, per = run_streamed(st)
     loader = st.loader
-    print_streamed_run(f"streamed path, sampled at rate {rate}", st, wall,
-                       peak, launches)
-    check_streamed_launches(per, len(loader.ranges), "streamed, sampled")
+    print_streamed_run(f"{label}, sampled at rate {rate}", st, wall, peak,
+                       launches)
+    check_streamed_launches(per, len(loader.ranges),
+                            label.replace(" path", "") + ", sampled")
     assert "streamed doc sampling" in per
     sums = st.model.sum(axis=0, dtype=np.float64)
     zero = ~st.model.any(axis=0)
@@ -1256,7 +1308,8 @@ def streamed_sampling_phase(corpus, shape, seed, out, tr) -> tuple:
         B, b_cols = streaming.streamed_build_b(corpus, z, sel, loader)
         assert np.array_equal(b_cols, in_cols)
         assert_same_b(B, IB)
-    print(f"streamed sampling checks: zetas equal the in-core run's; "
+    print(f"{label.replace(' path', '')} sampling checks: zetas equal the "
+          f"in-core run's; "
           f"{len(cols)} of {D} docs kept; doc weights max rel diff to the "
           f"in-core stage's "
           f"{float(((w_st - w_in).abs() / w_in.clamp(min=1e-30)).max()):.2e}"
@@ -1264,7 +1317,7 @@ def streamed_sampling_phase(corpus, shape, seed, out, tr) -> tuple:
           + ("" if flips.size else "; B equals the in-core stage's")
           + f"; {sum(len(c) for c in st.catchwords)} catchwords, "
           f"{st.edge_model.shape[1]} edge topics")
-    return launches, per
+    return launches, per, st
 
 
 # the sharded streamed trainer's stage labels beside S1's
@@ -1671,9 +1724,12 @@ def one_rank_mesh(out: str):
                   f"{time.perf_counter() - t0:.2f} s")
 
 
-def sharded_phase(corpus, shape, seed, out, tr, mesh, per_incore) -> tuple:
-    """Phase M1. Returns (the sharded trainer, its launch counts, its
-    launches by stage)."""
+def sharded_phase(corpus, shape, seed, out, tr, mesh, per_incore,
+                  name: str = "nyt_m", label: str = "sharded") -> tuple:
+    """Phase M1 (and Z4 on the bite corpus): the sharded run written
+    under `name`, printed as `label`, against the in-core run `tr` whose
+    launches by stage are `per_incore`. Returns (the sharded trainer, its
+    launch counts, its launches by stage)."""
     from isle_tpu_torch import segsum
 
     torch.cuda.synchronize()
@@ -1682,21 +1738,21 @@ def sharded_phase(corpus, shape, seed, out, tr, mesh, per_incore) -> tuple:
     segsum.reset_launch_counts()
     t0 = time.perf_counter()
     with no_library_spmm():
-        sh = train(corpus, shape, seed, "cuda", os.path.join(out, "nyt_m"),
+        sh = train(corpus, shape, seed, "cuda", os.path.join(out, name),
                    mesh=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = segsum.launch_counts()
     coll_s = mesh.collective_seconds() - sec0
     per = stage_launches(sh)
-    print(f"sharded path, world size {mesh.world}: train + edge topics "
+    print(f"{label} path, world size {mesh.world}: train + edge topics "
           f"{wall:.2f} s wall, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
           f"launches {launches}; {mesh.collective_calls - calls0} "
           f"collectives, {coll_s:.4f} s inside them ({coll_s / wall:.2%} of "
           f"the wall); {card_line()}")
-    for label, w, _ in sh.timer.phases:
-        print(f"  sharded stage {label}: {w:.3f} s")
+    for stage, w, _ in sh.timer.phases:
+        print(f"  {label} stage {stage}: {w:.3f} s")
     assert sh.mesh is mesh and sh.A is None
     ours, ref = run_dir_arrays(sh, "svd"), run_dir_arrays(tr, "svd")
     assert np.array_equal(ours["zetas"], ref["zetas"]), "sharded zetas"
@@ -1721,7 +1777,7 @@ def sharded_phase(corpus, shape, seed, out, tr, mesh, per_incore) -> tuple:
             f"sharded stage {stage!r} launched {counts}, in core {want}"
     assert per["eigen solve (B B^T, sharded)"][GATHER] == \
         2 * sh.op_counter.calls
-    print("sharded checks: zetas, original_cols, clusters, catchwords, "
+    print(f"{label} checks: zetas, original_cols, clusters, catchwords, "
           "top-two topics and edge pairs equal the in-core run's; model max "
           f"abs diff {np.abs(sh.model - tr.model).max():.3e} (bit-equal: "
           f"{np.array_equal(sh.model, tr.model)}), eigenvalues bit-equal: "
@@ -3230,6 +3286,64 @@ def head_rows_built():
         streaming.to_hybrid = real
 
 
+@contextlib.contextmanager
+def ballast_middle(free_bytes: int):
+    """The streamed middle's first attempt (streaming.planned_middle's
+    `run`) inside the block starts behind a ballast tensor that leaves
+    `free_bytes` of device memory free, and the ballast goes when that
+    attempt raises torch.OutOfMemoryError, as a tensor the failed attempt
+    held would. Yields a namespace: attempts, ooms (attempts that raised
+    it), alloc (each attempt's peak bytes allocated above its start),
+    reused (whether each attempt found the eigenpairs of an earlier one),
+    ballast_bytes, free (the bytes free at the first attempt's start)."""
+    from isle_tpu_torch import streaming
+
+    real = streaming.planned_middle
+    spy = SimpleNamespace(attempts=0, ooms=0, alloc=[], reused=[],
+                          ballast_bytes=0, free=None)
+    ballast = []
+
+    def planned(t, loader, nnz_b, run, agree=None):
+        def attempt(head, state):
+            spy.attempts += 1
+            spy.reused.append("U" in state)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            if spy.attempts == 1:
+                free = torch.cuda.mem_get_info()[0]
+                spy.ballast_bytes = max(free - free_bytes, 0)
+                ballast.append(torch.empty(spy.ballast_bytes,
+                                           dtype=torch.uint8, device="cuda"))
+                torch.cuda.synchronize()
+                spy.free = torch.cuda.mem_get_info()[0]
+            a0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return run(head, state)
+            except torch.OutOfMemoryError:
+                spy.ooms += 1
+                ballast.clear()
+                raise
+            finally:
+                spy.alloc.append(torch.cuda.max_memory_allocated() - a0)
+
+        return real(t, loader, nnz_b, attempt, agree)
+
+    streaming.planned_middle = planned
+    try:
+        yield spy
+    finally:
+        streaming.planned_middle = real
+        ballast.clear()
+        torch.cuda.empty_cache()
+
+
+# phase R: the device memory the real out-of-memory run leaves free at
+# the start of the middle, far below the 6 GB or so its first attempt
+# takes at the NYTimes shape
+OOM_FREE_BYTES = 1 << 30
+
+
 # phase R: GpuConfig.hbm_bytes (GiB) for each of the memory plan's other
 # outcomes at the NYTimes shape with the default 4 GiB head budget
 RESIDENT_PLANS = ((8, "head shrunk"), (4, "slabs kept, no head"),
@@ -3347,12 +3461,32 @@ def resident_phase(corpus, shape, seed, out, st, B, ms, sh, mesh) -> dict:
             assert_same_run(got, held, label)
             note = ("two fills; the held run's results "
                     f"({got.loader.fill_seconds:.4f} s of fills)")
+            released = got
         if outcome != "slabs released":
             assert got.loader.fill_count == 1
         print(f"{label}: {outcome}, hbm_bytes {hbm}, slabs {slab} bytes, "
               f"nnz(B) {B.nnz} ({note})")
         del got
     del held
+
+    # a real out-of-memory error in the middle with the slabs held (the
+    # default plan: held, the configured head), behind a ballast that
+    # goes with the failed attempt; planned_middle retries with the slabs
+    # released and the run ends where the released run ended
+    label = "streamed, resident, hybrid, out of memory with the slabs held"
+    with ballast_middle(OOM_FREE_BYTES) as spy:
+        got, rows, _ = run(label, "_oom", head_bytes=None)
+    assert spy.attempts == 2 and spy.ooms == 1, vars(spy)
+    assert got.loader.fill_count == 2 and rows == full_rows * 2, rows
+    assert_same_run(got, released, label)
+    print(f"{label}: the first attempt raised torch.OutOfMemoryError with "
+          f"{spy.free} bytes free at its start (a ballast of "
+          f"{spy.ballast_bytes} bytes) after {spy.alloc[0]} bytes; the retry "
+          f"with the slabs released ({slab} bytes) took {spy.alloc[1]} "
+          f"bytes above its start (eigenpairs reused: {spy.reused[1]}); two "
+          f"fills; equal to the released run bit for bit (its printed peak "
+          f"counts from the retry's start)")
+    del got, released
 
     # the sharded streamed trainer on the resident loader against S5's
     label = f"sharded streamed, resident, world size {mesh.world}"
@@ -3370,6 +3504,381 @@ def resident_phase(corpus, shape, seed, out, st, B, ms, sh, mesh) -> dict:
           f"copied against S5's {ms.run_bytes_copied}")
     print(f"phase R: {time.perf_counter() - t0:.1f} s; {card_line()}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase Z: the corpus whose ζ thresholds bite (synth.bite_counts) at the
+# NYTimes shape
+# ---------------------------------------------------------------------------
+
+BITE_COUNTS_SEED = 1
+# isle_tpu's results on the bite corpus at the NYTimes shape (corpus seed
+# 0, counts seed BITE_COUNTS_SEED, k = 100), made on the CPU with
+# isle_tpu's own functions: ζ by isle_tpu.thresholds.compute_thresholds_np
+# (the sha256 of its float32 bytes, the words with a finite ζ above 1,
+# the largest finite ζ, the words at ζ = +inf) and the post-threshold nnz
+# it returns; B's docs and original_cols (the sha256 of the int32 array)
+# by isle_tpu.bmatrix.threshold_and_copy on isle_tpu's DocSparse.
+# tests/test_torch_bite.py holds them against isle_tpu again.
+_IDENTITY_COLS = \
+    "552a438886f75fd5e70ff6ad0671698758af0a126388ab130f4eb85c0cf6c725"
+BITE_PINS = {
+    "default": dict(
+        zeta_sha256="5fd05fbdee069dcfd66c11056ae2f50e"
+                    "086232afc24dc8d2cd9addb8ecc51c35",
+        zeta_above_1=130, zeta_max=708.0, zeta_inf=0, nnz_b=38_008_938,
+        docs_b=300_000, original_cols_sha256=_IDENTITY_COLS),
+    "few_samples_threshold_drop": dict(
+        zeta_sha256="ae2ecea094853035955fadb8c11d8479"
+                    "6cf5303ed55e3c583f4fcd786bec6d1e",
+        zeta_above_1=130, zeta_max=708.0, zeta_inf=98_363,
+        nnz_b=13_857_375, docs_b=300_000,
+        original_cols_sha256=_IDENTITY_COLS),
+    "bad_threshold_drop": dict(
+        zeta_sha256="79f4a51e8968da4977e041ffcc45e1c0"
+                    "944aff4b68f90dba2d2e0c3b7b20c244",
+        zeta_above_1=130, zeta_max=708.0, zeta_inf=4_166, nnz_b=24_352_295,
+        docs_b=300_000, original_cols_sha256=_IDENTITY_COLS),
+}
+# Z6: phase 7's training options at full width on the default eigensolver,
+# and Lanczos
+BITE_OPTIONS = dict(OPTIONS, lanczos=dict(hyper=dict(eigensolver="lanczos")))
+# Z6: Elkan's from the draws of Z1's Lloyd's, the share of docs on the
+# same cluster
+ELKANS_AGREEMENT = 0.999
+
+
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def threshold_pins(z: np.ndarray, nnz_b: int, cols: np.ndarray) -> dict:
+    """A run's ζ, nnz(B) and original_cols in BITE_PINS's terms."""
+    fin = np.isfinite(z)
+    return dict(zeta_sha256=sha256(z), zeta_above_1=int((z[fin] > 1).sum()),
+                zeta_max=float(z[fin].max()), zeta_inf=int((~fin).sum()),
+                nnz_b=int(nnz_b), docs_b=len(cols),
+                original_cols_sha256=sha256(np.asarray(cols, np.int32)))
+
+
+def check_pins(label: str, flag: str, got: dict, full: bool) -> None:
+    """`got` (threshold_pins) equal to isle_tpu's pinned results at the
+    full shape; at a cut corpus printed only, on a CUT line."""
+    want = BITE_PINS[flag]
+    bad = {key: (got[key], want[key]) for key in want if got[key] != want[key]}
+    assert not (full and bad), \
+        f"{label}: differs from isle_tpu's pinned results in {bad}"
+    print(("" if full else "CUT: ") + f"{label}: ζ sha256 "
+          f"{got['zeta_sha256'][:16]}, {got['zeta_above_1']} words with ζ > 1 "
+          f"(largest {got['zeta_max']:g}), {got['zeta_inf']} at +inf, nnz(B) "
+          f"{got['nnz_b']}, {got['docs_b']} docs in B (original_cols sha256 "
+          f"{got['original_cols_sha256'][:16]}): "
+          + ("equal to isle_tpu's pinned results" if full else
+             "isle_tpu's pins are for the full shape, not checked"))
+
+
+def check_result(tr, shape: dict, label: str) -> str:
+    """Every model column sums (in float64) to 1 within 1e-5 or is all
+    zero, the models are finite, the eigenvalues finite and descending, at
+    least one catchword. Returns a line of the result."""
+    model = tr.model
+    assert model.shape == (shape["vocab"], shape["k"]), label
+    assert np.isfinite(model).all() and np.isfinite(tr.edge_model).all(), \
+        label
+    # summed in float64: a float32 sum of 102,660 entries drifts by ~1e-5
+    sums = model.sum(axis=0, dtype=np.float64)
+    zero = ~model.any(axis=0)
+    assert np.all(zero | (np.abs(sums - 1.0) <= 1e-5)), (label, sums)
+    ev = np.asarray(tr.evalues)
+    assert np.isfinite(ev).all() and np.all(np.diff(ev) <= 0), (label, ev)
+    n_cw = sum(len(c) for c in tr.catchwords)
+    assert n_cw > 0, f"{label}: no catchwords"
+    return (f"{n_cw} catchwords, {tr.edge_model.shape[1]} edge topics, "
+            f"{int(zero.sum())} empty topics, lambda_1 {ev[0]:.6g}, "
+            f"lambda_k {ev[-1]:.6g}")
+
+
+def timed_train(corpus, shape, seed, out, label, stages=False, **kw):
+    """train() with the launch counts set to 0 just before and read just
+    after: prints the wall, the peak and the launches (and with `stages`
+    each stage's wall). Returns (the trainer, SimpleNamespace(wall, peak,
+    held, launches, per))."""
+    from isle_tpu_torch import segsum
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    segsum.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = train(corpus, shape, seed, "cuda", out, **kw)
+    torch.cuda.synchronize()
+    r = SimpleNamespace(wall=time.perf_counter() - t0, held=held,
+                        peak=torch.cuda.max_memory_allocated() / 2**30,
+                        launches=segsum.launch_counts(),
+                        per=stage_launches(tr))
+    print(f"{label}: train + edge topics {r.wall:.2f} s wall, peak device "
+          f"memory {r.peak:.2f} GiB ({held:.2f} GiB held before the run), "
+          f"kernel launches {r.launches}")
+    if stages:
+        for stage, w, _ in tr.timer.phases:
+            print(f"  {label} stage {stage}: {w:.3f} s")
+    return tr, r
+
+
+def agreement(a, b) -> tuple:
+    """(share of docs in both runs' B on the same cluster, the share up to
+    the clusters' labels), over the docs both runs clustered."""
+    both = (a.cluster_of_doc >= 0) & (b.cluster_of_doc >= 0)
+    x, y = a.cluster_of_doc[both], b.cluster_of_doc[both]
+    k = int(max(x.max(), y.max())) + 1
+    return float((x == y).mean()), clusters_up_to_labels(x, y, k)
+
+
+def bite_corpus(entries, shape: dict):
+    """The bite corpus: phase 4's (doc, word) pairs with the counts of
+    synth.bite_counts. Returns (its entries, its Corpus)."""
+    from isle_tpu_torch import thresholds
+    from isle_tpu_torch.synth import bite_counts
+
+    d, w, _ = entries
+    t0 = time.perf_counter()
+    c = bite_counts(d, BITE_COUNTS_SEED)
+    t1 = time.perf_counter()
+    corpus = make_corpus((d, w, c), shape)
+    F = thresholds.freq_bound(corpus.avg_doc_sz)
+    print(f"bite corpus: counts redrawn by synth.bite_counts (seed "
+          f"{BITE_COUNTS_SEED}, largest {int(c.max())}) in {t1 - t0:.1f} s, "
+          f"corpus built in {time.perf_counter() - t1:.1f} s (host); nnz "
+          f"{corpus.nnz}, avg_doc_sz {corpus.avg_doc_sz:g}, ζ histogram "
+          f"{corpus.vocab_size + 1} x {F + 1} ({onehot_window(F + 1)})")
+    return (d, w, c), corpus
+
+
+def bite_in_core(corpus, shape, seed, out, full) -> tuple:
+    """Phase Z1: the bite corpus in core (COO). Returns (the trainer, its
+    run, B on the card, the kernel uses at this corpus's shapes)."""
+    from isle_tpu_torch import bmatrix
+    from isle_tpu_torch.sparse import DocSparse
+
+    label = "phase Z1, bite corpus, in core (COO)"
+    tr, run = timed_train(corpus, shape, seed, os.path.join(out, "bite"),
+                          label, stages=True)
+    svd = run_dir_arrays(tr, "svd")
+    z = torch.from_numpy(svd["zetas"]).cuda()
+    B, cols = bmatrix.threshold_and_copy(tr.A, z)
+    assert np.array_equal(cols, tr.original_cols)
+    assert np.array_equal(cols, svd["original_cols"])
+    # the same stage on the CPU (the plain path) on a host copy of A
+    t0 = time.perf_counter()
+    A = tr.A
+    host = DocSparse(**{f: getattr(A, f).cpu() for f in B_FIELDS},
+                     vocab=A.vocab, num_docs=A.num_docs)
+    HB, host_cols = bmatrix.threshold_and_copy(host, z.cpu())
+    assert np.array_equal(host_cols, cols), "Z1: original_cols on the CPU"
+    for f in B_FIELDS:
+        assert torch.equal(getattr(HB, f), getattr(B, f).cpu()), f"Z1: B.{f}"
+    cpu_s = time.perf_counter() - t0
+    del host, HB
+    check_pins(label, "default", threshold_pins(svd["zetas"], B.nnz, cols),
+               full)
+    print(f"{label}: B ({B.nnz} nnz, {B.num_docs} docs, {A.nnz - B.nnz} "
+          f"entries dropped) equals threshold_and_copy on the CPU "
+          f"({cpu_s:.1f} s with the copy); result: "
+          f"{check_result(tr, shape, label)}")
+
+    uses = compare_kernels(tr, run.launches, seed)
+    need = sum(u["launches"] for u in uses[ONEHOT])
+    assert run.launches[ONEHOT] >= need, (label, run.launches, need)
+    need = gather_calls(uses)
+    assert run.launches[GATHER] >= need, (label, run.launches, need)
+    for rows in uses.values():
+        for u in rows:
+            u["use"] = "bite corpus, " + u["use"]
+    print_uses(uses, "bite corpus's in-core path")
+    print(f"{label}: segsum_gather_rows {run.launches[GATHER]} launches for "
+          f"{need} SpMM calls ({tr.op_counter.calls} eigensolver operator "
+          f"calls, {lloyds_reps(tr)} full-space Lloyd's iterations); "
+          f"{card_line()}")
+    tr.A = None
+    return tr, run, B, uses
+
+
+def bite_option(corpus, shape, seed, out, z1, label, path, **kw) -> tuple:
+    """One in-core run of the bite corpus beside Z1: it finishes, its
+    result holds (check_result), each kernel launched at least once a use
+    (the ζ histogram, the group counts, the doc-topic mass, Frob(B); two
+    products an operator call, the projection, the model). Returns (the
+    trainer, its run)."""
+    tr, run = timed_train(corpus, shape, seed, os.path.join(out, path),
+                          label, **kw)
+    want = (4, 2 * tr.op_counter.calls + 2)
+    got = (run.launches[ONEHOT], run.launches[GATHER])
+    assert got[0] >= want[0] and got[1] >= want[1], (label, got, want)
+    same, relabeled = agreement(tr, z1)
+    print(f"{label}: {len(tr.original_cols)} docs in B; result: "
+          f"{check_result(tr, shape, label)}; clusters equal Z1's on "
+          f"{same:.4%} of docs ({relabeled:.4%} up to labels)")
+    tr.A = None
+    return tr, run
+
+
+def bite_phase(entries, shape, seed, out, mesh) -> tuple:
+    """Phase Z: the bite corpus (synth.bite_counts over phase 4's pairs).
+    Returns ({kernel: its uses at this corpus's shapes}, {path: launch
+    counts})."""
+    from isle_tpu_torch import bmatrix, streaming
+
+    t_phase = time.perf_counter()
+    full = shape == NYT and seed == 0
+    launches = {}
+    bite_entries, corpus = bite_corpus(entries, shape)
+
+    # Z1: in core, COO
+    z1, run, B, uses = bite_in_core(corpus, shape, seed, out, full)
+    launches["bite, in-core"], z1_per = run.launches, run.per
+
+    # Z2: the default hybrid layout
+    label = "phase Z2, bite corpus, hybrid (GpuConfig's default)"
+    hy, run = timed_train(corpus, shape, seed, os.path.join(out, "bite_h"),
+                          label, stages=True, head_bytes=None)
+    launches["bite, in-core, hybrid"] = run.launches
+    ours, ref = run_dir_arrays(hy, "svd"), run_dir_arrays(z1, "svd")
+    for key in ("zetas", "original_cols"):
+        assert np.array_equal(ours[key], ref[key]), f"{label}: {key}"
+    np.testing.assert_allclose(hy.evalues, z1.evalues, rtol=1e-4)
+    same, relabeled = agreement(hy, z1)
+    print(f"{label}: zetas and original_cols equal Z1's, eigenvalues max rel "
+          f"diff {np.abs(hy.evalues / z1.evalues - 1).max():.2e}; clusters "
+          f"equal Z1's on {same:.4%} of docs ({relabeled:.4%} up to labels); "
+          f"result: {check_result(hy, shape, label)}")
+    hy.A = None
+    del hy
+
+    # Z5: the drop flags, each alone
+    for flag in ("few_samples_threshold_drop", "bad_threshold_drop"):
+        label = f"phase Z5, bite corpus, {flag}"
+        tr, run = timed_train(corpus, shape, seed,
+                              os.path.join(out, f"bite_{flag}"), label,
+                              hyper={flag: True})
+        launches[f"bite, {flag}"] = run.launches
+        z = run_dir_arrays(tr, "svd")["zetas"]
+        FB, cols = bmatrix.threshold_and_copy(tr.A, torch.from_numpy(z).cuda())
+        assert np.array_equal(cols, tr.original_cols), label
+        check_pins(label, flag, threshold_pins(z, FB.nnz, cols), full)
+        print(f"{label}: result: {check_result(tr, shape, label)}")
+        tr.A = None
+        del tr, FB
+
+    # Z6: the training options and Lanczos, in core on the default solver
+    sampled = None
+    for name, opts in BITE_OPTIONS.items():
+        label = f"phase Z6, bite corpus, {name}"
+        tag = name.replace(" ", "_").replace("=", "_")
+        tr, run = bite_option(corpus, shape, seed, out, z1, label,
+                              f"bite_{tag}", **opts)
+        launches[f"bite, {name}"] = run.launches
+        if name == "elkans":
+            nb, k = len(tr.original_cols), shape["k"]
+            same, _ = agreement(tr, z1)
+            print(f"{label}: bound arrays {4 * nb * k + 4 * nb} bytes (lower "
+                  f"bounds {nb} x {k} and upper bounds {nb}, float32), peak "
+                  f"{run.peak:.2f} GiB against Z1's Lloyd's on {same:.4%} of "
+                  f"docs (gate {ELKANS_AGREEMENT:.1%})")
+            assert same >= ELKANS_AGREEMENT, \
+                f"{label}: agrees with Lloyd's on {same:.4%} of docs only"
+        elif name.startswith("use_explicit_projected_matrix"):
+            assert_same_run(tr, z1, label)  # the same product in the port
+        elif name.startswith("sample_docs"):
+            sampled = tr
+        del tr
+    assert sampled is not None
+
+    # Z4: the sharded trainer over the one-rank mesh, against Z1
+    sh, launches["bite, sharded"], _ = sharded_phase(
+        corpus, shape, seed, out, z1, mesh, z1_per,
+        name="bite_m", label="phase Z4, bite corpus, sharded")
+    del sh
+
+    # Z3: out of core, on the wire and the resident loader
+    z = torch.from_numpy(run_dir_arrays(z1, "svd")["zetas"]).cuda()
+    runs = {}
+    for name, resident in (("wire", 0), ("resident", None)):
+        label = f"phase Z3, bite corpus, streamed, {name}"
+        st = streamed_trainer(corpus, shape, seed,
+                              os.path.join(out, f"bite_s_{name}"),
+                              resident_bytes=resident)
+        wall, peak, launches[f"bite, streamed, {name}"], per = \
+            run_streamed(st)
+        print_streamed_run(label, st, wall, peak,
+                           launches[f"bite, streamed, {name}"])
+        loader = st.loader
+        check_streamed_launches(per, len(loader.ranges), label)
+        SB, cols = streaming.streamed_build_b(corpus, z, None, loader)
+        assert np.array_equal(cols, z1.original_cols), label
+        assert_same_b(SB, B)
+        del SB
+        if resident is None:
+            assert isinstance(loader, streaming.ResidentLoader), label
+            assert loader.count_dtype == np.uint16, loader.count_dtype
+            assert loader.fill_count == 1
+            vals, off = torch.from_numpy(corpus.vals), corpus.offsets
+            for lo, hi, _, v, _ in loader.chunks():
+                want = vals[int(off[lo]):int(off[hi])].cuda()
+                assert torch.equal(v.view(torch.int32),
+                                   want.view(torch.int32)), \
+                    f"{label}: the values of docs [{lo}, {hi})"
+            assert_same_run(st, runs["wire"], label)
+        ours = run_dir_arrays(st, "svd")
+        assert np.array_equal(ours["zetas"], run_dir_arrays(z1, "svd")[
+            "zetas"]), label
+        np.testing.assert_allclose(st.evalues, z1.evalues, rtol=1e-4)
+        np.testing.assert_allclose(st.model, z1.model, rtol=0, atol=1e-6)
+        print(f"{label}: zetas, original_cols and B equal Z1's"
+              + (" (counts kept as uint16, every chunk's values equal "
+                 "corpus.vals; bit-equal to the wire run)"
+                 if resident is None else "")
+              + f"; eigenvalues max rel diff "
+              f"{np.abs(st.evalues / z1.evalues - 1).max():.2e}, model max "
+              f"abs diff {np.abs(st.model - z1.model).max():.3e} (clusters "
+              f"equal Z1's: {np.array_equal(st.cluster_of_doc, z1.cluster_of_doc)})")
+        runs[name] = st
+    del runs, st, loader
+    # the sampled pair against the in-core stage and the in-core run
+    wire = None
+    for name, resident in (("wire", 0), ("resident", None)):
+        label = f"phase Z3, bite corpus, streamed, {name}"
+        launches[f"bite, streamed, {name}, sampled"], _, st = \
+            streamed_sampling_phase(corpus, shape, seed, out, z1,
+                                    name=f"bite_ss_{name}", label=label,
+                                    resident_bytes=resident)
+        if resident is None:
+            assert isinstance(st.loader, streaming.ResidentLoader), label
+            assert st.loader.count_dtype == np.uint16
+            assert_same_run(st, wire, label + ", sampled")
+        else:
+            wire = st
+        assert np.array_equal(st.original_cols, sampled.original_cols), \
+            f"{label}, sampled: original_cols differ from Z6's in-core run"
+        np.testing.assert_allclose(st.evalues, sampled.evalues, rtol=1e-4)
+        np.testing.assert_allclose(st.model, sampled.model, rtol=0,
+                                   atol=1e-6)
+        print(f"{label}, sampled: original_cols ({len(st.original_cols)} "
+              f"docs) equal the in-core sampled run's (Z6), eigenvalues max "
+              f"rel diff {np.abs(st.evalues / sampled.evalues - 1).max():.2e},"
+              f" model max abs diff "
+              f"{np.abs(st.model - sampled.model).max():.3e}")
+    del st, wire, sampled, B
+    torch.cuda.empty_cache()
+
+    # Z7: inference over the bite corpus with Z1's model
+    infer_full(z1, bite_entries, shape, seed, out,
+               label="phase Z7, bite corpus inference", top_equal=True,
+               name="infer_bite")
+    print(f"phase Z: {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return uses, launches
 
 
 def float64_segment_sum(seg, g, num_segments) -> torch.Tensor:
@@ -3650,20 +4159,7 @@ def main() -> int:
           f"{launches['segsum_gather_rows']} launches for {need} SpMM calls "
           f"({tr.op_counter.calls} eigensolver operator calls, "
           f"{lloyds_reps(tr)} full-space Lloyd's iterations)")
-    model = tr.model
-    assert model.shape == (shape["vocab"], shape["k"])
-    assert np.isfinite(model).all() and np.isfinite(tr.edge_model).all()
-    # summed in float64: a float32 sum of 102,660 entries drifts by ~1e-5
-    sums = model.sum(axis=0, dtype=np.float64)
-    zero = ~model.any(axis=0)
-    assert np.all(zero | (np.abs(sums - 1.0) <= 1e-5)), sums
-    ev = np.asarray(tr.evalues)
-    assert np.isfinite(ev).all() and np.all(np.diff(ev) <= 0), ev
-    n_cw = sum(len(c) for c in tr.catchwords)
-    assert n_cw > 0, "no catchwords"
-    print(f"result: {n_cw} catchwords, {tr.edge_model.shape[1]} edge topics, "
-          f"{int(zero.sum())} empty topics, lambda_1 {ev[0]:.6g}, "
-          f"lambda_k {ev[-1]:.6g}")
+    print(f"result: {check_result(tr, shape, 'main path')}")
 
     # E: the eigensolver's two loops on phase 4's B
     device_loop_phase(tr, args.seed, out)
@@ -3760,8 +4256,8 @@ def main() -> int:
                                                   out, tr)
         r_launches = streamed_resume_phase(corpus, shape, args.seed, out, tr,
                                            st.loader)
-        ss_launches, ss_per = streamed_sampling_phase(corpus, shape,
-                                                      args.seed, out, tr)
+        ss_launches, ss_per, _ = streamed_sampling_phase(corpus, shape,
+                                                         args.seed, out, tr)
         ms_launches, ms = sharded_streamed_phase(corpus, shape, args.seed,
                                                  out, st, B, mesh, s_per)
         # H2, H3: the hybrid layout over the mesh and out of core
@@ -3773,6 +4269,10 @@ def main() -> int:
         res_launches = resident_phase(corpus, shape, args.seed, out, st, B,
                                       ms, sh, mesh)
         del ms, sh
+        # Z: the bite corpus, in core, in both layouts, with the drop flags
+        # and the options, sharded over the same mesh, out of core, and
+        # inferred
+        z_uses, z_launches = bite_phase(entries, shape, args.seed, out, mesh)
     finally:
         if mesh.group is not None:
             dist.destroy_process_group()
@@ -3783,7 +4283,7 @@ def main() -> int:
         "weights": ss_per["streamed doc sampling"][ONEHOT],
     })
     l_uses, l_launches = lanczos_phase(B, tr, args.seed, tr.gpu.seg_chunk)
-    for more in (s_uses, h_uses, l_uses):
+    for more in (s_uses, h_uses, l_uses, z_uses):
         for name, rows in more.items():
             uses[name] += rows
     by_path = {name: {"in-core": launches[name],
@@ -3800,7 +4300,8 @@ def main() -> int:
                       "streamed, hybrid": sh_launches[name],
                       "train-step": t_launches[name],
                       "graft-entry": g_launches[name],
-                      **{path: n[name] for path, n in res_launches.items()}}
+                      **{path: n[name] for path, n in res_launches.items()},
+                      **{path: n[name] for path, n in z_launches.items()}}
                for name in uses}
     del st, B
 

@@ -86,12 +86,21 @@
 //     kRowsBlocksPerSM) of kRowsWarps warps.
 //   - Each lane issues kInFlight independent row loads before it adds any
 //     of them, so a warp has kInFlight rows in flight instead of one.
-//   - A run's sum stays in registers and is stored once, with a plain store
-//     when the slice owns the run. A run that crosses a slice edge leaves
-//     its partial sums in a carry scratch, (num_slices, 2, W) floats and
-//     (num_slices, 2) segment ids. A second kernel adds each crossing
-//     run's partials in slice order and stores the row. No float atomics:
-//     two launches on the same input give bit-equal output.
+//   - A run's sum over the batch in hand stays in registers; at the end of
+//     each staged batch of kStage entries it is added into the lane's slot
+//     of a shared-memory partial, which holds the run's earlier batches,
+//     and the run is stored once, partial plus registers, with a plain
+//     store when the slice owns the run. So no float32 chain is longer
+//     than kStage adds: runs of up to 2,048 equal irrational values (the
+//     words of the bite corpus, synth.bite_counts, in B onehot) summed in
+//     one chain drift up to 2.7e-5 from the float64 sum, past the 1e-5 the
+//     kernel is held to (1.5e-5 met on the card); in chains of 128, then
+//     added, at most 1.8e-6 (tests/test_torch_bite.py). A run
+//     that crosses a slice edge leaves its partial sums in a carry scratch,
+//     (num_slices, 2, W) floats and (num_slices, 2) segment ids. A second
+//     kernel adds each crossing run's partials in slice order in float64
+//     and stores the row. No float atomics: two launches on the same input
+//     give bit-equal output.
 //   - accumulate = 1 adds each run's sum into `out` in place; rows without
 //     entries are not touched. The word-sorted product over a table larger
 //     than L2 (segsum.py, segsum_gather_rows_tiled) runs the kernel once
@@ -813,6 +822,9 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
   __shared__ __align__(16) int s_seg[kRowsWarps][2][kStage];
   __shared__ __align__(16) int s_idx[kRowsWarps][2][kStage];
   __shared__ __align__(16) float s_val[kRowsWarps][2][kStage];
+  // each thread's sum of the run in hand over the batches before this
+  // one, at its threadIdx.x (an address that needs no register kept)
+  __shared__ __align__(16) typename Vec<VEC>::T s_part[kRowsThreads];
 
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -836,6 +848,7 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
   bool have = false, first = true;
   V acc;
   vzero(acc);
+  vzero(s_part[threadIdx.x]);
 
   auto open_unit = [&]() {
     slice = u / a.ntiles;
@@ -854,10 +867,14 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
       a.carry_seg[2 * slice + 1] = -1;
     }
   };
-  // Stores the sum of the run `cur`: into the carry slot 0 when the run
-  // began before this slice, slot 1 when it goes on after it, else into
-  // its output row, which no other unit writes.
+  // Stores the sum of the run `cur` (the batches before this one in the
+  // lane's shared slot, which it clears, plus acc): into the carry slot 0
+  // when the run began before this slice, slot 1 when it goes on after
+  // it, else into its output row, which no other unit writes.
   auto flush = [&](bool last) {
+    V sum = s_part[threadIdx.x];
+    vadd(sum, acc);
+    vzero(s_part[threadIdx.x]);
     const bool in_range = cur >= 0 && cur <= a.num_segments;
     int slot = -1;
     if (first && starts_before) {
@@ -870,15 +887,15 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
       if (seg_writer) {
         a.carry_seg[2 * slice + slot] = in_range ? cur : -1;
       }
-      if (in_range && active) carry[(2 * slice + slot) * WV + col] = acc;
+      if (in_range && active) carry[(2 * slice + slot) * WV + col] = sum;
     } else if (in_range && active) {
       V* p = out + static_cast<int64_t>(cur) * WV + col;
       if (a.accumulate) {
         V o = *p;
-        vadd(o, acc);
+        vadd(o, sum);
         *p = o;
       } else {
-        *p = acc;
+        *p = sum;
       }
     }
   };
@@ -943,7 +960,14 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
         }
       }
     }
-    if (st + kStage >= b1 && have) flush(true);
+    if (st + kStage >= b1 && have) {
+      flush(true);
+    } else if (have) {  // the run goes on: its batch joins the partial
+      V part = s_part[threadIdx.x];
+      vadd(part, acc);
+      s_part[threadIdx.x] = part;
+      vzero(acc);
+    }
     __syncwarp();
     if (nu >= units) break;
     if (nu != u) {
@@ -957,11 +981,12 @@ __global__ void __launch_bounds__(kRowsThreads, kRowsBlocksPerSM)
 
 // Adds every slice-crossing run: the run that slice `a` ends in (carry
 // slot 1), plus slot 0 of each following slice that the run reaches, in
-// slice order; then stores the row. One warp per (slice, column tile).
-template <int VEC>
+// slice order, in float64 (a frequent word's run crosses hundreds of
+// slices); then stores the row, rounded once. One warp per (slice, tile
+// of 32 columns), a lane a column (a.ntiles tiles of 32 floats, whatever
+// the vector width of the kernel that filled the slots).
 __global__ void __launch_bounds__(kRowsThreads)
     segsum_rows_carry_kernel(const RowsArgs a) {
-  using V = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int64_t u =
       static_cast<int64_t>(blockIdx.x) * kRowsWarps + (threadIdx.x >> 5);
@@ -970,13 +995,12 @@ __global__ void __launch_bounds__(kRowsThreads)
   const int tile = static_cast<int>(u - slice * a.ntiles);
   const int s = a.carry_seg[2 * slice + 1];
   if (s < 0) return;
-  const int WV = a.W / VEC;
+  const int W = a.W;
   const int col = tile * 32 + lane;
-  const bool active = col < WV;
-  const V* carry = reinterpret_cast<const V*>(a.carry);
-  V acc;
-  vzero(acc);
-  if (active) acc = carry[(2 * slice + 1) * WV + col];
+  const bool active = col < W;
+  const float* carry = a.carry;
+  double acc = 0.0;
+  if (active) acc += carry[(2 * slice + 1) * W + col];
   for (int64_t j = slice + 1;; j += 32) {
     // lane q looks at slice j + q; the run reaches the leading ones
     const int64_t jq = j + lane;
@@ -984,18 +1008,16 @@ __global__ void __launch_bounds__(kRowsThreads)
     const unsigned ball = __ballot_sync(kFull, same);
     const int m = ball == kFull ? 32 : __ffs(~ball) - 1;
     if (active) {
-      for (int q = 0; q < m; ++q) vadd(acc, carry[2 * (j + q) * WV + col]);
+      for (int q = 0; q < m; ++q) acc += carry[2 * (j + q) * W + col];
     }
     if (m < 32) break;
   }
   if (active) {
-    V* p = reinterpret_cast<V*>(a.out) + static_cast<int64_t>(s) * WV + col;
+    float* p = a.out + static_cast<int64_t>(s) * W + col;
     if (a.accumulate) {
-      V o = *p;
-      vadd(o, acc);
-      *p = o;
+      *p += static_cast<float>(acc);
     } else {
-      *p = acc;
+      *p = static_cast<float>(acc);
     }
   }
 }
@@ -1308,7 +1330,7 @@ __global__ void __launch_bounds__(kNarrowThreads, kNarrowMinBlocks<WC>)
 template <int WC>
 cudaError_t launch_gather_rows_narrow(RowsArgs a, int device,
                                       cudaStream_t stream) {
-  a.ntiles = 1;  // segsum_rows_carry_kernel<1>: lanes across the W columns
+  a.ntiles = 1;  // segsum_rows_carry_kernel: one tile of 32 lanes, W <= 16
   int grid = 0;
   cudaError_t err = blocks_on_card(
       reinterpret_cast<const void*>(segsum_gather_rows_narrow_kernel<WC>),
@@ -1319,9 +1341,9 @@ cudaError_t launch_gather_rows_narrow(RowsArgs a, int device,
       <<<grid, kNarrowThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segsum_rows_carry_kernel<1>
-      <<<static_cast<int>((a.num_slices + kRowsWarps - 1) / kRowsWarps),
-         kRowsThreads, 0, stream>>>(a);
+  segsum_rows_carry_kernel<<<
+      static_cast<int>((a.num_slices + kRowsWarps - 1) / kRowsWarps),
+      kRowsThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1338,8 +1360,13 @@ cudaError_t launch_gather_rows(RowsArgs a, int device, cudaStream_t stream) {
   segsum_gather_rows_kernel<VEC><<<grid, kRowsThreads, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segsum_rows_carry_kernel<VEC>
-      <<<static_cast<int>(unit_blocks), kRowsThreads, 0, stream>>>(a);
+  // the carry kernel takes the slots a float at a time
+  RowsArgs c = a;
+  c.ntiles = (a.W + 31) / 32;
+  segsum_rows_carry_kernel<<<
+      static_cast<int>((a.num_slices * c.ntiles + kRowsWarps - 1) /
+                       kRowsWarps),
+      kRowsThreads, 0, stream>>>(c);
   return cudaGetLastError();
 }
 

@@ -39,3 +39,24 @@ def synth_corpus(vocab: int, docs: int, nnz: int, seed: int = 0):
     w = (key % vocab).astype(np.int64)
     c = rng.integers(1, 8, len(key), dtype=np.int64)
     return d, w, c
+
+
+BITE_MAX_COUNT = 1000  # bite_counts' largest count
+
+
+def bite_counts(docs: np.ndarray, seed: int = 1) -> np.ndarray:
+    """New counts for synth_corpus's (doc, word) pairs (`docs`: their doc
+    ids, in (doc, word) order) on which the ζ thresholds bite: Zipf(2)
+    counts capped at BITE_MAX_COUNT, so a frequent word's largest rounded
+    frequencies stand apart and its ζ rises above 1; and in every doc d
+    with d % 100 == 7, every count 1 but the first entry's, which gets
+    BITE_MAX_COUNT, so the doc's other normalized values are small (below
+    0.5 where the doc holds many entries against avg_doc_sz, and then
+    under every ζ). Returns int64 counts."""
+    rng = np.random.default_rng(seed)
+    c = np.minimum(rng.zipf(2.0, len(docs)), BITE_MAX_COUNT)
+    flat = docs % 100 == 7
+    first = flat & np.concatenate([[True], docs[1:] != docs[:-1]])
+    c[flat] = 1
+    c[first] = BITE_MAX_COUNT
+    return c

@@ -70,11 +70,12 @@ def _onehot_stream(n, S, ncols, seed, with_val):
 
 
 @pytest.mark.parametrize("with_val", [False, True])
-@pytest.mark.parametrize("ncols", [1, 7, 100, 635, 3000])
+@pytest.mark.parametrize("ncols", [1, 7, 100, 635, 824, 3000])
 def test_segsum_onehot_every_path(dev, ncols, with_val):
     """Each window shape of the kernel's 1024-cell row window: many rows
-    (1, 7, 100 columns), one row (the ζ histogram's 635) and column tiles
-    (3000), against the plain version in float64."""
+    (1, 7, 100 columns), one row (the ζ histogram's 635, and 824 on the
+    bite corpus of synth.bite_counts) and column tiles (3000), against
+    the plain version in float64."""
     S = 4_000
     seg, col, val = _onehot_stream(60_000, S, ncols, ncols, with_val)
     s, c, v = _cuda(dev, seg, col, val)
@@ -242,6 +243,35 @@ def test_gather_rows_run_across_many_slices(dev):
     ref = segsum.segsum_gather_rows_plain(s, i, v.double(), tb.double(), S)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["wide", "tiled"])
+@pytest.mark.parametrize("chunk", [2048, 65536])
+def test_gather_rows_long_runs_of_equal_values(dev, kernel, chunk):
+    """The bite corpus's B onehot (synth.bite_counts): runs of up to 2,048
+    entries of one irrational value each (a word's sqrt(ζ)) against a 0/1
+    table, within 1e-5 |B| |X| of the float64 sum. Summed in one float32
+    chain a slice, such runs drift up to 2.7e-5; the kernel's chains are
+    at most a staged batch long (tests/test_torch_bite.py)."""
+    rng = np.random.default_rng(16)
+    zetas = np.array([2, 3, 5, 6, 7, 8, 10, 11, 12, 13, 708], np.float32)
+    lens = rng.integers(1_500, 2_049, len(zetas))
+    seg = np.repeat(np.arange(len(zetas)), lens).astype(np.int32)
+    val = np.repeat(np.sqrt(zetas), lens).astype(np.float32)
+    D, k = 30_000, 4
+    idx = np.concatenate([np.sort(rng.choice(D, n, replace=False))
+                          for n in lens]).astype(np.int32)
+    onehot = np.zeros((D, k), np.float32)
+    onehot[np.arange(D), (np.arange(D) * 7 // D) % k] = 1.0
+    s, i, v, tb = _cuda(dev, seg, idx, val, onehot)
+    S = len(zetas)
+    if kernel == "tiled":
+        got = segsum.segsum_gather_rows_tiled(s, i, v, tb, S,
+                                              [0, seg.size], chunk=chunk)
+    else:
+        got = segsum.segsum_gather_rows(s, i, v, tb, S, chunk=chunk,
+                                        kernel="wide")
+    _within_abs_bound(got, s, i, v, tb, S)
 
 
 @pytest.mark.parametrize("W", [7, 128])
