@@ -5,10 +5,11 @@ isle_tpu_torch.synth from a seed), holds each kernel against its plain
 PyTorch version on the main path's own streams, and infers the same
 documents with the trained model (MWU, ISLEInfer's path).
 
-    python3 chip_smoke.py [--docs N] [--seed S]
+    python3 chip_smoke.py [--docs N] [--seed S] [--pubmed-docs N]
 
 --docs cuts the number of documents (the nnz scales with it; vocab and k
-stay) and says so on its own line. Phases, in order:
+stay) and says so on its own line; --pubmed-docs does the same for phase
+P. Phases, in order:
 
   1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
   2. the kernel build, timed, with ptxas's registers and spills per
@@ -39,7 +40,8 @@ stay) and says so on its own line. Phases, in order:
      norms take no column array, and sparse.doc_l2sq is also timed whole
      beside the index_add_ it replaced), each with the row window of its
      kernel, counts exactly equal, sums within rtol 1e-5 of the plain
-     version in float64 (the kernel sums float32 in its own fixed order),
+     version in float64 (the kernel sums in float64 in its own fixed order
+     and rounds each cell once),
      and two launches bit-equal;
      segsum_gather_rows's model SpMM B W (width
      100), eigensolver B^T X and B Y (width 128) and Lloyd's B^T C and
@@ -331,11 +333,46 @@ After 8, with the NYTimes corpus freed:
      (index_add_, index_select) and its threads, shared memory,
      registers and blocks an SM (micro_kernels.kernel_info).
 
+Then, with everything of the NYTimes phases off the card:
+
+  P.  isle_tpu's PubMed scale test (benchmarks/pubmed_scale.py: vocab
+     141,043, 8.2M docs, an nnz target of 730M, k = 100, document
+     sampling at rate 0.1, edge topics at most 2000, chunks of 2^25
+     entries; --pubmed-docs N cuts the docs and the nnz target with them
+     and says so on a CUT line). P0 the corpus: synth.synth_corpus_hashed
+     on the card at a cut of the shape (PUBMED_PIN_CUT) and at the last
+     draws of the full shape, REQUIRED to give the CPU's sha256 pins
+     (PUBMED_PINS, made again by tests/test_torch_pubmed.py); then the
+     corpus at the run's shape made on the card and built on the host
+     (synth.corpus_from_csc): walls, nnz against the reference's ~787M,
+     the largest doc, the chunks, host memory. P1 StreamedTrainer on
+     GpuConfig's defaults (the resident loader, the memory plan, the
+     hybrid middle, block_ks_device), every launch count set to 0 just
+     before and read just after: one launch a chunk in every streamed
+     pass, the resident loader with uint8 counts, the plan's decision
+     (held slabs, the head budget, its rows) as planned_middle took it,
+     the middle's peak in bytes a nonzero of B beside the plan's 96 and
+     30, counts_dtype's seconds, the result checks of phase 6. P2 the
+     same on the wire loader: the sampling mask, ζ, original_cols, B,
+     clusters, catchwords, top-two topics, model and edge model equal
+     P1's bit for bit. P3 Trainer in core on the same corpus: ζ,
+     original_cols, B, the doc-topic mass (in core on A against the
+     streamed pass), the top-two topics and the edge pairs equal P1's,
+     eigenvalues within rtol 1e-4, model and edge model within 1e-6.
+     P4 both kernels at these shapes, as phase 5 holds them: on P1's
+     middle chunk the streamed ζ histogram and model accumulation (with
+     `init`), the doc-topic mass and the sampling weights; the r-th
+     group counts on the clustered docs' entries; on P1's hybrid tail the
+     doc norms, Bᵀ·X and tiled B·Y at width 128, Bᵀ·C and tiled B·onehot
+     at 100; and the head product beside them (cuBLAS, not a ported
+     kernel). Each part's seconds are printed;
+
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
 "launches_by_path", the sharded, the sharded streamed, the traced, the
 three hybrid runs, phase HC's two runs, phase R's seven runs, phase Z's
-runs, the train step's, graft_entry's and phase M's among them), max
+runs, the train step's, graft_entry's, phase M's and phase P's among
+them), max
 error, and the sums of ms,
 plain_ms, bound_ms and library_ms over the uses that a driven path
 launched, every use
@@ -355,6 +392,7 @@ import bisect
 import collections
 import contextlib
 import datetime
+import gc
 import json
 import os
 import shutil
@@ -372,10 +410,10 @@ TINY = dict(vocab=2_000, docs=3_000, nnz=120_000, k=10, edges=20)
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-# kCells of csrc/segsum.cu: the cells of a warp's window of output rows in
-# segsum_onehot (one row of the ζ histogram's 635 columns, or of the bite
-# corpus's 824; 10 rows of 100)
-ONEHOT_WINDOW_CELLS = 1024
+# kOhCells of csrc/segsum.cu: the cells of a warp's window of output rows
+# in segsum_onehot, for counts (one row of the ζ histogram's 635 columns,
+# or of the bite corpus's 824) and for float sums (5 rows of 100)
+ONEHOT_WINDOW_CELLS = {"counts": 1024, "sums": 512}
 
 
 def card_line() -> str:
@@ -677,12 +715,13 @@ def bound(nbytes: int, ops: int, rate: float = FP32_FLOPS) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def onehot_window(nc: int) -> dict:
-    """The row window segsum_onehot's kernel reduces `nc` columns in:
-    rows of ONEHOT_WINDOW_CELLS cells, column tiles per row."""
-    ct = min(nc, ONEHOT_WINDOW_CELLS)
-    return {"window_rows": ONEHOT_WINDOW_CELLS // ct,
-            "column_tiles": -(-nc // ct)}
+def onehot_window(nc: int, sums: bool = False) -> dict:
+    """The row window segsum_onehot's kernel reduces `nc` columns in (of
+    counts, or with `sums` of float values): rows of ONEHOT_WINDOW_CELLS
+    cells, column tiles per row."""
+    cells = ONEHOT_WINDOW_CELLS["sums" if sums else "counts"]
+    ct = min(nc, cells)
+    return {"window_rows": cells // ct, "column_tiles": -(-nc // ct)}
 
 
 def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
@@ -738,7 +777,7 @@ def onehot_use(use, seg, col, val, S, nc, launches, whole=None,
     bound_ms, bound_by = bound(nbytes, n)
     return dict(
         use=use, n=n, shape=[S + 1, nc], launches=launches, max_abs_err=err,
-        bit_equal=bit_equal, window=onehot_window(nc),
+        bit_equal=bit_equal, window=onehot_window(nc, val is not None),
         with_init=init is not None, slice_len=chunk,
         whole_ms={label: time_ms(fn) for label, fn in (whole or {}).items()},
         ms=time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc,
@@ -1058,11 +1097,12 @@ def run_dir_arrays(tr, stage: str) -> dict:
 
 
 def streamed_trainer(corpus, shape, seed, out, mesh=None, head_bytes=0,
-                     resident_bytes=0, hbm_bytes=0, **cfg_kw):
-    """A StreamedTrainer at chunk_entries STREAM_CHUNK_ENTRIES.
-    `resident_bytes` is GpuConfig.resident_corpus_bytes: 0, the wire
-    loader, for S1-S5 and H3, None for GpuConfig's default (phase R);
-    `hbm_bytes` is GpuConfig.hbm_bytes."""
+                     resident_bytes=0, hbm_bytes=0,
+                     chunk_entries=STREAM_CHUNK_ENTRIES, **cfg_kw):
+    """A StreamedTrainer at `chunk_entries`. `resident_bytes` is
+    GpuConfig.resident_corpus_bytes: 0, the wire loader, for S1-S5 and
+    H3, None for GpuConfig's default (phases R and P); `hbm_bytes` is
+    GpuConfig.hbm_bytes."""
     from isle_tpu_torch import TrainConfig
     from isle_tpu_torch.streaming import StreamedTrainer
 
@@ -1073,7 +1113,7 @@ def streamed_trainer(corpus, shape, seed, out, mesh=None, head_bytes=0,
     if resident_bytes is not None:
         gpu_kw["resident_corpus_bytes"] = resident_bytes
     st = StreamedTrainer(cfg, output_dir=out, quiet=True,
-                         chunk_entries=STREAM_CHUNK_ENTRIES,
+                         chunk_entries=chunk_entries,
                          gpu=gpu_config("cuda", head_bytes, **gpu_kw),
                          mesh=mesh)
     st.load_corpus(corpus)
@@ -1140,7 +1180,7 @@ def print_streamed_run(label, st, wall, peak, launches) -> None:
     copied = loader.bytes_copied
     st.run_bytes_copied = copied  # before any later pass over the loader
     print(f"{label}: train + edge topics {wall:.2f} s wall in "
-          f"{len(loader.ranges)} chunks of at most {STREAM_CHUNK_ENTRIES} "
+          f"{len(loader.ranges)} chunks of at most {loader.chunk_entries} "
           f"entries, peak device memory {peak[0]:.2f} GiB ({peak[1]:.2f} "
           f"GiB of it held before the run), kernel launches "
           f"{launches}; {copied} bytes copied to the card "
@@ -1465,9 +1505,10 @@ def middle_chunk(tr, corpus, loader) -> SimpleNamespace:
         word_slice=streaming.word_slice_len(w.numel(), V, tr.gpu.seg_chunk))
 
 
-def streamed_uses(st, corpus, launched: dict) -> dict:
-    """Phase S2: both kernels' streamed uses on a middle chunk. `launched`:
-    the launches of each use as read from S1's runs."""
+def streamed_uses(st, corpus, launched: dict, label: str = "") -> dict:
+    """Phase S2 (and P4): both kernels' streamed uses on a middle chunk.
+    `launched`: the launches of each use as read from the streamed runs
+    (S1's); `label` goes before each use's name."""
     from isle_tpu_torch import streaming, thresholds
 
     loader = st.loader
@@ -1503,11 +1544,13 @@ def streamed_uses(st, corpus, launched: dict) -> dict:
                        init=c.model, chunk=c.word_slice),
         ],
     }
-    print(f"streamed uses on chunk {c.index} of {len(loader.ranges)} (docs "
-          f"[{c.lo}, {c.hi}), {n} entries; the word-keyed sums in slices of "
-          f"{c.word_slice} entries, streaming.word_slice_len): "
-          + "; ".join(f"{label} {ms_:.3f} ms"
-                      for label, ms_ in sort_ms.items()))
+    for rows_ in uses.values():
+        for u in rows_:
+            u["use"] = label + u["use"]
+    print(f"{label}streamed uses on chunk {c.index} of {len(loader.ranges)} "
+          f"(docs [{c.lo}, {c.hi}), {n} entries; the word-keyed sums in "
+          f"slices of {c.word_slice} entries, streaming.word_slice_len): "
+          + "; ".join(f"{what} {ms_:.3f} ms" for what, ms_ in sort_ms.items()))
     print_uses(uses, "streamed paths")
     return uses
 
@@ -4064,10 +4107,453 @@ def micro_phase(seed: int) -> tuple:
     return uses, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase P: isle_tpu's PubMed scale test, out of core and in core
+# ---------------------------------------------------------------------------
+
+# isle_tpu's scale test (benchmarks/pubmed_scale.py:26, :111-119;
+# BASELINE.md's PubMed row): vocab 141,043, 8.2M docs, an nnz target of
+# 730M (UCI PubMed's token count, which the reference takes as its nnz
+# target), k = 100, document sampling at rate 0.1, edge topics (at most
+# 2000), seed 0, chunks of 2^25 entries
+PUBMED = dict(vocab=141_043, docs=8_200_000, nnz=730_000_000, k=100,
+              edges=2000)
+PUBMED_CHUNK_ENTRIES = 1 << 25
+PUBMED_SAMPLE_RATE = 0.1
+# the scale test's config beyond this script's trainers' (edge topics at
+# most PUBMED["edges"]): document sampling, GpuConfig's head budget
+PUBMED_CONFIG = dict(sample_docs=True, sample_rate=PUBMED_SAMPLE_RATE,
+                     head_bytes=None)
+# the unique pairs of bench.synth_corpus at that shape (BENCH_NOTES.md,
+# isle_tpu's PubMed runs)
+PUBMED_REFERENCE_NNZ = 787_000_000
+# synth.synth_corpus_hashed at a cut of the shape, seed 0: the sha256 of
+# its offsets, rows and counts; and of the last PUBMED_TAIL_DRAWS raw keys
+# (synth.synth_keys_hashed) at the full shape. Made on the CPU;
+# tests/test_torch_pubmed.py makes them again there.
+PUBMED_PIN_CUT = dict(vocab=141_043, docs=8_200, nnz=730_000)
+PUBMED_TAIL_DRAWS = 4096
+PUBMED_PINS = {
+    "offsets":
+        "af144c8bbe45f3f12c862aed62e9906d9fea74fd3fab0c9083cb852b5dda35b6",
+    "rows":
+        "5e73d2cc874ebe77afadef85fddad85645c6f36270f3c74638d24c05cc6f52a8",
+    "counts":
+        "fafa9176ab14875dc8a27c1ca1961dbdb907289e8f8c99c4862882771250fa8d",
+    "tail_keys":
+        "90b5a964f88a007d039a1673c19eadeb2659ef15417c3206c8d315dbedf67fa8",
+}
+
+
+def pubmed_pins(device) -> dict:
+    """synth_corpus_hashed's digests in PUBMED_PINS's terms, made on
+    `device`."""
+    from isle_tpu_torch import synth
+
+    c = PUBMED_PIN_CUT
+    arrays = synth.synth_corpus_hashed(c["vocab"], c["docs"], c["nnz"], 0,
+                                       device)
+    raw = synth.raw_draws(PUBMED["nnz"])
+    tail = synth.synth_keys_hashed(PUBMED["vocab"], PUBMED["docs"], 0,
+                                   raw - PUBMED_TAIL_DRAWS, raw, device)
+    return {**{name: sha256(a.cpu().numpy()) for name, a in
+               zip(("offsets", "rows", "counts"), arrays)},
+            "tail_keys": sha256(tail.cpu().numpy())}
+
+
+def host_memory() -> str:
+    """The host's available memory and this process's peak RSS."""
+    import resource
+
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return (f"host memory available {avail / 2**30:.1f} GiB, this "
+            f"process's peak RSS {rss / 2**30:.2f} GiB")
+
+
+def pubmed_corpus(shape: dict, seed: int):
+    """Phase P0: the pins on the card, then the corpus at `shape` made on
+    the card (synth.synth_corpus_hashed) and built on the host
+    (synth.corpus_from_csc). Returns the Corpus."""
+    from isle_tpu_torch import streaming, synth
+
+    t0 = time.perf_counter()
+    got = pubmed_pins("cuda")
+    bad = {k: (got[k], PUBMED_PINS[k]) for k in PUBMED_PINS
+           if got[k] != PUBMED_PINS[k]}
+    assert not bad, f"phase P0: the card's synth_corpus_hashed differs " \
+        f"from the CPU's pins in {bad}"
+    pins_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    arrays = synth.synth_corpus_hashed(shape["vocab"], shape["docs"],
+                                       shape["nnz"], seed, "cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated() - held
+    t0 = time.perf_counter()
+    offsets, rows, counts = (a.cpu().numpy() for a in arrays)
+    del arrays
+    torch.cuda.empty_cache()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = synth.corpus_from_csc(offsets, rows, counts, shape["vocab"])
+    del offsets, rows, counts
+    build_s = time.perf_counter() - t0
+    chunks = len(list(streaming.doc_chunks(corpus, PUBMED_CHUNK_ENTRIES)))
+    lengths = np.diff(corpus.offsets)
+    gap = corpus.nnz / PUBMED_REFERENCE_NNZ - 1
+    print(f"phase P0, the corpus: the card's synth_corpus_hashed equals "
+          f"the CPU's pins (cut {PUBMED_PIN_CUT}, and the last "
+          f"{PUBMED_TAIL_DRAWS} draws at the full shape; {pins_s:.2f} s); "
+          f"at {shape}: {synth.raw_draws(shape['nnz'])} draws made and "
+          f"deduplicated on the card in {gen_s:.2f} s (peak "
+          f"{gen_peak / 2**30:.2f} GiB), copied to the host in "
+          f"{copy_s:.2f} s, the Corpus built on the host in {build_s:.2f} s; "
+          f"nnz {corpus.nnz}"
+          + (f" ({gap:+.2%} against the reference's ~{PUBMED_REFERENCE_NNZ})"
+             if shape["docs"] == PUBMED["docs"] else "")
+          + f", {corpus.nz_docs} non-empty docs, the largest doc "
+          f"{int(lengths.max())} entries, avg_doc_sz {corpus.avg_doc_sz:g}, "
+          f"{chunks} chunks of at most {PUBMED_CHUNK_ENTRIES} entries; "
+          f"{host_memory()}")
+    return corpus
+
+
+@contextlib.contextmanager
+def streamed_spies():
+    """Spies on a streamed run inside the block: the seconds of
+    streaming.counts_dtype (the host check of the counts form), the bytes
+    B holds on the card when its build ends and its nnz, the sampling mask
+    (streaming.dice_select's, copied), and each attempt of the middle
+    (streaming.planned_middle's `run`): its head budget, the bytes held
+    at its start and its peak (the peak counters are reset at its start;
+    `peak_before` keeps the run's peak until then)."""
+    from isle_tpu_torch import streaming
+
+    spy = SimpleNamespace(check_s=0.0, b_bytes=0, nnz_b=0, select=None,
+                          middle=[], peak_before=0)
+    real = {name: getattr(streaming, name) for name in (
+        "counts_dtype", "streamed_build_b", "dice_select", "planned_middle")}
+
+    def counts_dtype(corpus):
+        t0 = time.perf_counter()
+        try:
+            return real["counts_dtype"](corpus)
+        finally:
+            spy.check_s += time.perf_counter() - t0
+
+    def streamed_build_b(*args, **kw):
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        out = real["streamed_build_b"](*args, **kw)
+        torch.cuda.synchronize()
+        spy.b_bytes = torch.cuda.memory_allocated() - a0
+        spy.nnz_b = out[0].nnz
+        return out
+
+    def dice_select(*args, **kw):
+        sel = real["dice_select"](*args, **kw)
+        spy.select = sel.clone()
+        return sel
+
+    def planned_middle(t, loader, nnz_b, run, agree=None):
+        def attempt(head, state):
+            torch.cuda.synchronize()
+            spy.peak_before = max(spy.peak_before,
+                                  torch.cuda.max_memory_allocated())
+            a0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                return run(head, state)
+            finally:
+                torch.cuda.synchronize()
+                spy.middle.append((head, a0,
+                                   torch.cuda.max_memory_allocated()))
+
+        return real["planned_middle"](t, loader, nnz_b, attempt, agree)
+
+    spies = dict(counts_dtype=counts_dtype, streamed_build_b=streamed_build_b,
+                 dice_select=dice_select, planned_middle=planned_middle)
+    for name, fn in spies.items():
+        setattr(streaming, name, fn)
+    try:
+        yield spy
+    finally:
+        for name, fn in real.items():
+            setattr(streaming, name, fn)
+
+
+def pubmed_streamed_run(corpus, shape, seed, out, label,
+                        resident_bytes=None) -> tuple:
+    """A streamed run of phase P (run_streamed) inside streamed_spies and
+    head_rows_built, printed by print_streamed_run. Returns (the trainer,
+    its launch counts, its launches by stage, the spy, the head rows)."""
+    st = streamed_trainer(corpus, shape, seed, out,
+                          resident_bytes=resident_bytes,
+                          chunk_entries=PUBMED_CHUNK_ENTRIES,
+                          **PUBMED_CONFIG)
+    with streamed_spies() as spy, head_rows_built() as rows:
+        wall, (peak, held), launches, per = run_streamed(st)
+    # the middle reset the peak counters: the run's peak is the larger
+    peak = max(peak, spy.peak_before / 2**30)
+    print_streamed_run(label, st, wall, (peak, held), launches)
+    print(f"{label}: {host_memory()}")
+    check_streamed_launches(per, len(st.loader.ranges), label)
+    return st, launches, per, spy, rows
+
+
+def pubmed_streamed(corpus, shape, seed, out) -> tuple:
+    """Phase P1: StreamedTrainer on GpuConfig's defaults (the resident
+    loader, the memory plan, the hybrid middle, block_ks_device). Returns
+    (the trainer, its launch counts, its launches by stage, its spy, the
+    head rows it built)."""
+    from isle_tpu_torch import streaming
+
+    label = "phase P1, PubMed, streamed, resident (GpuConfig's defaults)"
+    st, launches, per, spy, rows = pubmed_streamed_run(
+        corpus, shape, seed, os.path.join(out, "pubmed_s"), label)
+    loader = st.loader
+    assert isinstance(loader, streaming.ResidentLoader), type(loader)
+    assert loader.count_dtype == np.uint8, loader.count_dtype
+    nnz_b, nb = spy.nnz_b, len(st.original_cols)
+    limit = st.gpu.hbm_limit()
+    cfg_head = st.gpu.dense_head_bytes
+    keep, head = streaming.plan_middle_budget(limit, loader.slab_bytes, nnz_b,
+                                              cfg_head)
+    assert len(spy.middle) == 1 and spy.middle[0][0] == head, spy.middle
+    assert loader.fill_count == (1 if keep else 2), loader.fill_count
+    assert len(rows) == 1, rows
+    R = rows[0]
+    _, a0, mid_peak = spy.middle[0]
+    head_real = 2 * R * nb
+    per_nnz = (mid_peak - (a0 - spy.b_bytes) - head_real) / nnz_b
+    print(f"{label}: counts_dtype's host check {spy.check_s:.2f} s; the "
+          f"memory plan (hbm {limit}, slabs {loader.slab_bytes} bytes, "
+          f"nnz(B) {nnz_b}, {nb} docs in B, configured head {cfg_head}): "
+          f"{plan_outcome(keep, head, cfg_head)}, head budget {head} bytes,"
+          f" {R} head rows ({head_real} bytes); B held {spy.b_bytes} bytes "
+          f"on the card ({spy.b_bytes / nnz_b:.1f} a nonzero); the middle's "
+          f"peak {(mid_peak - a0) / 2**30:.2f} GiB above its start, "
+          f"{per_nnz:.1f} bytes a nonzero of B with B and without the head "
+          f"(the plan assumes {streaming._MIDDLE_TEMP_B_PER_NNZ} beside a "
+          f"head, {streaming._MIDDLE_NOHEAD_B_PER_NNZ} without one)")
+    print(f"{label}: result: {check_result(st, shape, label)}; model nnz "
+          f"{int(np.count_nonzero(st.model))}; {nb} of {shape['docs']} docs "
+          f"sampled into B")
+    return st, launches, per, spy, R
+
+
+def pubmed_b(corpus, st, select, loader):
+    """B of a streamed run `st` (its ζ, its sampling mask `select`),
+    built again from `loader`."""
+    from isle_tpu_torch import streaming
+
+    z = torch.from_numpy(run_dir_arrays(st, "svd")["zetas"]).cuda()
+    return streaming.streamed_build_b(corpus, z, select, loader)
+
+
+def pubmed_wire(corpus, shape, seed, out, p1, spy1) -> tuple:
+    """Phase P2: the same run on the wire loader (resident_corpus_bytes
+    = 0): ζ, the sampling mask, original_cols and B equal P1's, and the
+    run ends where P1's ended, bit for bit. Returns its launch counts."""
+    from isle_tpu_torch import streaming
+
+    label = "phase P2, PubMed, streamed, wire"
+    st, launches, _, spy, _ = pubmed_streamed_run(
+        corpus, shape, seed, os.path.join(out, "pubmed_w"), label,
+        resident_bytes=0)
+    loader = st.loader
+    assert isinstance(loader, streaming.ChunkLoader), type(loader)
+    assert torch.equal(spy.select, spy1.select), f"{label}: sampling mask"
+    assert_same_run(st, p1, label)
+    B, cols = pubmed_b(corpus, st, spy.select, loader)
+    B1, cols1 = pubmed_b(corpus, p1, spy1.select, p1.loader)
+    assert np.array_equal(cols, cols1) and np.array_equal(cols, st.original_cols)
+    assert_same_b(B, B1)
+    print(f"{label}: ζ, the sampling mask ({int(spy.select.sum())} docs), "
+          f"original_cols, B ({B.nnz} nnz), clusters, catchwords, top-two "
+          f"topics, model and edge model equal P1's bit for bit; "
+          f"{st.run_bytes_copied} bytes copied against P1's "
+          f"{p1.run_bytes_copied} "
+          f"({st.run_bytes_copied / p1.run_bytes_copied:.1f} x)")
+    del B, st
+    return launches, B1, cols1
+
+
+def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> dict:
+    """Phase P3: Trainer (in core) on the same corpus and config: ζ,
+    original_cols, B, the doc-topic mass, the top-two topics and the edge
+    pairs equal P1's, eigenvalues within rtol 1e-4, the model and the
+    edge model within 1e-6. Returns its launch counts."""
+    from isle_tpu_torch import bmatrix
+    from isle_tpu_torch.rng import Draws
+
+    label = "phase P3, PubMed, in core"
+    tr, run = timed_train(corpus, shape, seed, os.path.join(out, "pubmed_i"),
+                          label, stages=True, **PUBMED_CONFIG)
+    print(f"{label}: {host_memory()}")
+    upload = dict((s, w) for s, w, _ in tr.timer.phases)["upload A to device"]
+    ours, ref = run_dir_arrays(tr, "svd"), run_dir_arrays(p1, "svd")
+    for key in ("zetas", "original_cols"):
+        assert np.array_equal(ours[key], ref[key]), f"{label}: {key}"
+    np.testing.assert_allclose(ours["evalues"], ref["evalues"], rtol=1e-4)
+    z = torch.from_numpy(ours["zetas"]).cuda()
+    u = Draws(seed).doc_sample_uniforms(shape["docs"])
+    IB, in_cols = bmatrix.threshold_and_copy(
+        tr.A, z, sample_rate=PUBMED_SAMPLE_RATE, uniforms=u)
+    assert np.array_equal(in_cols, cols1), f"{label}: B's docs"
+    assert_same_b(IB, B1)
+    del IB
+    cells, flips, mass_line = pubmed_mass_check(corpus, tr, p1)
+    tr.A = None
+    torch.cuda.empty_cache()
+    print(f"{label}: {mass_line}")
+    assert cells == 0 and flips == 0, f"{label}: the doc-topic mass"
+    for a, b in zip(tr.top_pairs, p1.top_pairs):
+        assert np.array_equal(a, b), f"{label}: top-two topics"
+    assert np.array_equal(tr.edge_pairs, p1.edge_pairs), label
+    np.testing.assert_allclose(tr.model, p1.model, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tr.edge_model, p1.edge_model, rtol=0,
+                               atol=1e-6)
+    same, relabeled = agreement(tr, p1)
+    print(f"{label}: upload of A {upload:.3f} s; ζ, original_cols, B, "
+          f"the doc-topic mass, the top-two topics and the edge topics "
+          f"equal P1's; eigenvalues max rel diff "
+          f"{np.abs(ours['evalues'] / ref['evalues'] - 1).max():.2e}; model "
+          f"max abs diff {np.abs(tr.model - p1.model).max():.3e} (bit-equal:"
+          f" {np.array_equal(tr.model, p1.model)}); clusters equal P1's on "
+          f"{same:.4%} of B's docs; result: {check_result(tr, shape, label)}"
+          f"; {card_line()}")
+    return run.launches
+
+
+def pubmed_mass_check(corpus, tr, p1) -> tuple:
+    """The doc-topic mass of the in-core run `tr` (on its A) against the
+    streamed pass's over P1's loader, from the same catchwords; the
+    model thresholds and contribution weights of both. Returns (the mass
+    cells that differ, the weights that differ, a line)."""
+    from isle_tpu_torch import streaming, topic_model
+
+    k, D = tr.config.num_topics, tr.corpus.num_docs
+    same_cw = all(np.array_equal(a, b)
+                  for a, b in zip(tr.catchwords, p1.catchwords))
+    cwt = catchword_topics(tr)
+    m_in = topic_model.doc_topic_mass(tr.A, cwt, k, tr.gpu.seg_chunk)
+    m_st = streaming.streamed_doc_topic_mass(corpus, cwt, k, p1.loader,
+                                             tr.gpu.seg_chunk)
+    diff = m_in != m_st
+    cells = int(diff.sum())
+    worst = float((m_in - m_st).abs().max())
+    has_cw = topic_model.has_catchwords(cwt, k)
+    rank = tr.config.hyper.model_rank_threshold(D, k)
+    t_in = topic_model.model_thresholds(m_in, has_cw, rank)
+    t_st = topic_model.model_thresholds(m_st, has_cw, rank)
+    flips = int(((m_in > t_in) != (m_st > t_st)).sum())
+    ties = int((m_in == t_in).sum())
+    del m_in, m_st, diff
+    return cells, flips, (
+        f"catchwords equal P1's: {same_cw}; doc-topic mass in core against "
+        f"the streamed pass: {cells} cells differ (max abs {worst:.3e}); "
+        f"thresholds equal: {bool(torch.equal(t_in, t_st))}; {ties} cells "
+        f"tie their topic's threshold in core; contribution weights (mass > "
+        f"threshold) differ in {flips} cells")
+
+
+def pubmed_uses(corpus, p1, per, B1, R: int, seed: int) -> dict:
+    """Phase P4: both kernels' uses at the PubMed shapes, each against its
+    plain version, the library call and its bound, two launches
+    bit-equal: the streamed uses on P1's middle chunk (streamed_uses),
+    the r-th group counts on the clustered docs' entries, and B's
+    products on P1's hybrid tail (hybrid_uses) beside the head product
+    (head_product_uses). Launches: P1's."""
+    from isle_tpu_torch import hybrid, streaming
+
+    uses = streamed_uses(p1, corpus, {
+        "histogram": per["streamed thresholds"][ONEHOT],
+        "mass": per["streamed topic model"][ONEHOT],
+        "model": per["streamed topic model"][GATHER],
+        "weights": per["streamed doc sampling"][ONEHOT],
+    }, "PubMed, ")
+    cluster = torch.from_numpy(p1.cluster_of_doc).cuda()
+    A_sub = streaming.streamed_filter_clustered(corpus, cluster, p1.loader)
+    more = {ONEHOT: [onehot_use(
+        "r-th group counts, the clustered docs' entries", A_sub.w_word,
+        cluster[A_sub.w_doc], None, corpus.vocab_size, p1.config.num_topics,
+        per["streamed catchwords"][ONEHOT])]}
+    del A_sub
+    z = torch.from_numpy(run_dir_arrays(p1, "svd")["zetas"]).cuda()
+    H = streaming.to_hybrid(B1, R, hybrid.row_scale_from_zetas(z))
+    assert H.num_head == R
+    for name, rows in hybrid_uses(p1, H, B1, seed).items():
+        more.setdefault(name, []).extend(rows)
+    heads = head_product_uses(H)
+    del H
+    for name, rows in more.items():
+        for u in rows:
+            u["use"] = "PubMed, " + u["use"]
+        uses.setdefault(name, []).extend(rows)
+    print_uses(more, "PubMed streamed path")
+    print(f"phase P4, the head product at {R} head rows x {B1.num_docs} "
+          "docs (cuBLAS bf16, three pieces; not a ported kernel): " + "; ".join(
+              f"{h['direction']} W {h['width']}: {h['ms']:.3f} ms, plain "
+              f"{h['plain_ms']:.3f}, bound {h['bound_ms']:.3f} "
+              f"({h['bound_by']})" for h in heads))
+    return uses
+
+
+def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
+    """Phase P: isle_tpu's PubMed scale test. Returns ({kernel: its uses
+    at the PubMed shapes}, {path: launch counts})."""
+    t_phase = time.perf_counter()
+    shape = dict(PUBMED)
+    if docs != PUBMED["docs"]:
+        shape.update(docs=docs, nnz=PUBMED["nnz"] * docs // PUBMED["docs"])
+        print(f"CUT: phase P docs {PUBMED['docs']} -> {docs}, nnz target "
+              f"{PUBMED['nnz']} -> {shape['nnz']} (vocab and k unchanged)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase P: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held "
+          f"on the card at its start; {card_line()}")
+    walls = {}
+    t0 = time.perf_counter()
+    corpus = pubmed_corpus(shape, seed)
+    walls["P0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p1, launches1, per1, spy1, R = pubmed_streamed(corpus, shape, seed, out)
+    walls["P1"] = time.perf_counter() - t0
+    launches = {"PubMed, streamed, resident": launches1}
+    t0 = time.perf_counter()
+    launches["PubMed, streamed, wire"], B1, cols1 = pubmed_wire(
+        corpus, shape, seed, out, p1, spy1)
+    walls["P2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["PubMed, in core"] = pubmed_in_core(corpus, shape, seed, out,
+                                                 p1, B1, cols1)
+    walls["P3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uses = pubmed_uses(corpus, p1, per1, B1, R, seed)
+    walls["P4"] = time.perf_counter() - t0
+    del p1, B1, spy1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase P: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {w:.1f} s" for k, w in walls.items())
+          + f"); {card_line()}")
+    return uses, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=NYT["docs"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pubmed-docs", type=int, default=PUBMED["docs"],
+                    help="phase P's docs (the nnz target scales with them)")
     args = ap.parse_args()
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4315,6 +4801,14 @@ def main() -> int:
     uses.update(m_uses)
     for name in uses:
         by_path.setdefault(name, {})["micro"] = micro_launches[name]
+    # P: isle_tpu's PubMed scale test, with the NYTimes corpus freed
+    del tr, tiny_tr, tiny_cpu, hy
+    p_uses, p_launches = pubmed_phase(args.seed, args.pubmed_docs, out)
+    for name, rows in p_uses.items():
+        uses[name] += rows
+    for name in uses:
+        by_path[name].update({path: n.get(name, 0)
+                              for path, n in p_launches.items()})
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "isle_tpu", "bench")]
     assert not bad, f"the port imported {bad}"

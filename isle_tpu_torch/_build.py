@@ -124,6 +124,24 @@ def _build() -> tuple:
     return path, seconds, log
 
 
+def build_alone(src: str, name: str, entries) -> ctypes.CDLL:
+    """One .cu source (an earlier version of a kernel, which a probe times
+    beside the current one) built alone with the port's flags into
+    build/<name>/lib<name>.so, its `entries` bound with their signatures."""
+    out_dir = os.path.join(os.path.dirname(BUILD_DIR), name)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"lib{name}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", path, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _raise_if_failed(cmd, proc.returncode, proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(path)
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = _SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def kernels() -> Kernels:
     """The built and bound kernel library (built once per process)."""

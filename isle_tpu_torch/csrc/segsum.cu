@@ -43,28 +43,40 @@
 //     cell is written once, so the wrapper allocates the output without a
 //     zero-fill.
 //   - A warp reduces its slice in a window of consecutive rows held dense
-//     in shared memory (kCells cells: 1 row of the ζ histogram's 635
-//     columns, 10 rows of 100). When an entry's row lies past the window,
-//     the window's rows are stored (coalesced, whole rows) and it moves
-//     on. A row wider than the window takes column tiles, each a pass over
-//     the slice. Since every owned row is stored whole anyway, a dense
+//     in shared memory (kOhCells cells: counts 1,024, one row of the ζ
+//     histogram's 635 columns; float sums 512, 5 rows of 100). When an
+//     entry's row lies past the window, the window's rows are stored
+//     (coalesced, whole rows) and it moves on. A row wider than the window
+//     takes column tiles, each a pass over the slice. Since every owned row is stored whole anyway, a dense
 //     window never moves more global bytes than a sort of the slice's keys
 //     would, so there is no sorted-keys path.
 //   - Counts: each entry adds 1 to its cell with a shared atomicAdd (exact
 //     and order-free; cheaper than grouping lanes with __match_any_sync).
-//   - Float sums, in an order fixed by the input alone: each lane first
-//     merges its 4 consecutive entries left to right and the warp packs
-//     the ones that add something to the front of the batch (pack_batch);
-//     then, per 32 packed entries, one cell for all lanes takes a
-//     butterfly sum, distinct cells (a tag per cell tells) add directly,
-//     and otherwise the lanes of each cell (__match_any_sync) are gathered
-//     in lane order and summed by a segmented scan.
+//   - Float sums, in float64, in an order fixed by the input alone: each
+//     lane first merges its 4 consecutive entries left to right and the
+//     warp packs the ones that add something to the front of the batch
+//     (pack_batch); then, per 32 packed entries, one cell for all lanes
+//     takes a butterfly sum, distinct cells (a tag per cell tells) add
+//     directly, and otherwise the lanes of each cell (__match_any_sync)
+//     are gathered in lane order and summed by a segmented scan. A cell is
+//     rounded to float32 once, when it is stored. A cell's n float32
+//     terms sum exactly in float64 while they lie within a factor 2^29 / n
+//     of each other, and then the cell is the exact sum rounded once,
+//     whatever the slice length or where the stream starts. A doc's
+//     normalized values at counts of small range (1-7 in the UCI-shaped
+//     corpora) keep that; squares of counts of wide range need not (1 and
+//     1000 over 822 entries: a factor 10^6 against 2^29 / 822), and there
+//     the sum is only as close as float64's rounding. That is what makes a
+//     doc's catchword mass the same in core and in a streamed chunk: at UCI
+//     PubMed's shape many docs' masses tie a topic's rank threshold, and
+//     a last-bit difference moves a doc across it (float32 sums moved the
+//     two trainers' models apart by more than 1e-6).
 //   - The two slot runs: counts add their nonzero cells with atomicAdd
 //     into a row that segsum_onehot_edges_kernel has set to init before
-//     (exact and order-free); float sums store them into a carry scratch,
-//     (num_slices, 2, ncols), and segsum_onehot_edges_kernel adds each
-//     crossing run's parts in slice order after. No float atomics: two
-//     launches on the same input give bit-equal sums.
+//     (exact and order-free); float sums store them into a float64 carry
+//     scratch, (num_slices, 2, ncols), and segsum_onehot_edges_kernel adds
+//     each crossing run's parts in slice order after. No float atomics:
+//     two launches on the same input give bit-equal sums.
 //
 // segsum_gather_rows: out[seg, :] += val * table[idx, :]. The one kernel of
 //   the port's SpMM: B^T X (doc-sorted stream), B Y (word-sorted stream)
@@ -213,16 +225,31 @@ cudaError_t blocks_on_card(const void* kernel, int threads, int device,
 constexpr int kOhWarps = 4;  // warps per block
 constexpr int kOhThreads = kOhWarps * 32;
 // Entries per staged batch of a warp, and the blocks an SM must hold
-// (counts: 5, at most 96 registers; float sums: 6, at most 80). Each warp
-// double-buffers its batches. Chosen on the H100 with CUDA events on
-// NYTimes-shaped streams: counts ran fastest with 256-entry batches,
+// (5, at most 96 registers: the float64 sums spill at 6 and 80). Each
+// warp double-buffers its batches. Chosen on the H100 with CUDA events
+// on NYTimes-shaped streams: counts ran fastest with 256-entry batches,
 // float sums with 128 (pack_batch's 4 entries a lane); more batches in
 // flight or more registers cost warps.
 template <bool kVal>
 constexpr int kOhStage = kVal ? 128 : 256;
+constexpr int kOhMinBlocks = 5;
+// Cells of one warp's row window: counts are int32, float sums float64
+// (half as many, in the same shared memory).
 template <bool kVal>
-constexpr int kOhMinBlocks = kVal ? 6 : 5;
-constexpr int kCells = 1024;  // cells of one warp's row window
+constexpr int kOhCells = kVal ? 512 : 1024;
+
+// The type a segment sum accumulates in: int32 counts in int32, float
+// values in float64 (see "Float sums" above).
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<float> {
+  using type = double;
+};
+template <typename T>
+using Acc = typename AccOf<T>::type;
 
 template <typename T>
 struct OnehotArgs {
@@ -231,7 +258,7 @@ struct OnehotArgs {
   const float* val;  // float sums: the values; null for counts
   const T* init;     // added to every cell; null for none
   T* out;            // (num_segments + 1, ncols)
-  T* carry;          // float sums: (num_slices, 2, ncols); null for counts
+  Acc<T>* carry;     // float sums: (num_slices, 2, ncols); null for counts
   int64_t n;
   int64_t chunk;  // entries per slice
   int64_t num_slices;
@@ -239,7 +266,7 @@ struct OnehotArgs {
   int ncols;
   int ct;      // columns of a column tile
   int ntiles;  // column tiles
-  int rows;    // rows of the window: kCells / ct
+  int rows;    // rows of the window: kOhCells / ct
 };
 
 // A slice's first and last segments and whether its runs cross its edges.
@@ -344,15 +371,15 @@ __device__ __forceinline__ bool walk_next(const OnehotArgs<T>& a,
 // the output, which segsum_onehot_edges_kernel has set to init.
 template <typename T, bool kVal>
 __device__ __forceinline__ void put_slot(const OnehotArgs<T>& a,
-                                         const OnehotUnit& t, T* buf,
+                                         const OnehotUnit& t, Acc<T>* buf,
                                          int lane, int k, int64_t r,
                                          bool from_buf) {
   for (int cc = lane; cc < t.cw; cc += 32) {
-    T x = T(0);
+    Acc<T> x = 0;
     if (from_buf) {
-      T* const p = buf + (r - t.w0) * t.cw + cc;
+      Acc<T>* const p = buf + (r - t.w0) * t.cw + cc;
       x = *p;
-      *p = T(0);
+      *p = 0;
     }
     if constexpr (kVal) {
       a.carry[(2 * t.slice + k) * a.ncols + t.c0 + cc] = x;
@@ -404,8 +431,9 @@ __device__ __forceinline__ void store_span_init(const T* init, T* out,
 // kInit: counts with a.init given, through store_span_init.
 template <typename T, bool kVal, bool kInit>
 __device__ __forceinline__ void emit(const OnehotArgs<T>& a,
-                                     const OnehotUnit& t, T* buf, int lane,
-                                     int64_t ra, int64_t rb, bool from_buf) {
+                                     const OnehotUnit& t, Acc<T>* buf,
+                                     int lane, int64_t ra, int64_t rb,
+                                     bool from_buf) {
   if (rb > t.R1 + 1) rb = t.R1 + 1;
   if (ra >= rb) return;
   if (ra == t.slot0) {
@@ -420,33 +448,33 @@ __device__ __forceinline__ void emit(const OnehotArgs<T>& a,
   if (a.ntiles == 1) {  // whole rows: one contiguous span of the output
     const int64_t o = ra * a.ncols;
     const int64_t cnt = (rb - ra) * a.ncols;
-    T* const src = buf + (from_buf ? (ra - t.w0) * t.cw : 0);
+    Acc<T>* const src = buf + (from_buf ? (ra - t.w0) * t.cw : 0);
     if constexpr (kInit) {
       store_span_init<T>(a.init + o, a.out + o, src, from_buf, cnt, lane);
     } else {
       for (int64_t i = lane; i < cnt; i += 32) {
-        T x = a.init ? a.init[o + i] : T(0);
+        Acc<T> x = a.init ? Acc<T>(a.init[o + i]) : Acc<T>(0);
         if (from_buf) {
           x += src[i];
-          src[i] = T(0);
+          src[i] = 0;
         }
-        a.out[o + i] = x;
+        a.out[o + i] = static_cast<T>(x);
       }
     }
   } else {
     for (int64_t r = ra; r < rb; ++r) {
       const int64_t o = r * a.ncols + t.c0;
-      T* const src = buf + (from_buf ? (r - t.w0) * t.cw : 0);
+      Acc<T>* const src = buf + (from_buf ? (r - t.w0) * t.cw : 0);
       if constexpr (kInit) {
         store_span_init<T>(a.init + o, a.out + o, src, from_buf, t.cw, lane);
       } else {
         for (int cc = lane; cc < t.cw; cc += 32) {
-          T x = a.init ? a.init[o + cc] : T(0);
+          Acc<T> x = a.init ? Acc<T>(a.init[o + cc]) : Acc<T>(0);
           if (from_buf) {
             x += src[cc];
-            src[cc] = T(0);
+            src[cc] = 0;
           }
-          a.out[o + cc] = x;
+          a.out[o + cc] = static_cast<T>(x);
         }
       }
     }
@@ -454,15 +482,17 @@ __device__ __forceinline__ void emit(const OnehotArgs<T>& a,
 }
 
 // The warp's shared memory: two staged batches, the row window, and
-// for float sums a tag per window cell and a 32-slot scratch.
+// for float sums the packed batch's values, a tag per window cell and a
+// 32-slot scratch, all float64 but the staged values.
 template <typename T, bool kVal>
 struct __align__(16) OnehotSmem {
   int seg[2][kOhStage<kVal>];
   int col[2][kOhStage<kVal>];
   float val[2][kVal ? kOhStage<kVal> : 4];
-  T buf[kCells];
-  unsigned char tag[kVal ? kCells : 4];
-  float part[32];
+  Acc<T> buf[kOhCells<kVal>];
+  Acc<T> packed[kVal ? kOhStage<kVal> : 2];
+  Acc<T> part[32];
+  unsigned char tag[kVal ? kOhCells<kVal> : 4];
   int start[32];
 };
 
@@ -474,7 +504,7 @@ struct __align__(16) OnehotSmem {
 // and summed by a segmented scan.
 template <typename T, bool kVal>
 __device__ __forceinline__ void accumulate(OnehotSmem<T, kVal>& m, int lane,
-                                           bool mine, int cell, float v) {
+                                           bool mine, int cell, Acc<T> v) {
   const unsigned live = __ballot_sync(kFull, mine);
   if (live == 0) return;
   if constexpr (!kVal) {
@@ -483,7 +513,7 @@ __device__ __forceinline__ void accumulate(OnehotSmem<T, kVal>& m, int lane,
     const int lead = __ffs(live) - 1;
     const int cell0 = __shfl_sync(kFull, cell, lead);
     if (__all_sync(kFull, !mine || cell == cell0)) {
-      float x = mine ? v : 0.0f;
+      Acc<T> x = mine ? v : 0.0;
       for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
       if (lane == lead) m.buf[cell] += x;
     } else {
@@ -505,13 +535,13 @@ __device__ __forceinline__ void accumulate(OnehotSmem<T, kVal>& m, int lane,
         }
         const int first = __shfl_sync(kFull, x, leader) - size;
         const int pos = first + rank;
-        m.part[pos] = mine ? v : 0.0f;
+        m.part[pos] = mine ? v : 0.0;
         m.start[pos] = first;
         __syncwarp();
-        float s = m.part[lane];
+        Acc<T> s = m.part[lane];
         const int begin = m.start[lane];
         for (int d = 1; d < 32; d <<= 1) {
-          const float y = __shfl_up_sync(kFull, s, d);
+          const Acc<T> y = __shfl_up_sync(kFull, s, d);
           if (lane - d >= begin) s += y;
         }
         s = __shfl_sync(kFull, s, pos);  // the group's sum up to this lane
@@ -523,9 +553,10 @@ __device__ __forceinline__ void accumulate(OnehotSmem<T, kVal>& m, int lane,
 }
 
 // Float sums: each lane merges its 4 consecutive entries of the batch in
-// slot k in order (neighbours on one cell add up, left to right) and
-// drops those that add nothing here; the warp packs what is left to the
-// front of the slot, in stream order. Returns the packed count. The
+// slot k in order (neighbours on one cell add up, left to right, in
+// float64) and drops those that add nothing here; the warp packs what is
+// left to the front of the slot (the sums to `packed`), in stream order.
+// Returns the packed count. The
 // mass's masked entries (most of its stream) and a doc's run of norms
 // then cost the accumulation nothing.
 template <typename T, bool kVal>
@@ -542,14 +573,14 @@ __device__ __forceinline__ int pack_batch(OnehotSmem<T, kVal>& m, int lane,
   const int ec[4] = {c4.x, c4.y, c4.z, c4.w};
   const float ev[4] = {v4.x, v4.y, v4.z, v4.w};
   bool ok[4];
-  float run[4];  // the sum of the run of equal cells ending at j
+  Acc<T> run[4];  // the sum of the run of equal cells ending at j
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     ok[j] = base + j < cnt && in_rows(es[j], num_segments) && ec[j] >= c0 &&
             ec[j] < c0 + cw;
     const bool joins = j > 0 && ok[j] && ok[j - 1] && es[j] == es[j - 1] &&
                        ec[j] == ec[j - 1];
-    run[j] = joins ? run[j - 1] + ev[j] : ev[j];
+    run[j] = joins ? run[j - 1] + ev[j] : Acc<T>(ev[j]);
   }
   bool keep[4];
   int kept = 0;
@@ -572,7 +603,7 @@ __device__ __forceinline__ int pack_batch(OnehotSmem<T, kVal>& m, int lane,
     if (keep[j]) {
       m.seg[k][pos] = es[j];
       m.col[k][pos] = ec[j];
-      m.val[k][pos] = run[j];
+      m.packed[pos] = run[j];
       ++pos;
     }
   }
@@ -601,13 +632,13 @@ __device__ __forceinline__ void stage_next(const OnehotArgs<T>& a,
 // One warp per (slice, column tile) unit, persistent over units. kInit:
 // counts with a.init given (see emit).
 template <typename T, bool kVal, bool kInit>
-__global__ void __launch_bounds__(kOhThreads, kOhMinBlocks<kVal>)
+__global__ void __launch_bounds__(kOhThreads, kOhMinBlocks)
     segsum_onehot_kernel(const OnehotArgs<T> a) {
   constexpr int kStg = kOhStage<kVal>;
   __shared__ __align__(16) OnehotSmem<T, kVal> smem[kOhWarps];
   const int lane = threadIdx.x & 31;
   OnehotSmem<T, kVal>& m = smem[threadIdx.x >> 5];
-  for (int i = lane; i < kCells; i += 32) m.buf[i] = T(0);
+  for (int i = lane; i < kOhCells<kVal>; i += 32) m.buf[i] = 0;
   __syncwarp();
   const int S = a.num_segments;
   const int nwarps = gridDim.x * kOhWarps;
@@ -636,11 +667,11 @@ __global__ void __launch_bounds__(kOhThreads, kOhMinBlocks<kVal>)
     for (int g = 0; g < cnt; g += 32) {
       const int i = g + lane;
       int s = -1, c = -1;
-      float v = 0.0f;
+      Acc<T> v = 0;
       if (i < cnt) {
         s = m.seg[k][i];
         c = a.col ? m.col[k][i] : 0;
-        if constexpr (kVal) v = m.val[k][i];
+        if constexpr (kVal) v = m.packed[i];
       }
       const bool ok =
           i < cnt && in_rows(s, S) && c >= t.c0 && c < t.c0 + t.cw;
@@ -702,15 +733,15 @@ __global__ void __launch_bounds__(kOhThreads)
   }
   const int64_t o = static_cast<int64_t>(s) * a.ncols;
   for (int c = lane; c < a.ncols; c += 32) {
-    T x = a.init ? a.init[o + c] : T(0);
+    Acc<T> x = a.init ? Acc<T>(a.init[o + c]) : Acc<T>(0);
     if (a.carry) {
-      T part = a.carry[(2 * slice + 1) * a.ncols + c];
+      Acc<T> part = a.carry[(2 * slice + 1) * a.ncols + c];
       for (int64_t j = slice + 1; j < end; ++j) {
         part += a.carry[2 * j * a.ncols + c];
       }
       x += part;
     }
-    a.out[o + c] = x;
+    a.out[o + c] = static_cast<T>(x);
   }
 }
 
@@ -729,9 +760,9 @@ cudaError_t launch_onehot_main(const OnehotArgs<T>& a, int device,
 
 template <typename T, bool kVal>
 cudaError_t launch_onehot(OnehotArgs<T> a, int device, cudaStream_t stream) {
-  a.ct = a.ncols < kCells ? a.ncols : kCells;
+  a.ct = a.ncols < kOhCells<kVal> ? a.ncols : kOhCells<kVal>;
   a.ntiles = (a.ncols + a.ct - 1) / a.ct;
-  a.rows = kCells / a.ct;
+  a.rows = kOhCells<kVal> / a.ct;
   const int edge_blocks =
       static_cast<int>((a.num_slices + kOhWarps - 1) / kOhWarps);
   cudaError_t err;
@@ -1409,11 +1440,11 @@ int isle_segsum_onehot_i32(const int* seg, const int* col, const int* init,
 }
 
 // As isle_segsum_onehot_i32, with float values; carry: (ceil(n / chunk),
-// 2, ncols) floats of scratch, uninitialised.
+// 2, ncols) doubles of scratch, uninitialised.
 int isle_segsum_onehot_f32(const int* seg, const int* col, const float* val,
                            const float* init, int64_t n, int num_segments,
-                           int ncols, int64_t chunk, float* out, float* carry,
-                           int device, void* stream) {
+                           int ncols, int64_t chunk, float* out,
+                           double* carry, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (n <= 0 || ncols <= 0 || chunk <= 0) {

@@ -6,7 +6,10 @@ Two wrappers, each over one hand-written CUDA kernel (csrc/segsum.cu):
   segsum_onehot(seg, col, val, S, ncols)  out[s, c] += (val or 1) over
       entries with seg == s and col == c; col outside [0, ncols) adds
       nothing, col None puts every entry in column 0. Exact int32 counts
-      without `val`, float32 sums with it.
+      without `val`, float32 sums with it (on the card accumulated in
+      float64 and rounded once: the exact sum, whatever the slicing,
+      while a cell's n terms lie within a factor 2^29 / n of each
+      other).
   segsum_gather_rows(seg, idx, val, table, S)  out[s, :] += val *
       table[idx, :]; idx outside [0, len(table)) adds nothing. The port's
       SpMM (sparse.bt_x, sparse.b_y) runs on it. On the card a table of
@@ -153,7 +156,9 @@ def segsum_onehot(
     kernel then reads no column array). `seg` must be sorted (not checked
     here: the check costs a pass over the stream). int32 seg/col; float32
     val. On the card float sums are taken in a fixed order (no atomics):
-    equal inputs give bit-equal outputs."""
+    equal inputs give bit-equal outputs; they accumulate in float64, so a
+    cell whose terms sum exactly there (csrc/segsum.cu) is that sum
+    rounded once, whatever `chunk` and wherever the stream starts."""
     n, dev = seg.numel(), seg.device
     _check_1d("seg", seg, torch.int32, n, dev)
     if col is not None:
@@ -189,7 +194,7 @@ def segsum_onehot(
         )
     else:
         # the parts of the runs that cross a slice edge (csrc/segsum.cu)
-        carry = torch.empty((-(-n // chunk), 2, ncols), dtype=torch.float32,
+        carry = torch.empty((-(-n // chunk), 2, ncols), dtype=torch.float64,
                             device=dev)
         rc = lib.isle_segsum_onehot_f32(
             seg.data_ptr(), col_ptr, val.data_ptr(), init_ptr, n,

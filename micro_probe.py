@@ -28,10 +28,8 @@ exits with code 1 if a kernel differs, 2 without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -39,24 +37,6 @@ import torch
 import chip_smoke as cs
 
 ENTRIES = ("isle_chunk_onehot_partials_f32", "isle_row_gather_bulk_f32")
-
-
-def build_old(src: str) -> ctypes.CDLL:
-    """The --old source alone, built with the port's nvcc flags."""
-    from isle_tpu_torch import _build
-
-    out_dir = os.path.join(cs.ROOT, "build", "micro_probe")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "libmicro_old.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", path, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _build._raise_if_failed(cmd, proc.returncode, proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(path)
-    for name in ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def partials_with(lib, rank, g, chunk: int, rcap: int, mode: str):
@@ -191,9 +171,9 @@ def main() -> int:
     card = cs.card_line()
     print(card)
     sys.path.insert(0, cs.ROOT)
-    from isle_tpu_torch._build import kernels
+    from isle_tpu_torch import _build
 
-    log = kernels().ptxas_log
+    log = _build.kernels().ptxas_log
     in_micro = False
     for line in log.splitlines():
         if "Compiling entry" in line:
@@ -201,7 +181,8 @@ def main() -> int:
         if in_micro and any(w in line for w in ("Compiling entry", "registers",
                                                 "spill")):
             print(f"  ptxas: {line.strip()}")
-    old = build_old(os.path.abspath(args.old))
+    old = _build.build_alone(os.path.abspath(args.old), "micro_probe",
+                              ENTRIES)
     print(f"old: {args.old}")
     res = dict(card=card, old=args.old, partials=partials_uses(old, args.seed),
                gather=gather_uses(old, args.seed))

@@ -26,7 +26,15 @@ before it, through the ζ histogram with and without `init` and through
 segsum_gather_rows's model accumulation with `init`, at 128 to 4096
 entries a slice.
 
-    python3 onehot_probe.py [--docs N] [--seed S]
+With --old (an earlier csrc/segsum.cu, for example `git show
+<commit>:isle_tpu_torch/csrc/segsum.cu` saved under build/), that source
+is built alone with the port's nvcc flags into a second library, and
+each float use (the doc-topic mass, the doc norms of B) runs on both,
+timed in turns (old, new, new, old; each side's least), each held to the
+float64 sum: its largest error, and the share of cells equal to the
+float64 sum rounded once.
+
+    python3 onehot_probe.py [--docs N] [--seed S] [--old SEGSUM_CU]
 
 Prints the card's line, one line per use and a JSON line of the numbers;
 exits with code 2 without a CUDA device.
@@ -88,7 +96,8 @@ def probe_use(use, seg, col, val, S, nc) -> dict:
     nbytes = sum(a.numel() * 4 for a in arrays) + out.numel() * 4
     bound_ms, _ = cs.bound(nbytes, n)
     r = dict(
-        use=use, n=n, shape=[S + 1, nc], window=cs.onehot_window(nc),
+        use=use, n=n, shape=[S + 1, nc],
+        window=cs.onehot_window(nc, val is not None),
         bound_ms=bound_ms, bound_bytes=nbytes,
         ms=cs.time_ms(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
         masked_ms=cs.time_ms(
@@ -98,6 +107,47 @@ def probe_use(use, seg, col, val, S, nc) -> dict:
         trace=trace(lambda: segsum.segsum_onehot(seg, col, val, S, nc)),
     )
     r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    return r
+
+
+def old_against_new(old, use, seg, col, val, S, nc) -> dict:
+    """A float use on the --old library (float32 sums and carries) and on
+    the current one, timed in turns, each against the float64 sum."""
+    from isle_tpu_torch import segsum
+
+    n, chunk = seg.numel(), segsum.DEFAULT_CHUNK
+    out = torch.empty((S + 1, nc), dtype=torch.float32, device=seg.device)
+    carry = torch.empty((-(-n // chunk), 2, nc), dtype=torch.float32,
+                        device=seg.device)
+    device, stream = segsum._launch_args(seg)
+
+    def run_old():
+        rc = old.isle_segsum_onehot_f32(
+            seg.data_ptr(), None if col is None else col.data_ptr(),
+            val.data_ptr(), None, n, S, nc, chunk, out.data_ptr(),
+            carry.data_ptr(), device, stream)
+        assert rc == 0, rc
+        return out
+
+    def run_new():
+        return segsum.segsum_onehot(seg, col, val, S, nc)
+
+    ref = segsum.segsum_onehot_plain(seg, col, val.double(), S, nc)
+    err = {}
+    for side, fn in (("old", run_old), ("new", run_new)):
+        got = fn().double()
+        err[side] = (float((got - ref).abs().max()),
+                     float((got == ref.float().double()).double().mean()))
+    a1, b1, b2, a2 = (cs.time_ms(f) for f in (run_old, run_new, run_new,
+                                              run_old))
+    r = dict(use=use, old_ms=min(a1, a2), new_ms=min(b1, b2),
+             old_max_abs_err=err["old"][0], new_max_abs_err=err["new"][0],
+             old_exact_share=err["old"][1], new_exact_share=err["new"][1])
+    print(f"{use}, old against new: old {r['old_ms']:.4f} ms, new "
+          f"{r['new_ms']:.4f} ms; max abs err against the float64 sum old "
+          f"{r['old_max_abs_err']:.3e}, new {r['new_max_abs_err']:.3e}; "
+          f"cells equal to the float64 sum rounded once: old "
+          f"{r['old_exact_share']:.4%}, new {r['new_exact_share']:.4%}")
     return r
 
 
@@ -136,6 +186,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=cs.NYT["docs"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--old", default="",
+                    help="an earlier csrc/segsum.cu to time the float uses "
+                         "against")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("onehot_probe: no CUDA device", file=sys.stderr)
@@ -144,9 +197,12 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     sys.path.insert(0, cs.ROOT)
-    from isle_tpu_torch._build import kernels
+    from isle_tpu_torch import _build
 
-    kernels()
+    _build.kernels()
+    old = (_build.build_alone(os.path.abspath(args.old), "onehot_probe",
+                              ["isle_segsum_onehot_f32"])
+           if args.old else None)
     shape = dict(cs.NYT)
     if args.docs != cs.NYT["docs"]:
         shape.update(docs=args.docs,
@@ -174,8 +230,12 @@ def main() -> int:
               f"{r['read_ms']:.4f} ms + write {r['write_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms; trace per call: {kern}; device "
               f"busy share {busy}")
+    against = [old_against_new(old, use, seg, col, val, S, nc)
+               for use, seg, col, val, S, nc, _ in streams
+               if old is not None and val is not None]
     sweep = slice_sweep(tr, corpus)
-    print(json.dumps({"card": card, "uses": rows, "slice_sweep": sweep}))
+    print(json.dumps({"card": card, "uses": rows, "slice_sweep": sweep,
+                      "old_against_new": against}))
     return 0
 
 

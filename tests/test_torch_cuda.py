@@ -9,7 +9,9 @@ conftest:
 
 Counts must be exactly equal; float32 sums within rtol 1e-5, atol 1e-6:
 both kernels sum floats in a fixed order of their own (no float atomics,
-so two launches are bit-equal), other than the plain version's.
+so two launches are bit-equal), other than the plain version's;
+segsum_onehot accumulates them in float64, where a doc's catchword mass
+is exact.
 """
 
 import numpy as np
@@ -72,9 +74,10 @@ def _onehot_stream(n, S, ncols, seed, with_val):
 @pytest.mark.parametrize("with_val", [False, True])
 @pytest.mark.parametrize("ncols", [1, 7, 100, 635, 824, 3000])
 def test_segsum_onehot_every_path(dev, ncols, with_val):
-    """Each window shape of the kernel's 1024-cell row window: many rows
-    (1, 7, 100 columns), one row (the ζ histogram's 635, and 824 on the
-    bite corpus of synth.bite_counts) and column tiles (3000), against
+    """Each window shape of the kernel's row window (1,024 cells of counts,
+    512 of float sums): many rows (1, 7, 100 columns), one row (the ζ
+    histogram's 635, and 824 on the bite corpus of synth.bite_counts) and
+    column tiles (635, 824 and 3000 float sums; 3000 counts), against
     the plain version in float64."""
     S = 4_000
     seg, col, val = _onehot_stream(60_000, S, ncols, ncols, with_val)
@@ -134,6 +137,50 @@ def test_segsum_onehot_two_launches_bit_equal(dev, ncols):
     b = segsum.segsum_onehot(*args, 30_000, ncols)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _mass_stream(D, k, seed):
+    """A doc-sorted catchword-mass stream as the trainers give it: docs of
+    20-200 entries, values avg * (count / doc sum) with counts in [1, 7],
+    two thirds of the columns masked (-1)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(20, 200, D)
+    seg = np.repeat(np.arange(D, dtype=np.int32), lens)
+    counts = rng.integers(1, 8, len(seg)).astype(np.float32)
+    sums = np.add.reduceat(counts, np.concatenate([[0], np.cumsum(lens)[:-1]]))
+    val = (np.float32(384.0) * (counts / np.repeat(sums, lens))).astype(
+        np.float32)
+    col = rng.integers(0, 3 * k, len(seg)).astype(np.int32)
+    col[col >= k] = -1
+    return seg, col, val, np.concatenate([[0], np.cumsum(lens)])
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+def test_segsum_onehot_float_sums_are_the_exact_sum_rounded(dev, with_init):
+    """Float sums accumulate in float64 and round once: on a doc-topic
+    mass stream every cell equals the float64 sum rounded to float32, at
+    every slice length and over any cut of the stream at doc boundaries
+    (the streamed trainer's chunks, on local doc ids), so the in-core and
+    the streamed mass are bit-equal."""
+    D, k = 3_000, 100
+    seg, col, val, off = _mass_stream(D, k, 15)
+    s, c, v = _cuda(dev, seg, col, val)
+    init = (torch.rand((D + 1, k), device=dev) if with_init else None)
+    ref = segsum.segsum_onehot_plain(
+        s, c, v.double(), D, k,
+        init=None if init is None else init.double()).float()
+    for chunk in (1, 7, 128, 2048, 65536):
+        got = segsum.segsum_onehot(s, c, v, D, k, init=init, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), chunk
+    parts = []
+    for lo, hi in ((0, 777), (777, 1901), (1901, D)):
+        a, b = int(off[lo]), int(off[hi])
+        part_init = None if init is None else init[lo:hi + 1].contiguous()
+        parts.append(segsum.segsum_onehot(
+            s[a:b] - lo, c[a:b], v[a:b], hi - lo, k, init=part_init)[:hi - lo])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), ref[:D])
 
 
 def test_segsum_onehot_empty_and_init(dev):
