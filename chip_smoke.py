@@ -311,7 +311,39 @@ Between 7 and 8, with the in-core corpus off the card:
      1e-6. Z7 inference of the 300,000 docs with Z1's model as phase 8,
      the top-5 run's weights required equal to the full run's;
 
-After 8, with the NYTimes corpus freed:
+After 8:
+
+  C.  both CLIs as a user runs them, on phase 4's corpus. C0 the corpus
+     written as a 1-based TDF file by the port's native triple writer
+     and a vocab file of one line a word (sizes and seconds printed).
+     C1 `python -m isle_tpu_torch.cli.train <tdf> <vocab> <out> <vocab>
+     <docs> 0 <k> 0 0 0 1 <edges> --seed S` in a process of its own (the
+     card and GpuConfig's defaults): exit code 0, its start line naming
+     cuda and the native text I/O; Corpus.from_tdf_file of the file in
+     this process equal to phase 4's corpus (offsets, rows, counts,
+     vals, avg_doc_sz, nz_docs); the TrainConfig of the 12 arguments and
+     GpuConfig() equal phase H1's, and the CLI's ckpt_svd, ckpt_kmeans
+     and ckpt_model.npz equal H1's run bit for bit (so the CLI ran the
+     kernels H1's launch counts gate; the CLI logs no counts); every
+     result file of its run directory byte-equal to the port's writers
+     run in this process on H1's trainer into another directory, and the
+     cluster summary's messages equal, the logs (timings, paths) alone
+     left out; each file's bytes and lines, the CLI's stage split (its
+     Timer), its wall from launch to exit, peak RSS and peak device
+     memory printed. C2 `python -m isle_tpu_torch.cli.infer <run>/
+     M_hat_catch_sparse <tdf> <out2> <k> <vocab> 1 <docs+1> <nnz> 0 0 0`:
+     exit code 0, cuda and native; the report
+     top_topics_iters_15_Lf_10.000000_doc_1_to_<docs+1> byte-equal to one
+     written in this process (an Inferencer on the same model file,
+     infer_corpus(top_n=5), io_text.write_top_topics), or else the same
+     (doc, topic) lines but at ties within 1e-6 and the weights within
+     1e-4, how they differ printed; the converged count equal and the two
+     average LLHs within 1e-6 relative of the in-process ones; how far the
+     model read back from the text file is from C1's in memory (and the
+     entries under the writer's 1e-8 cut) printed, with the stage split,
+     wall and RSS. The files are removed at the end;
+
+With the NYTimes corpus freed:
 
   M. the micro-benchmarks' kernels (isle_tpu_torch/micro_kernels.py,
      csrc/micro.cu): both drivers' work (isle_tpu_torch/benchmarks/
@@ -365,7 +397,23 @@ Then, with everything of the NYTimes phases off the card:
      group counts on the clustered docs' entries; on P1's hybrid tail the
      doc norms, Bᵀ·X and tiled B·Y at width 128, Bᵀ·C and tiled B·onehot
      at 100; and the head product beside them (cuBLAS, not a ported
-     kernel). Each part's seconds are printed;
+     kernel). P5 ISLEInfer's path on all the docs with P3's model: the
+     corpus normalized to unit mass (Corpus.normalized_to_one, as
+     infer_file's reader normalizes), Inferencer.infer_corpus(top_n=5) on
+     the card, the report written in blocks of
+     inferencer.REPORT_BLOCK_DOCS docs by inferencer.write_report_blocks:
+     the blocks' names as ISLEInfer's and their concatenation byte-equal
+     to the report written as one file; at least 90% of docs converge,
+     the LLHs finite; a fixed sample of 2,048 docs against a float64 CPU
+     run of the plain MWU core (the kept top-5 weights within atol 1e-4,
+     the same flags, none left out above a kept one); the first block
+     inferred alone with every weight read back: the same flags, its
+     converged rows summing to 1 within 1e-2, its top-5 rows within 1e-6
+     of the whole run's (bit-equality printed). Before the run the
+     host's available memory beside the whole-corpus pack's reckoned
+     bytes (pack_bytes; the phase fails if it would not fit); printed the
+     walls, the MWU blocks, the peak RSS and device memory. Each part's
+     seconds are printed;
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
@@ -392,9 +440,12 @@ import bisect
 import collections
 import contextlib
 import datetime
+import filecmp
 import gc
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -610,24 +661,41 @@ def check_tiny_infer(tr, corpus, out: str) -> None:
           f"{np.abs(g.weights - c.weights).max():.3e})")
 
 
-def mwu_sample_check(entries, shape: dict, model: np.ndarray, weights,
-                     converged, seed: int) -> float:
-    """A fixed sample of docs through the plain MWU core in float64 on the
-    CPU, against the card's weights: within atol 1e-4, the same
-    convergence flags. Returns the max abs difference."""
+def doc_subset(corpus, docs: np.ndarray):
+    """The Corpus of `docs` (ascending ids of `corpus`), renumbered from
+    0, with their entries copied; avg_doc_sz stays the whole corpus's."""
+    from isle_tpu_torch import Corpus
+
+    lengths = np.diff(corpus.offsets)[docs]
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    idx = (np.repeat(corpus.offsets[docs] - offsets[:-1], lengths)
+           + np.arange(offsets[-1]))
+    return Corpus(vocab_size=corpus.vocab_size, num_docs=len(docs),
+                  offsets=offsets, rows=corpus.rows[idx],
+                  counts=corpus.counts[idx], vals=corpus.vals[idx],
+                  avg_doc_sz=corpus.avg_doc_sz,
+                  nz_docs=int((lengths > 0).sum()))
+
+
+def mwu_sample_check(corpus, model: np.ndarray, weights, converged,
+                     seed: int, top_n: int = 0) -> float:
+    """A fixed sample of the docs of `corpus` (normalized to unit mass)
+    through the plain MWU core in float64 on the CPU, against the card's
+    weights: within atol 1e-4, the same convergence flags. With `top_n`
+    the card's rows hold only their top_n weights (infer_corpus(top_n=...),
+    the rest 0.0): those entries are held to the float64 weights at the
+    same topics, and each must be among the float64 run's largest (no
+    weight left out above a kept one by more than 1e-4). Returns the max
+    abs difference."""
     from isle_tpu_torch import HyperParams
     from isle_tpu_torch.mwu import build_infer_batch, mwu_core
 
     hp = HyperParams()
-    d, w, c = entries
     V, k = model.shape
-    n = min(MWU_SAMPLE, shape["docs"])
+    n = min(MWU_SAMPLE, corpus.num_docs)
     sample = np.sort(np.random.default_rng(seed).choice(
-        shape["docs"], n, replace=False))
-    keep = np.isin(d, sample)
-    sub = make_corpus((np.searchsorted(sample, d[keep]), w[keep], c[keep]),
-                      dict(shape, docs=n), normalize_to_one=True)
-    batch = build_infer_batch(sub, model.sum(axis=1))
+        corpus.num_docs, n, replace=False))
+    batch = build_infer_batch(doc_subset(corpus, sample), model.sum(axis=1))
     Mw = torch.cat([torch.from_numpy(model).double(),
                     torch.zeros(1, k, dtype=torch.float64)])
     w64, c64 = [], []
@@ -644,7 +712,17 @@ def mwu_sample_check(entries, shape: dict, model: np.ndarray, weights,
     assert np.array_equal(c64, converged[sample]), \
         "inference: convergence flags differ from the float64 CPU run"
     w64 = np.where(c64[:, None], w64, 1.0 / k)
-    err = float(np.abs(weights[sample] - w64).max())
+    got = weights[sample]
+    if not top_n:
+        err = float(np.abs(got - w64).max())
+    else:
+        kept = (got > 0) & c64[:, None]
+        assert (kept.sum(axis=1) <= top_n).all()
+        err = float(np.abs(got - w64)[kept].max(initial=0.0))
+        low = np.where(kept, w64, np.inf).min(axis=1)
+        left = np.where(kept | ~c64[:, None], -np.inf, w64).max(axis=1)
+        assert (left <= low + 1e-4).all(), \
+            "inference: a kept top weight is not among the float64 largest"
     assert err <= 1e-4, f"inference: max abs err {err} against float64"
     return err
 
@@ -699,7 +777,7 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str,
     bit_equal = bool(np.array_equal(top.weights[kept], full.weights[kept]))
     assert bit_equal or not top_equal, \
         f"{label}: the top-5 run's weights differ from the full run's"
-    err = mwu_sample_check(entries, shape, tr.model, full.weights, conv, seed)
+    err = mwu_sample_check(corpus, tr.model, full.weights, conv, seed)
     print(f"{label} checks: rows sum to 1 within "
           f"{np.abs(sums - 1.0).max():.2e}; top-5 run bit-equal to the full "
           f"run: {bit_equal}; {min(MWU_SAMPLE, shape['docs'])}-doc sample "
@@ -4108,6 +4186,301 @@ def micro_phase(seed: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Phase C: the ISLETrain and ISLEInfer CLIs at the NYTimes shape
+# ---------------------------------------------------------------------------
+
+# the text files of an ISLETrain run directory that carry its results
+CLI_RESULT_FILES = ("M_hat_catch_sparse", "TopWordsPerTopic_catch.txt",
+                    "DocCatchword.tsv", "DocTopicCatchwordSums.tsv",
+                    "EdgeModel_sparse", "EdgeTopicComposition.txt",
+                    "TopTwoTopicsPerDoc.txt")
+# the run directory's logs: the timings, and the diagnostics (which name
+# the run's paths); neither is compared
+CLI_LOGS = ("timerLog.txt", "diagnosticLog.txt")
+CLI_LIMIT_S = 900  # a CLI process's time limit
+TIMER_LINE = re.compile(r"^Time for (.+): [0-9.]+s user, ([0-9.]+)s wall$",
+                        re.M)
+
+
+def run_cli(module: str, args: list, log_path: str) -> SimpleNamespace:
+    """`python -m module args` in a process of its own from the checkout's
+    root, its output (stdout and stderr) into log_path: its exit code,
+    the wall from launch to exit and its output. A process past
+    CLI_LIMIT_S is killed and fails the phase."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                            stdout=log, stderr=subprocess.STDOUT,
+                            timeout=CLI_LIMIT_S).returncode
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        return SimpleNamespace(rc=rc, wall=wall, log=f.read())
+
+
+def log_line(log: str, prefix: str) -> str:
+    """The first line of `log` that starts with `prefix`, the prefix cut
+    off."""
+    for line in log.splitlines():
+        if line.startswith(prefix):
+            return line[len(prefix):]
+    raise AssertionError(f"no line starting with {prefix!r} in the log")
+
+
+def check_cli_run(tool: str, run: SimpleNamespace) -> str:
+    """The gates every CLI run shares: exit code 0, and a start line that
+    names the card and the native text I/O. Returns the run's line of
+    wall, peak RSS and peak device memory (its last log line)."""
+    assert run.rc == 0, f"{tool} exited {run.rc}:\n{run.log[-6000:]}"
+    start = log_line(run.log, f"{tool} on ")
+    assert start.startswith("cuda") and start.endswith("text I/O native"), \
+        f"{tool} ran on {start!r}"
+    peaks = log_line(run.log, f"{tool} done, ")
+    return (f"{tool} on {start}: rc 0, {run.wall:.2f} s from launch to "
+            f"exit, its own {peaks}")
+
+
+def print_cli_stages(tool: str, log: str) -> None:
+    for stage, wall in TIMER_LINE.findall(log):
+        print(f"  {tool} stage {stage}: {float(wall):.3f} s")
+    print(f"  {tool} total: {log_line(log, f'Total time for {tool}: ')}")
+
+
+def file_lines(path: str) -> tuple:
+    """(bytes, lines) of a file."""
+    lines = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            lines += chunk.count(b"\n")
+    return os.path.getsize(path), lines
+
+
+def write_like_cli(tr, run_dir: str, vocab_words) -> SimpleNamespace:
+    """The writers cli/train.py calls after training, in its order, run on
+    the trainer `tr` into `run_dir` with `vocab_words`: returns the
+    cluster summary's info and diagnostic messages and the writers'
+    seconds."""
+    saved = tr.run_dir, tr.vocab_words
+    summary = SimpleNamespace(info=[], diag=[])
+    sinks = {"info": summary.info.append, "diagnostic": summary.diag.append}
+    tr.run_dir, tr.vocab_words = run_dir, vocab_words
+    os.makedirs(run_dir, exist_ok=True)
+    tr.timer.next("(before the writers)")
+    first = len(tr.timer.phases)
+    try:
+        for channel, fn in sinks.items():
+            tr.logger.add_sink(channel, fn)
+        try:
+            tr.output_cluster_summary()
+        finally:
+            for channel, fn in sinks.items():
+                tr.logger.sinks[channel].remove(fn)
+        tr.write_model_to_file()
+        tr.output_doc_topic()
+        tr.output_topic_diversity()
+        if tr.config.compute_edge_topics:
+            tr.write_edgemodel_to_file()
+            tr.print_top_two_topics()
+    finally:
+        tr.run_dir, tr.vocab_words = saved
+        tr.A = None
+        torch.cuda.empty_cache()
+    summary.seconds = tr.timer.phases[first:]
+    return summary
+
+
+def messages(msgs: list) -> str:
+    """Logger messages as the logger writes them, a newline after each."""
+    return "".join(m if m.endswith("\n") else m + "\n" for m in msgs)
+
+
+def read_report(path: str) -> np.ndarray:
+    """A top-topics report as (lines, 3) float64: doc, topic, weight."""
+    with open(path, "rb") as f:
+        return np.array(f.read().split(), dtype=np.float64).reshape(-1, 3)
+
+
+def compare_reports(got_path: str, ref_path: str, k: int) -> str:
+    """Two top-topics reports that are not byte-equal: the same (doc,
+    topic) lines but where a weight lies within 1e-6 of its doc's
+    smallest listed weight on the other side or of the 1/k cut (a tie
+    that decides the listing), and the common lines' weights within 1e-4.
+    Returns how they differ."""
+    got, ref = read_report(got_path), read_report(ref_path)
+
+    def keyed(r):
+        return r[:, 0].astype(np.int64) * (k + 1) + r[:, 1].astype(np.int64)
+
+    kg, kr = keyed(got), keyed(ref)
+    both, ig, ir = np.intersect1d(kg, kr, return_indices=True)
+    err = float(np.abs(got[ig, 2] - ref[ir, 2]).max(initial=0.0))
+    assert err <= 1e-4, f"report weights differ by {err}"
+    for one, other, name in ((got, ref, "the CLI's"), (ref, got, "ours")):
+        alone = ~np.isin(keyed(one), both)
+        if not alone.any():
+            continue
+        docs = one[alone, 0]
+        low = np.full(len(docs), np.inf)
+        ud, inv = np.unique(other[:, 0], return_inverse=True)
+        mins = np.full(len(ud), np.inf)
+        np.minimum.at(mins, inv, other[:, 2])
+        at = np.searchsorted(ud, docs)
+        has = (at < len(ud)) & (ud[np.minimum(at, len(ud) - 1)] == docs)
+        low[has] = mins[at[has]]
+        w = one[alone, 2]
+        tie = (np.abs(w - low) <= 1e-6) | (np.abs(w - 1.0 / k) <= 1e-6)
+        assert tie.all(), f"{name} report lists {int((~tie).sum())} " \
+            f"(doc, topic) pairs the other leaves out, not at a tie"
+    order = (len(kg) == len(kr)) and bool(np.array_equal(kg, kr))
+    return (f"{len(got)} lines against {len(ref)}, {len(both)} (doc, topic) "
+            f"pairs in both, the same order: {order}, weights max abs diff "
+            f"{err:.3e}")
+
+
+def cli_phase(tr, hy, shape: dict, seed: int, out: str) -> None:
+    """Phase C: ISLETrain and ISLEInfer as a user runs them, in processes
+    of their own, on phase 4's corpus written as a TDF file; every file
+    they write held against the port's writers run in this process."""
+    from isle_tpu_torch import Corpus, GpuConfig, InferConfig, Inferencer, \
+        io_text, native
+    from isle_tpu_torch.cli.train import train_config
+    from isle_tpu_torch.corpus import read_vocab_file
+    from isle_tpu_torch.inferencer import report_name
+
+    t_phase = time.perf_counter()
+    corpus = tr.corpus
+    V, D, nnz, k = corpus.vocab_size, corpus.num_docs, corpus.nnz, shape["k"]
+    base = os.path.join(out, "cli")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    assert native.backend() == "native", native.backend()
+
+    # C0: the input files
+    tdf, vocab = os.path.join(base, "corpus.tdf"), os.path.join(base, "vocab")
+    t0 = time.perf_counter()
+    native.write_int_triples(tdf, corpus.doc_ids(), corpus.rows,
+                             corpus.counts, 1, 1, 0)
+    tdf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(vocab, "w") as f:
+        f.write("".join(f"word{w + 1}\n" for w in range(V)))
+    vocab_s = time.perf_counter() - t0
+    print(f"phase C0: the TDF file {file_lines(tdf)} (bytes, lines) written "
+          f"by the port's native triple writer in {tdf_s:.2f} s, the vocab "
+          f"file {file_lines(vocab)} in {vocab_s:.2f} s")
+
+    # C1: ISLETrain
+    args = [tdf, vocab, os.path.join(base, "train"), str(V), str(D), "0",
+            str(k), "0", "0", "0", "1", str(shape["edges"]), "--seed",
+            str(seed)]
+    torch.cuda.empty_cache()
+    run = run_cli("isle_tpu_torch.cli.train", args,
+                  os.path.join(base, "train.log"))
+    print(f"phase C1: {check_cli_run('ISLETrain', run)}")
+    print_cli_stages("ISLETrain", run.log)
+    t0 = time.perf_counter()
+    parsed = Corpus.from_tdf_file(tdf, vocab_size=V, num_docs=D)
+    parse_s = time.perf_counter() - t0
+    for f in ("offsets", "rows", "counts", "vals"):
+        a, b = getattr(parsed, f), getattr(corpus, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), \
+            f"phase C1: the TDF file's {f} differ from phase 4's corpus"
+    for f in ("vocab_size", "num_docs", "avg_doc_sz", "nz_docs"):
+        assert getattr(parsed, f) == getattr(corpus, f), f
+    # the in-process run of the CLI's configuration: phase H1's
+    cfg, ref = train_config(args[3:12], seed), hy
+    assert cfg == ref.config and GpuConfig(device="cuda") == ref.gpu, \
+        (cfg, ref.config, ref.gpu)
+    run_dir = os.path.join(base, "train", cfg.log_dir_name())
+    for stage in ("svd", "kmeans", "model"):
+        name = f"ckpt_{stage}.npz"
+        with np.load(os.path.join(run_dir, name)) as a, \
+                np.load(os.path.join(ref.run_dir, name)) as b:
+            assert sorted(a.files) == sorted(b.files), (name, a.files)
+            for key in a.files:
+                assert np.array_equal(a[key], b[key]), \
+                    f"phase C1: {name}[{key}] differs from phase H1's run"
+            if stage == "model":
+                assert np.array_equal(a["model"], ref.model)
+    summary = write_like_cli(ref, os.path.join(base, "inprocess"),
+                             read_vocab_file(vocab, V))
+    written = sorted(n for n in os.listdir(run_dir)
+                     if not n.endswith(".npz") and n not in CLI_LOGS)
+    assert written == sorted(CLI_RESULT_FILES), written
+    for name in CLI_RESULT_FILES:
+        assert filecmp.cmp(os.path.join(run_dir, name),
+                           os.path.join(base, "inprocess", name),
+                           shallow=False), \
+            f"phase C1: {name} differs from the in-process writers'"
+    assert messages(summary.info) in run.log, "the cluster summary differs"
+    with open(os.path.join(run_dir, "diagnosticLog.txt")) as f:
+        assert messages(summary.diag) in f.read(), \
+            "the cluster summary's catchword lines differ"
+    print(f"phase C1: Corpus.from_tdf_file of the TDF file in this process "
+          f"({parse_s:.2f} s) equals phase 4's corpus (offsets, rows, counts, "
+          f"vals, avg_doc_sz, nz_docs); ckpt_svd, ckpt_kmeans and "
+          f"ckpt_model.npz equal phase H1's run of the same configuration bit "
+          f"for bit; the cluster summary "
+          f"({len(summary.info)} info and {len(summary.diag)} diagnostic "
+          f"messages) and every result file equal the in-process writers' "
+          f"byte for byte: " + "; ".join(
+              f"{n} {file_lines(os.path.join(run_dir, n))}"
+              for n in CLI_RESULT_FILES))
+    print("phase C1, the in-process writers: " + ", ".join(
+        f"{label} {w:.3f} s" for label, w, _ in summary.seconds))
+    print("phase C3: the CLI logs no kernel launch counts; its checkpoints "
+          "are bit-equal to the in-process run, whose launches phase H1 "
+          "gates")
+
+    # C2: ISLEInfer on the written model
+    model_file = os.path.join(run_dir, "M_hat_catch_sparse")
+    args = [model_file, tdf, os.path.join(base, "infer"), str(k), str(V),
+            "1", str(D + 1), str(nnz), "0", "0", "0"]
+    torch.cuda.empty_cache()
+    irun = run_cli("isle_tpu_torch.cli.infer", args,
+                   os.path.join(base, "infer.log"))
+    print(f"phase C2: {check_cli_run('ISLEInfer', irun)}")
+    print_cli_stages("ISLEInfer", irun.log)
+    icfg = InferConfig(num_topics=k, vocab_size=V)
+    name = report_name(icfg, 1, D + 1)
+    report = os.path.join(base, "infer", name)
+    assert os.path.exists(report), f"phase C2: no report {name}"
+    t0 = time.perf_counter()
+    inf = Inferencer(icfg, model_file=model_file,
+                     output_dir=os.path.join(base, "infer_ref"), quiet=True,
+                     gpu=GpuConfig(device="cuda"))
+    load_s = time.perf_counter() - t0
+    res = inf.infer_corpus(parsed.normalized_to_one(), top_n=5,
+                           max_entries=nnz)
+    ours = os.path.join(base, "infer_ref", name)
+    io_text.write_top_topics(ours, res.weights, res.converged, doc_begin=1)
+    conv = int(log_line(irun.log, "Number of docs for which inference "
+                        "converged: ").split()[0])
+    assert conv == res.num_converged, (conv, res.num_converged)
+    if filecmp.cmp(report, ours, shallow=False):
+        how = "byte-equal to"
+    else:
+        how = f"not byte-equal to ({compare_reports(report, ours, k)})"
+    for prefix, value in (
+            ("Avg LLH per document for converged docs: ",
+             res.avg_llh_per_converged_doc),
+            ("Avg LLH per word: ", res.avg_llh_per_word)):
+        got = float(log_line(irun.log, prefix))
+        assert abs(got - value) <= 1e-6 * abs(value), (prefix, got, value)
+    cut = int(((ref.model > 0) & (ref.model <= 1e-8)).sum())
+    print(f"phase C2: the report {name} {file_lines(report)} is {how} the "
+          f"in-process Inferencer's (the written model, infer_corpus(top_n="
+          f"5), io_text.write_top_topics); {conv} of {D} docs converged; the "
+          f"average LLHs equal the in-process aggregates within 1e-6; the "
+          f"model read back from the text file (np.loadtxt in this process "
+          f"{load_s:.2f} s) against C1's in memory: max abs diff "
+          f"{np.abs(inf.model - ref.model).max():.3e}, {cut} nonzero entries "
+          f"at or below the writer's 1e-8 cut")
+    del inf, res, parsed
+    shutil.rmtree(base)
+    print(f"phase C: {time.perf_counter() - t_phase:.1f} s; {card_line()}")
+
+
+# ---------------------------------------------------------------------------
 # Phase P: isle_tpu's PubMed scale test, out of core and in core
 # ---------------------------------------------------------------------------
 
@@ -4161,16 +4534,20 @@ def pubmed_pins(device) -> dict:
             "tail_keys": sha256(tail.cpu().numpy())}
 
 
+def mem_available() -> int:
+    """The host's MemAvailable in bytes."""
+    with open("/proc/meminfo") as f:
+        return next(int(line.split()[1]) * 1024 for line in f
+                    if line.startswith("MemAvailable:"))
+
+
 def host_memory() -> str:
     """The host's available memory and this process's peak RSS."""
     import resource
 
-    with open("/proc/meminfo") as f:
-        avail = next(int(line.split()[1]) * 1024 for line in f
-                     if line.startswith("MemAvailable:"))
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    return (f"host memory available {avail / 2**30:.1f} GiB, this "
-            f"process's peak RSS {rss / 2**30:.2f} GiB")
+    return (f"host memory available {mem_available() / 2**30:.1f} GiB, "
+            f"this process's peak RSS {rss / 2**30:.2f} GiB")
 
 
 def pubmed_corpus(shape: dict, seed: int):
@@ -4430,7 +4807,7 @@ def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> dict:
           f" {np.array_equal(tr.model, p1.model)}); clusters equal P1's on "
           f"{same:.4%} of B's docs; result: {check_result(tr, shape, label)}"
           f"; {card_line()}")
-    return run.launches
+    return run.launches, tr.model
 
 
 def pubmed_mass_check(corpus, tr, p1) -> tuple:
@@ -4507,6 +4884,133 @@ def pubmed_uses(corpus, p1, per, B1, R: int, seed: int) -> dict:
     return uses
 
 
+def pack_bytes(corpus) -> int:
+    """The host bytes mwu.build_infer_batch holds at its peak, reckoned
+    from its code: per entry the kept mask (1), the kept-prefix sum and
+    its extension (int64, 8 + 8), the doc ids (4), the position within
+    the doc (8), the kept docs and positions (4 + 8), the kept rows and
+    values (4 + 4); per doc the padded word ids and values (4 + 4 a
+    slot), at the widest doc's length (an upper bound of the kept one)."""
+    L = -(-int(np.diff(corpus.offsets).max()) // 8) * 8
+    return corpus.nnz * 49 + corpus.num_docs * L * 8
+
+
+@contextlib.contextmanager
+def mwu_blocks():
+    """Counts the MWU blocks infer_all runs inside the block."""
+    from isle_tpu_torch import mwu
+
+    real, spy = mwu.mwu_core, SimpleNamespace(blocks=0)
+
+    def counted(*args, **kw):
+        spy.blocks += 1
+        return real(*args, **kw)
+
+    mwu.mwu_core = counted
+    try:
+        yield spy
+    finally:
+        mwu.mwu_core = real
+
+
+def same_bytes(paths: list, whole: str) -> bool:
+    """Whether the files `paths`, concatenated, hold the bytes of `whole`."""
+    cat, one = hashlib.sha256(), hashlib.sha256()
+    for path, h in [(p, cat) for p in paths] + [(whole, one)]:
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+    return (cat.digest() == one.digest()
+            and sum(map(os.path.getsize, paths)) == os.path.getsize(whole))
+
+
+def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str) -> None:
+    """Phase P5: ISLEInfer's path on every doc of P0's corpus with P3's
+    model (infer_file's normalization, infer_corpus(top_n=5) on the card,
+    the report in blocks of inferencer.REPORT_BLOCK_DOCS docs), held
+    against the report written as one file, a float64 sample and the
+    first block inferred alone."""
+    from isle_tpu_torch import inferencer as reports, io_text, mwu
+
+    label = "phase P5, PubMed, ISLEInfer's report blocks"
+    D, k = corpus.num_docs, model.shape[1]
+    base = os.path.join(out, "pubmed_infer")
+    shutil.rmtree(base, ignore_errors=True)
+    need, avail = pack_bytes(corpus), mem_available()
+    print(f"{label}: before the run {host_memory()}; the whole-corpus pack "
+          f"reckoned at {need / 2**30:.1f} GiB")
+    assert need < avail, f"{label}: the host cannot hold the whole-corpus " \
+        f"pack ({need} bytes reckoned, {avail} available)"
+    t0 = time.perf_counter()
+    unit = corpus.normalized_to_one()
+    norm_s = time.perf_counter() - t0
+    inf = inferencer(model, "cuda", base)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with mwu_blocks() as spy:
+        res = inf.infer_corpus(unit, top_n=5)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    phases = dict((s, w) for s, w, _ in inf.timer.phases)
+    t0 = time.perf_counter()
+    paths = reports.write_report_blocks(base, inf.config, res, 1)
+    blocks_s = time.perf_counter() - t0
+    whole = os.path.join(base, "whole")
+    t0 = time.perf_counter()
+    io_text.write_top_topics(whole, res.weights, res.converged, doc_begin=1)
+    whole_s = time.perf_counter() - t0
+    B = reports.REPORT_BLOCK_DOCS
+    want = [reports.report_name(inf.config, 1 + lo, 1 + min(lo + B, D))
+            for lo in range(0, D, B)]
+    assert [os.path.basename(p) for p in paths] == want, paths
+    assert same_bytes(paths, whole), \
+        f"{label}: the blocks' concatenation differs from the whole report"
+    size, lines = file_lines(whole)
+    conv = res.converged
+    assert conv.mean() >= 0.9, f"{label}: only {conv.mean():.4f} converged"
+    assert np.isfinite(res.llh_per_doc).all() and \
+        np.isfinite(res.llh_weighted).all(), f"{label}: LLH not finite"
+    err = mwu_sample_check(unit, model, res.weights, conv, seed, top_n=5)
+
+    # the first block alone, with every weight read back
+    n1 = min(B, D)
+    t0 = time.perf_counter()
+    first = inf.infer_corpus(doc_subset(unit, np.arange(n1)))
+    first_s = time.perf_counter() - t0
+    assert np.array_equal(first.converged, conv[:n1]), \
+        f"{label}: the first block alone converges on other docs"
+    c1 = first.converged
+    sums = first.weights[c1].sum(axis=1, dtype=np.float64)
+    assert np.all(np.abs(sums - 1.0) <= 1e-2), f"{label}: rows off 1"
+    tv, ti = mwu.top_n_rows(torch.from_numpy(first.weights), 5)
+    top = np.zeros_like(first.weights)
+    np.put_along_axis(top, ti.numpy(), tv.numpy(), axis=1)
+    top = np.where(c1[:, None], top, np.float32(1.0 / k))
+    gap = float(np.abs(top - res.weights[:n1]).max())
+    same = bool(np.array_equal(top, res.weights[:n1]))
+    assert gap <= 1e-6, f"{label}: the first block alone differs by {gap}"
+    del unit, first, top, res
+    shutil.rmtree(base)
+    print(f"{label}: {D} docs normalized to unit mass in {norm_s:.2f} s "
+          f"(host); infer_corpus(top_n=5) {wall:.2f} s (build_infer_batch "
+          f"{phases['pack inference batch']:.2f} s host, MWU "
+          f"{phases['MWU inference']:.2f} s, {spy.blocks} MWU blocks), peak "
+          f"device memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held; {conv.sum()} of {D} docs converged ({conv.mean():.4%}); "
+          f"{len(paths)} report blocks in {blocks_s:.2f} s, the one-file "
+          f"report in {whole_s:.2f} s ({size} bytes, {lines} lines), the "
+          f"blocks' concatenation byte-equal to it; "
+          f"{min(MWU_SAMPLE, D)}-doc sample vs float64 CPU max abs err "
+          f"{err:.3e}; the first {n1} docs alone ({first_s:.2f} s, every "
+          f"weight read back): the same convergence, rows sum to 1 within "
+          f"{np.abs(sums - 1.0).max():.2e}, top-5 rows bit-equal to the "
+          f"whole run's: {same} (max abs diff {gap:.3e}); after the phase "
+          f"{host_memory()}; {card_line()}")
+
+
 def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
     """Phase P: isle_tpu's PubMed scale test. Returns ({kernel: its uses
     at the PubMed shapes}, {path: launch counts})."""
@@ -4533,8 +5037,8 @@ def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
         corpus, shape, seed, out, p1, spy1)
     walls["P2"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["PubMed, in core"] = pubmed_in_core(corpus, shape, seed, out,
-                                                 p1, B1, cols1)
+    launches["PubMed, in core"], model = pubmed_in_core(
+        corpus, shape, seed, out, p1, B1, cols1)
     walls["P3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     uses = pubmed_uses(corpus, p1, per1, B1, R, seed)
@@ -4542,6 +5046,9 @@ def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
     del p1, B1, spy1
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pubmed_infer(corpus, model, seed, out)
+    walls["P5"] = time.perf_counter() - t0
     print(f"phase P: {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{k} {w:.1f} s" for k, w in walls.items())
           + f"); {card_line()}")
@@ -4796,6 +5303,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     infer_full(tr, entries, shape, args.seed, out)
     del entries
+    # C: both CLIs as a user runs them, on phase 4's corpus
+    cli_phase(tr, hy, shape, args.seed, out)
     # M: the micro-benchmarks' kernels, with the NYTimes corpus freed
     m_uses, micro_launches = micro_phase(args.seed)
     uses.update(m_uses)

@@ -1,7 +1,7 @@
 """Build the C shim of the handle API, csrc/isle_capi_torch.cpp, into a
 shared library that a non-Python host can dlopen: g++ with the flags of
 `python3-config --includes` and `python3-config --ldflags --embed` (the
-recipe of native/Makefile), so the library links the interpreter it
+recipe of isle_tpu's Makefile), so the library links the interpreter it
 embeds.
 
     python -m isle_tpu_torch._build_capi [out_dir]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import sys
 
-from isle_tpu_torch.cli.train import _pop_flag
+from isle_tpu_torch.cli.train import _pop_flag, end_line, start_line
 
 USAGE = (
     "Usage: python -m isle_tpu_torch.cli.infer <sparse_model_file> "
@@ -66,6 +66,7 @@ def main(argv=None) -> int:
                     mesh_shape=None if mesh is None else (mesh.world,))
     inf = Inferencer(cfg, model_file=model_file, output_dir=output_dir,
                      gpu=gpu, mesh=mesh)
+    inf.logger.info(start_line("ISLEInfer", inf.device))
     inf.infer_file(
         infer_file,
         doc_begin=int(doc_begin),
@@ -73,6 +74,7 @@ def main(argv=None) -> int:
         max_entries=int(max_entries) or None,
     )
     inf.timer.report_total("ISLEInfer")
+    inf.logger.info(end_line("ISLEInfer", inf.device))
     return 0
 
 

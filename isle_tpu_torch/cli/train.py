@@ -42,6 +42,53 @@ def _pop_flag(argv: list, name: str, default: str) -> str:
     return value
 
 
+def start_line(tool: str, device) -> str:
+    """A CLI run's first log line: its torch.device and its text I/O
+    backend (native.backend(), which builds the C library at first use)."""
+    import torch
+
+    from isle_tpu_torch import native
+
+    name = (f" ({torch.cuda.get_device_name(device)})"
+            if device.type == "cuda" else "")
+    return f"{tool} on {device}{name}, text I/O {native.backend()}"
+
+
+def end_line(tool: str, device) -> str:
+    """A CLI run's last log line: its peak RSS and, on the card, its peak
+    device memory."""
+    import resource
+
+    import torch
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    line = f"{tool} done, peak RSS {rss:.2f} GiB"
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        line += f", peak device memory {peak:.2f} GiB"
+    return line
+
+
+def train_config(args, seed: int):
+    """The TrainConfig of the contract's nine numeric arguments (<vocab_size>
+    through <max_edge_topics>; <max_entries> is read by no stage)."""
+    from isle_tpu_torch.config import TrainConfig
+
+    (vocab_size, num_docs, _max_entries, num_topics, tf_idf, sample,
+     sample_rate, edge_topics, max_edge_topics) = args
+    return TrainConfig(
+        num_topics=int(num_topics),
+        vocab_size=int(vocab_size),
+        num_docs=int(num_docs),
+        tf_idf=bool(int(tf_idf)),
+        sample_docs=bool(int(sample)),
+        sample_rate=float(sample_rate),
+        compute_edge_topics=bool(int(edge_topics)),
+        max_edge_topics=int(max_edge_topics),
+        seed=seed,
+    )
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
@@ -54,36 +101,12 @@ def main(argv=None) -> int:
         print(USAGE, file=sys.stderr)
         return 1
 
-    from isle_tpu_torch.config import GpuConfig, TrainConfig
+    from isle_tpu_torch.config import GpuConfig
     from isle_tpu_torch.sharding import mesh_from_env
     from isle_tpu_torch.trainer import Trainer, check_supported
 
-    (
-        tdf_file,
-        vocab_file,
-        output_dir,
-        vocab_size,
-        num_docs,
-        max_entries,
-        num_topics,
-        tf_idf,
-        sample,
-        sample_rate,
-        edge_topics,
-        max_edge_topics,
-    ) = argv
-
-    cfg = TrainConfig(
-        num_topics=int(num_topics),
-        vocab_size=int(vocab_size),
-        num_docs=int(num_docs),
-        tf_idf=bool(int(tf_idf)),
-        sample_docs=bool(int(sample)),
-        sample_rate=float(sample_rate),
-        compute_edge_topics=bool(int(edge_topics)),
-        max_edge_topics=int(max_edge_topics),
-        seed=seed,
-    )
+    tdf_file, vocab_file, output_dir = argv[:3]
+    cfg = train_config(argv[3:], seed)
     try:
         check_supported(cfg)
     except NotImplementedError as e:
@@ -94,6 +117,7 @@ def main(argv=None) -> int:
                     mesh_shape=None if mesh is None else (mesh.world,))
     trainer = Trainer(cfg, output_dir=output_dir, vocab_file=vocab_file,
                       gpu=gpu, mesh=mesh)
+    trainer.logger.info(start_line("ISLETrain", trainer.device))
     trainer.load_data_from_file(tdf_file)
     trainer.train()
     if not trainer.is_writer:  # rank 0 writes for all
@@ -107,6 +131,7 @@ def main(argv=None) -> int:
         trainer.write_edgemodel_to_file()
         trainer.print_top_two_topics()
     trainer.timer.report_total("ISLETrain")
+    trainer.logger.info(end_line("ISLETrain", trainer.device))
     print(f"Model written to {trainer.run_dir}")
     return 0
 

@@ -109,6 +109,17 @@ class Corpus:
             expect.astype(np.float32), self.vals.astype(np.float32)
         ))
 
+    def normalized_to_one(self) -> "Corpus":
+        """The same docs scaled to unit sum, the values that
+        from_entries(normalize_to_one=True) gives them (inference's
+        input), from the raw counts without a new sort or copy of the
+        other arrays (requires counts)."""
+        assert self.counts is not None
+        per_entry = np.repeat(self.doc_sums(),
+                              np.diff(self.offsets).astype(np.int64))
+        return dataclasses.replace(
+            self, vals=(self.counts / per_entry).astype(np.float32))
+
     @staticmethod
     def from_entries(
         docs: np.ndarray,

@@ -1,5 +1,5 @@
 // C ABI for embedding the port's trainer in a non-Python host: the
-// counterpart of native/isle_capi.cpp for isle_tpu_torch.
+// counterpart of isle_tpu's isle_capi.cpp for isle_tpu_torch.
 //
 // A flat extern "C" surface (the reference's trainer_export.cpp:31-99):
 // CreateTrainer / feedData / finalizeData / Train / GetBasicModel /
