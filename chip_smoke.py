@@ -8,8 +8,8 @@ documents with the trained model (MWU, ISLEInfer's path).
     python3 chip_smoke.py [--docs N] [--seed S] [--pubmed-docs N]
 
 --docs cuts the number of documents (the nnz scales with it; vocab and k
-stay) and says so on its own line; --pubmed-docs does the same for phase
-P. Phases, in order:
+stay) and says so on its own line; --pubmed-docs does the same for
+phases P and Q. Phases, in order:
 
   1. the card (nvidia-smi name and power limit) and torch/CUDA versions;
   2. the kernel build, timed, with ptxas's registers and spills per
@@ -397,7 +397,8 @@ Then, with everything of the NYTimes phases off the card:
      group counts on the clustered docs' entries; on P1's hybrid tail the
      doc norms, Bᵀ·X and tiled B·Y at width 128, Bᵀ·C and tiled B·onehot
      at 100; and the head product beside them (cuBLAS, not a ported
-     kernel). P5 ISLEInfer's path on all the docs with P3's model: the
+     kernel). Then phase Q0 and Q1 (below). P5 ISLEInfer's path on all
+     the docs with ISLETrain's model (Q1's file read back): the
      corpus normalized to unit mass (Corpus.normalized_to_one, as
      infer_file's reader normalizes), Inferencer.infer_corpus(top_n=5) on
      the card, the report written in blocks of
@@ -414,6 +415,30 @@ Then, with everything of the NYTimes phases off the card:
      bytes (pack_bytes; the phase fails if it would not fit); printed the
      walls, the MWU blocks, the peak RSS and device memory. Each part's
      seconds are printed;
+  Q.  both CLIs at PubMed's shape as a user runs them, from a TDF file.
+     Q0 P0's corpus written as a 1-based TDF file by the port's triple
+     writer and a vocab file, after a check that the disk holds what the
+     phase reckons it writes (it fails naming the bytes). Then P1's
+     streamed state and P3's trainer are freed (the parent's RSS and the
+     host's MemAvailable printed at each CLI's start). Q1 `python -m
+     isle_tpu_torch.cli.train <tdf> <vocab> <out> 141043 8200000 0 100 0
+     1 0.1 1 2000 --seed S`: exit code 0 on cuda with the native text
+     I/O, its TrainConfig and GpuConfig P3's, its ckpt_svd, ckpt_kmeans
+     and ckpt_model.npz bit-equal to P3's, and every file it writes read
+     back against P3's arrays: each file's lines equal the nonzeros they
+     stand for (model and edge model entries above 1e-8, catchword
+     entries, positive doc-topic masses, docs with top-two topics, edge
+     topics, topics); the small files whole (edge pairs, top words); for
+     the large ones the first and last lines and 4,096 lines at seeded
+     byte offsets: ids in range and in the file's order, each value
+     within its format's rounding (%.10f, %.6f) of P3's, the first and
+     last lines P3's first and last entries. After P5 the corpus is
+     freed; Q2 `python -m isle_tpu_torch.cli.infer <Q1's
+     M_hat_catch_sparse> <tdf> <out2> 100 141043 1 8200001 <nnz> 0 0 0`:
+     exit code 0 on cuda, native; its nine report blocks byte-equal to
+     P5's (sha256), the converged docs and the average LLHs P5's. Each
+     CLI's Timer split, wall from launch to exit, its own peak RSS and
+     peak device memory, and its ingest's sort path printed;
 
 Prints a JSON line of the kernels (per kernel: launches on the driven
 paths (in-core, the three streamed runs and Lanczos, each also under
@@ -438,6 +463,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import concurrent.futures
 import contextlib
 import datetime
 import filecmp
@@ -4245,13 +4271,23 @@ def print_cli_stages(tool: str, log: str) -> None:
     print(f"  {tool} total: {log_line(log, f'Total time for {tool}: ')}")
 
 
-def file_lines(path: str) -> tuple:
-    """(bytes, lines) of a file."""
-    lines = 0
-    with open(path, "rb") as f:
-        while chunk := f.read(1 << 24):
-            lines += chunk.count(b"\n")
-    return os.path.getsize(path), lines
+def file_lines(path: str, workers: int = 8) -> tuple:
+    """(bytes, lines) of a file, its byte ranges read and counted by
+    `workers` threads at once."""
+    size = os.path.getsize(path)
+
+    def count(lo: int) -> int:
+        hi, n = min(lo + step, size), 0
+        with open(path, "rb") as f:
+            f.seek(lo)
+            while lo < hi and (chunk := f.read(min(1 << 24, hi - lo))):
+                n += chunk.count(b"\n")
+                lo += len(chunk)
+        return n
+
+    step = max(-(-size // workers), 1)
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        return size, sum(pool.map(count, range(0, size, step)))
 
 
 def write_like_cli(tr, run_dir: str, vocab_words) -> SimpleNamespace:
@@ -4542,12 +4578,20 @@ def mem_available() -> int:
 
 
 def host_memory() -> str:
-    """The host's available memory and this process's peak RSS."""
+    """The host's available memory and this process's present RSS
+    (VmRSS) and peak: VmHWM, or where /proc/self/status lacks it (gVisor,
+    the card's host), ru_maxrss, which holds this script's own peak as
+    long as the shell that started it peaked lower."""
     import resource
 
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    from isle_tpu_torch.cli.train import status_bytes
+
+    rss = status_bytes("VmRSS")
+    hwm = status_bytes("VmHWM") or (
+        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    now = "unknown" if rss is None else f"{rss / 2**30:.2f} GiB"
     return (f"host memory available {mem_available() / 2**30:.1f} GiB, "
-            f"this process's peak RSS {rss / 2**30:.2f} GiB")
+            f"this process's RSS {now}, its peak RSS {hwm / 2**30:.2f} GiB")
 
 
 def pubmed_corpus(shape: dict, seed: int):
@@ -4763,11 +4807,12 @@ def pubmed_wire(corpus, shape, seed, out, p1, spy1) -> tuple:
     return launches, B1, cols1
 
 
-def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> dict:
+def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> tuple:
     """Phase P3: Trainer (in core) on the same corpus and config: ζ,
     original_cols, B, the doc-topic mass, the top-two topics and the edge
     pairs equal P1's, eigenvalues within rtol 1e-4, the model and the
-    edge model within 1e-6. Returns its launch counts."""
+    edge model within 1e-6. Returns (its launch counts, what phase Q
+    holds ISLETrain's run against: cli_reference)."""
     from isle_tpu_torch import bmatrix
     from isle_tpu_torch.rng import Draws
 
@@ -4787,7 +4832,7 @@ def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> dict:
     assert np.array_equal(in_cols, cols1), f"{label}: B's docs"
     assert_same_b(IB, B1)
     del IB
-    cells, flips, mass_line = pubmed_mass_check(corpus, tr, p1)
+    cells, flips, mass_line, mass = pubmed_mass_check(corpus, tr, p1)
     tr.A = None
     torch.cuda.empty_cache()
     print(f"{label}: {mass_line}")
@@ -4807,14 +4852,15 @@ def pubmed_in_core(corpus, shape, seed, out, p1, B1, cols1) -> dict:
           f" {np.array_equal(tr.model, p1.model)}); clusters equal P1's on "
           f"{same:.4%} of B's docs; result: {check_result(tr, shape, label)}"
           f"; {card_line()}")
-    return run.launches, tr.model
+    return run.launches, cli_reference(tr, corpus, mass)
 
 
 def pubmed_mass_check(corpus, tr, p1) -> tuple:
     """The doc-topic mass of the in-core run `tr` (on its A) against the
     streamed pass's over P1's loader, from the same catchwords; the
     model thresholds and contribution weights of both. Returns (the mass
-    cells that differ, the weights that differ, a line)."""
+    cells that differ, the weights that differ, a line, the in-core mass
+    on the host)."""
     from isle_tpu_torch import streaming, topic_model
 
     k, D = tr.config.num_topics, tr.corpus.num_docs
@@ -4833,13 +4879,14 @@ def pubmed_mass_check(corpus, tr, p1) -> tuple:
     t_st = topic_model.model_thresholds(m_st, has_cw, rank)
     flips = int(((m_in > t_in) != (m_st > t_st)).sum())
     ties = int((m_in == t_in).sum())
+    mass = m_in.cpu().numpy()
     del m_in, m_st, diff
     return cells, flips, (
         f"catchwords equal P1's: {same_cw}; doc-topic mass in core against "
         f"the streamed pass: {cells} cells differ (max abs {worst:.3e}); "
         f"thresholds equal: {bool(torch.equal(t_in, t_st))}; {ties} cells "
         f"tie their topic's threshold in core; contribution weights (mass > "
-        f"threshold) differ in {flips} cells")
+        f"threshold) differ in {flips} cells"), mass
 
 
 def pubmed_uses(corpus, p1, per, B1, R: int, seed: int) -> dict:
@@ -4886,13 +4933,12 @@ def pubmed_uses(corpus, p1, per, B1, R: int, seed: int) -> dict:
 
 def pack_bytes(corpus) -> int:
     """The host bytes mwu.build_infer_batch holds at its peak, reckoned
-    from its code: per entry the kept mask (1), the kept-prefix sum and
-    its extension (int64, 8 + 8), the doc ids (4), the position within
-    the doc (8), the kept docs and positions (4 + 8), the kept rows and
-    values (4 + 4); per doc the padded word ids and values (4 + 4 a
-    slot), at the widest doc's length (an upper bound of the kept one)."""
+    from its code: per entry the kept mask (1) and the kept rows or
+    values (4); per doc the filled-slot mask and the padded word ids and
+    values (1 + 4 + 4 a slot), at the widest doc's length (an upper bound
+    of the kept one)."""
     L = -(-int(np.diff(corpus.offsets).max()) // 8) * 8
-    return corpus.nnz * 49 + corpus.num_docs * L * 8
+    return corpus.nnz * 5 + corpus.num_docs * L * 9
 
 
 @contextlib.contextmanager
@@ -4924,12 +4970,23 @@ def same_bytes(paths: list, whole: str) -> bool:
             and sum(map(os.path.getsize, paths)) == os.path.getsize(whole))
 
 
-def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str) -> None:
-    """Phase P5: ISLEInfer's path on every doc of P0's corpus with P3's
-    model (infer_file's normalization, infer_corpus(top_n=5) on the card,
-    the report in blocks of inferencer.REPORT_BLOCK_DOCS docs), held
-    against the report written as one file, a float64 sample and the
-    first block inferred alone."""
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str):
+    """Phase P5: ISLEInfer's path on every doc of P0's corpus with
+    ISLETrain's model (phase Q1's M_hat_catch_sparse read back:
+    infer_file's normalization, infer_corpus(top_n=5) on the card, the
+    report in blocks of inferencer.REPORT_BLOCK_DOCS docs), held against
+    the report written as one file, a float64 sample and the first block
+    inferred alone. Returns what phase Q2 holds ISLEInfer's report
+    against: each block's name and sha256, the converged docs and the
+    two average LLHs."""
     from isle_tpu_torch import inferencer as reports, io_text, mwu
 
     label = "phase P5, PubMed, ISLEInfer's report blocks"
@@ -4968,6 +5025,10 @@ def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str) -> None:
     assert [os.path.basename(p) for p in paths] == want, paths
     assert same_bytes(paths, whole), \
         f"{label}: the blocks' concatenation differs from the whole report"
+    blocks = {os.path.basename(p): file_sha256(p) for p in paths}
+    ref = SimpleNamespace(blocks=blocks, converged=res.num_converged,
+                          avg_doc=res.avg_llh_per_converged_doc,
+                          avg_word=res.avg_llh_per_word)
     size, lines = file_lines(whole)
     conv = res.converged
     assert conv.mean() >= 0.9, f"{label}: only {conv.mean():.4f} converged"
@@ -5009,11 +5070,372 @@ def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str) -> None:
           f"{np.abs(sums - 1.0).max():.2e}, top-5 rows bit-equal to the "
           f"whole run's: {same} (max abs diff {gap:.3e}); after the phase "
           f"{host_memory()}; {card_line()}")
+    return ref
+
+
+# ---------------------------------------------------------------------------
+# Phase Q: ISLETrain and ISLEInfer at PubMed's shape, from a TDF file
+# ---------------------------------------------------------------------------
+
+# the most bytes a line of each file phase Q writes takes at PubMed's
+# widths (doc ids of 7 digits, words of 6, counts of 2, topics of 4,
+# weights below 10 at %.6f or %.10f, a tab or a newline after each
+# field): what its disk check reckons with
+Q_LINE_BYTES = {"corpus.tdf": 18, "M_hat_catch_sparse": 25,
+                "DocCatchword.tsv": 25, "DocTopicCatchwordSums.tsv": 24,
+                "EdgeModel_sparse": 25, "TopTwoTopicsPerDoc.txt": 21,
+                "report": 24}
+Q_SAMPLE_LINES = 4096  # lines a file read back at seeded byte offsets
+Q_SPARE = 1.25  # the disk check asks for this much more than it reckons
+
+
+def cli_reference(tr, corpus, mass: np.ndarray) -> SimpleNamespace:
+    """What phase Q holds ISLETrain's run directory against, taken from
+    phase P3's trainer `tr` before it is freed: its run directory, its
+    config, its model, edge model and edge pairs, top-two topics, each
+    word's catchword topic, the doc-topic mass `mass` (from the same
+    catchwords, on the host), and the lines each file must have."""
+    cwt = catchword_topics(tr, "cpu").numpy()
+    t1, t2, valid = tr.top_pairs
+    thr = np.float32(1e-8)  # the sparse writer's cut
+    lines = {
+        "M_hat_catch_sparse": int(np.count_nonzero(tr.model > thr)),
+        "TopWordsPerTopic_catch.txt": tr.config.num_topics,
+        "DocCatchword.tsv": int(np.count_nonzero(cwt[corpus.rows] >= 0)),
+        "DocTopicCatchwordSums.tsv": int(np.count_nonzero(mass)),
+        "EdgeModel_sparse": int(np.count_nonzero(tr.edge_model > thr)),
+        "EdgeTopicComposition.txt": len(tr.edge_pairs),
+        "TopTwoTopicsPerDoc.txt": int(np.count_nonzero(valid)),
+    }
+    return SimpleNamespace(
+        run_dir=tr.run_dir, config=tr.config, gpu=tr.gpu, model=tr.model,
+        edge_model=tr.edge_model, edge_pairs=np.asarray(tr.edge_pairs),
+        t1=t1, t2=t2, valid=valid, cwt=cwt, mass=mass, lines=lines,
+        top_n=max(tr.config.hyper.coherence_num_words, 10))
+
+
+def q_disk_check(corpus, ref, path: str) -> str:
+    """The disk phase Q needs, reckoned from the lines each file will
+    hold (Q_LINE_BYTES) and the run directories' checkpoints (the size of
+    P3's), against the free bytes of the file system under `path`.
+    Raises, naming the bytes, where it falls short."""
+    b = Q_LINE_BYTES
+    files = {"corpus.tdf": corpus.nnz * b["corpus.tdf"]}
+    files.update({name: n * b.get(name, 64) for name, n in ref.lines.items()})
+    ckpt = sum(os.path.getsize(os.path.join(ref.run_dir, n))
+               for n in os.listdir(ref.run_dir))
+    # Q1's checkpoints, P5's blocks and one-file report, Q2's blocks
+    reports = 3 * corpus.num_docs * 3 * b["report"]
+    need = int(Q_SPARE * (sum(files.values()) + ckpt + reports))
+    free = shutil.disk_usage(path).free
+    line = (f"disk: phase Q reckons {need} bytes ({Q_SPARE} x the files "
+            f"{sum(files.values())}, checkpoints {ckpt}, reports {reports}), "
+            f"{free} bytes free under {path}")
+    if need > free:
+        raise RuntimeError(f"phase Q0: too little disk: {line}")
+    return line
+
+
+def sampled_lines(path: str, n: int, seed: int) -> list:
+    """The file's first and last lines and the lines after n seeded byte
+    offsets, in file order, each as its tab-separated fields."""
+    size = os.path.getsize(path)
+    offsets = np.sort(np.random.default_rng(seed).integers(0, size, n))
+    with open(path, "rb") as f:
+        lines = [f.readline()]
+        for o in offsets:
+            f.seek(int(o))
+            f.readline()  # the rest of the line the offset falls in
+            lines.append(f.readline())
+        f.seek(max(0, size - 4096))
+        lines.append(f.read().splitlines()[-1] + b"\n")
+    return [ln.rstrip(b"\n").split(b"\t") for ln in lines if ln]
+
+
+def sparse_model_readback(path: str, M: np.ndarray, seed: int) -> str:
+    """A sparse model file's sampled lines against the array `M` (vocab,
+    topics): ids in range, topic-major in (topic, word) order, weights
+    above the 1e-8 cut and within the %.10f rounding of M's; its first
+    and last lines M's first and last entries above the cut."""
+    V, T = M.shape
+    rows = sampled_lines(path, Q_SAMPLE_LINES, seed)
+    t = np.array([int(r[0]) for r in rows])
+    w = np.array([int(r[1]) for r in rows])
+    v = np.array([float(r[2]) for r in rows])
+    assert t.min() >= 1 and t.max() <= T and w.min() >= 1 and w.max() <= V, \
+        f"{path}: ids out of range"
+    key = t * (V + 1) + w
+    assert np.all(np.diff(key) >= 0), f"{path}: lines out of order"
+    want = M[w - 1, t - 1].astype(np.float64)
+    assert np.all(want > np.float32(1e-8)), f"{path}: a line under the cut"
+    err = float(np.abs(v - want).max())
+    assert err <= 5e-11 * (1 + 1e-6), f"{path}: weights off by {err}"
+    live = (M > np.float32(1e-8)).any(axis=0)
+    t0, t1 = int(np.argmax(live)), T - 1 - int(np.argmax(live[::-1]))
+    col0, col1 = M[:, t0] > np.float32(1e-8), M[:, t1] > np.float32(1e-8)
+    first = (t0 + 1, int(np.argmax(col0)) + 1)
+    last = (t1 + 1, V - int(np.argmax(col1[::-1])))
+    assert (t[0], w[0]) == first and (t[-1], w[-1]) == last, \
+        (path, (t[0], w[0]), first, (t[-1], w[-1]), last)
+    return f"{len(rows)} lines read back, weights within {err:.3e}"
+
+
+def catchword_entry(corpus, cwt: np.ndarray, last: bool) -> int:
+    """The index of the corpus's first (or last) entry whose word is a
+    catchword, found a slice of 2^24 entries at a time."""
+    step = 1 << 24
+    starts = range(0, corpus.nnz, step)
+    for a in (reversed(starts) if last else starts):
+        hit = np.flatnonzero(cwt[corpus.rows[a:a + step]] >= 0)
+        if len(hit):
+            return a + int(hit[-1] if last else hit[0])
+    raise AssertionError("no entry of a catchword")
+
+
+def doc_catchword_readback(path: str, corpus, ref, seed: int) -> str:
+    """DocCatchword.tsv's sampled lines: ids in range, in the corpus's
+    (doc, word) order, each an entry of the corpus whose word is a
+    catchword, its value within the %.6f rounding of the corpus's; its
+    first and last lines the first and last such entries."""
+    rows = sampled_lines(path, Q_SAMPLE_LINES, seed)
+    d = np.array([int(r[0]) for r in rows]) - 1
+    w = np.array([int(r[1]) for r in rows]) - 1
+    v = np.array([float(r[2]) for r in rows])
+    D, V = corpus.num_docs, corpus.vocab_size
+    assert d.min() >= 0 and d.max() < D and w.min() >= 0 and w.max() < V, \
+        f"{path}: ids out of range"
+    assert np.all(np.diff(d * V + w) >= 0), f"{path}: lines out of order"
+    assert np.all(ref.cwt[w] >= 0), f"{path}: a word that is no catchword"
+    lo, hi = corpus.offsets[d], corpus.offsets[d + 1]
+    at = np.array([a + np.searchsorted(corpus.rows[a:b], x)
+                   for a, b, x in zip(lo, hi, w)])
+    assert np.all(at < hi) and np.array_equal(corpus.rows[at], w), \
+        f"{path}: a line that is no entry of the corpus"
+    err = float(np.abs(v - corpus.vals[at]).max())
+    assert err <= 5e-7 * (1 + 1e-6), f"{path}: values off by {err}"
+    i0, i1 = (catchword_entry(corpus, ref.cwt, last) for last in (0, 1))
+    doc_of = np.searchsorted(corpus.offsets, [i0, i1], side="right") - 1
+    assert (d[0], w[0]) == (doc_of[0], corpus.rows[i0]) and \
+        (d[-1], w[-1]) == (doc_of[1], corpus.rows[i1]), \
+        (path, (d[0], w[0]), (d[-1], w[-1]), doc_of, i0, i1)
+    return (f"{len(rows)} lines read back, values within {err:.3e}, the "
+            f"largest doc id {int(d.max()) + 1} (2^23 = {1 << 23})")
+
+
+def doc_topic_sums_readback(path: str, ref, seed: int) -> str:
+    """DocTopicCatchwordSums.tsv's sampled lines: ids in range, topics in
+    ascending order, each a positive cell of the doc-topic mass within
+    the %.6f rounding; its first line topic 0's largest mass (the lowest
+    doc of a tie), its last the last topic's smallest (the highest)."""
+    mass = ref.mass
+    D, k = mass.shape
+    rows = sampled_lines(path, Q_SAMPLE_LINES, seed)
+    d = np.array([int(r[0]) for r in rows]) - 1
+    t = np.array([int(r[1]) for r in rows]) - 1
+    v = np.array([float(r[2]) for r in rows])
+    assert d.min() >= 0 and d.max() < D and t.min() >= 0 and t.max() < k, \
+        f"{path}: ids out of range"
+    assert np.all(np.diff(t) >= 0), f"{path}: topics out of order"
+    want = mass[d, t].astype(np.float64)
+    assert np.all(want != 0), f"{path}: a line for a zero mass"
+    err = float(np.abs(v - want).max())
+    assert err <= 5e-7 * (1 + 1e-6) + 1e-9 * float(np.abs(want).max()), \
+        f"{path}: sums off by {err}"
+    live = (mass != 0).any(axis=0)
+    ta, tb = int(np.argmax(live)), k - 1 - int(np.argmax(live[::-1]))
+    col = mass[:, tb]
+    low = col[col != 0].min()
+    first = (int(np.argmax(mass[:, ta])), ta)
+    last = (int(np.flatnonzero(col == low)[-1]), tb)
+    assert (d[0], t[0]) == first and (d[-1], t[-1]) == last, \
+        (path, (d[0], t[0]), first, (d[-1], t[-1]), last)
+    return f"{len(rows)} lines read back, sums within {err:.3e}"
+
+
+def top_two_readback(path: str, ref, seed: int) -> str:
+    """TopTwoTopicsPerDoc.txt's sampled lines against P3's top-two
+    topics, exactly, in doc order, the first and last valid docs."""
+    rows = sampled_lines(path, Q_SAMPLE_LINES, seed)
+    d, a, b = (np.array([int(r[i]) for r in rows]) - 1 for i in range(3))
+    assert np.all(np.diff(d) >= 0), f"{path}: docs out of order"
+    assert np.all(ref.valid[d]), f"{path}: a doc without top-two topics"
+    assert np.array_equal(a, ref.t1[d]) and np.array_equal(b, ref.t2[d]), \
+        f"{path}: top-two topics differ"
+    docs = np.flatnonzero(ref.valid)
+    assert (d[0], d[-1]) == (docs[0], docs[-1]), (path, d[0], d[-1])
+    return f"{len(rows)} lines read back, equal"
+
+
+def cli_train_readback(run_dir: str, corpus, ref, vocab_words,
+                       seed: int) -> list:
+    """Every result file of ISLETrain's run directory read back and held
+    against P3's arrays (line counts equal the nonzeros they stand for;
+    the small files whole, the large ones by sampled lines). Returns a
+    line a file."""
+    out = []
+    for name, want in ref.lines.items():
+        size, lines = file_lines(os.path.join(run_dir, name))
+        assert lines == want, \
+            f"phase Q1: {name} has {lines} lines, {want} expected"
+        out.append(f"{name} ({size} bytes, {lines} lines)")
+    def path(name):
+        return os.path.join(run_dir, name)
+
+    notes = {
+        "M_hat_catch_sparse": sparse_model_readback(
+            path("M_hat_catch_sparse"), ref.model, seed),
+        "EdgeModel_sparse": sparse_model_readback(
+            path("EdgeModel_sparse"), ref.edge_model, seed + 1),
+        "DocCatchword.tsv": doc_catchword_readback(
+            path("DocCatchword.tsv"), corpus, ref, seed + 2),
+        "DocTopicCatchwordSums.tsv": doc_topic_sums_readback(
+            path("DocTopicCatchwordSums.tsv"), ref, seed + 3),
+        "TopTwoTopicsPerDoc.txt": top_two_readback(
+            path("TopTwoTopicsPerDoc.txt"), ref, seed + 4),
+    }
+    pairs = np.loadtxt(path("EdgeTopicComposition.txt"), dtype=np.int64,
+                       ndmin=2)
+    assert np.array_equal(pairs, ref.edge_pairs.reshape(pairs.shape)), \
+        "phase Q1: EdgeTopicComposition.txt differs from P3's edge pairs"
+    notes["EdgeTopicComposition.txt"] = "every line equal"
+    with open(path("TopWordsPerTopic_catch.txt")) as f:
+        got = f.read().splitlines()
+    for t, line in enumerate(got):
+        top = np.argsort(-ref.model[:, t], kind="stable")[:ref.top_n]
+        assert line == "\t".join(vocab_words[w] for w in top), \
+            f"phase Q1: topic {t}'s top words differ"
+    notes["TopWordsPerTopic_catch.txt"] = "every line equal"
+    return [f"{o}: {notes[n]}" for o, n in zip(out, ref.lines)]
+
+
+def q_files(corpus, ref, out: str) -> SimpleNamespace:
+    """Phase Q0: P0's corpus as a 1-based TDF file (the port's triple
+    writer) and a vocab file, after the disk check."""
+    from isle_tpu_torch import native
+
+    base = os.path.join(out, "pubmed_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    print(f"phase Q0: {q_disk_check(corpus, ref, base)}")
+    q = SimpleNamespace(base=base, tdf=os.path.join(base, "corpus.tdf"),
+                        vocab=os.path.join(base, "vocab"))
+    t0 = time.perf_counter()
+    native.write_int_triples(q.tdf, corpus.doc_ids(), corpus.rows,
+                             corpus.counts, 1, 1, 0)
+    tdf_s = time.perf_counter() - t0
+    with open(q.vocab, "w") as f:
+        f.write("".join(f"word{w + 1}\n" for w in range(corpus.vocab_size)))
+    size = os.path.getsize(q.tdf)
+    print(f"phase Q0: the TDF file {size} bytes, {corpus.nnz} lines (Q1 "
+          f"reads them back), written by the port's native triple writer "
+          f"in {tdf_s:.2f} s ({size / tdf_s / 2**20:.0f} MiB/s); the vocab "
+          f"file {file_lines(q.vocab)} (bytes, lines); {host_memory()}")
+    return q
+
+
+def q_train(q, corpus, ref, shape: dict, seed: int) -> tuple:
+    """Phase Q1: ISLETrain at PubMed's shape in a process of its own:
+    exit code 0 on cuda with the native text I/O, its configuration
+    P3's, its checkpoints bit-equal to P3's run directory, every file it
+    writes read back against P3's arrays. Returns (its model file, the
+    model read back from it)."""
+    from isle_tpu_torch import GpuConfig, io_text
+    from isle_tpu_torch.cli.train import train_config
+    from isle_tpu_torch.corpus import read_vocab_file
+
+    V, D, k = corpus.vocab_size, corpus.num_docs, shape["k"]
+    args = [q.tdf, q.vocab, os.path.join(q.base, "train"), str(V), str(D),
+            "0", str(k), "0", "1", str(PUBMED_SAMPLE_RATE), "1",
+            str(shape["edges"]), "--seed", str(seed)]
+    cfg = train_config(args[3:12], seed)
+    assert cfg == ref.config and GpuConfig(device="cuda") == ref.gpu, \
+        (cfg, ref.config, ref.gpu)
+    print(f"phase Q1: python -m isle_tpu_torch.cli.train "
+          f"{' '.join(args[3:])}; before it {host_memory()}")
+    run = run_cli("isle_tpu_torch.cli.train", args,
+                  os.path.join(q.base, "train.log"))
+    print(f"phase Q1: {check_cli_run('ISLETrain', run)}")
+    print(f"phase Q1: {log_line(run.log, 'ingest: ')}")
+    print_cli_stages("ISLETrain", run.log)
+    sizes = log_line(run.log, "#docs: ").split()
+    assert (sizes[0], sizes[4]) == (str(D), str(corpus.nnz)), \
+        f"phase Q1: the CLI read {sizes} from the TDF file"
+    run_dir = os.path.join(q.base, "train", cfg.log_dir_name())
+    t0 = time.perf_counter()
+    for stage in ("svd", "kmeans", "model"):
+        name = f"ckpt_{stage}.npz"
+        with np.load(os.path.join(run_dir, name)) as a, \
+                np.load(os.path.join(ref.run_dir, name)) as b:
+            assert sorted(a.files) == sorted(b.files), (name, a.files)
+            for key in a.files:
+                assert np.array_equal(a[key], b[key]), \
+                    f"phase Q1: {name}[{key}] differs from P3's run"
+    written = sorted(n for n in os.listdir(run_dir)
+                     if not n.endswith(".npz") and n not in CLI_LOGS)
+    assert written == sorted(CLI_RESULT_FILES), written
+    lines = cli_train_readback(run_dir, corpus, ref,
+                               read_vocab_file(q.vocab, V), seed)
+    model = io_text.load_sparse_model(
+        os.path.join(run_dir, "M_hat_catch_sparse"), k, V)
+    gap = float(np.abs(model - ref.model).max())
+    print(f"phase Q1: ckpt_svd, ckpt_kmeans and ckpt_model.npz equal P3's "
+          f"run bit for bit (ζ, original_cols, eigenvalues, U, centers, "
+          f"clusters, the model, catchwords and their thresholds, top-two "
+          f"topics); every result file read back against P3's arrays "
+          f"({time.perf_counter() - t0:.1f} s): " + "; ".join(lines)
+          + f"; the model read back within {gap:.3e} of P3's")
+    return os.path.join(run_dir, "M_hat_catch_sparse"), model
+
+
+def q_infer(q, corpus_shape: tuple, model_file: str, p5,
+            k: int) -> None:
+    """Phase Q2: ISLEInfer on Q1's model and the whole TDF file in a
+    process of its own: exit code 0 on cuda with the native text I/O,
+    the report blocks byte-equal to P5's, made in this process from the
+    same model read back, the converged count and the average LLHs
+    equal P5's."""
+    V, D, nnz = corpus_shape
+    out = os.path.join(q.base, "infer")
+    args = [model_file, q.tdf, out, str(k), str(V), "1", str(D + 1),
+            str(nnz), "0", "0", "0"]
+    print(f"phase Q2: python -m isle_tpu_torch.cli.infer "
+          f"{' '.join(args[3:])}; before it {host_memory()}")
+    run = run_cli("isle_tpu_torch.cli.infer", args,
+                  os.path.join(q.base, "infer.log"))
+    print(f"phase Q2: {check_cli_run('ISLEInfer', run)}")
+    print(f"phase Q2: {log_line(run.log, 'ingest: ')}")
+    print_cli_stages("ISLEInfer", run.log)
+    got = sorted(n for n in os.listdir(out) if n.startswith("top_topics"))
+    assert got == sorted(p5.blocks), (got, sorted(p5.blocks))
+    for name, digest in p5.blocks.items():
+        assert file_sha256(os.path.join(out, name)) == digest, \
+            f"phase Q2: {name} differs from P5's block"
+    conv = int(log_line(run.log, "Number of docs for which inference "
+                        "converged: ").split()[0])
+    assert conv == p5.converged, (conv, p5.converged)
+    for prefix, value in (
+            ("Avg LLH per document for converged docs: ", p5.avg_doc),
+            ("Avg LLH per word: ", p5.avg_word)):
+        got_v = float(log_line(run.log, prefix))
+        assert abs(got_v - value) <= 1e-6 * abs(value), (prefix, got_v, value)
+    sizes = sum(os.path.getsize(os.path.join(out, n)) for n in got)
+    print(f"phase Q2: {len(got)} report blocks ({sizes} bytes) byte-equal "
+          f"to P5's (the same model read back, in this process); {conv} of "
+          f"{D} docs converged, as in P5; the average LLHs equal P5's "
+          f"within 1e-6")
+
+
+def free_host_and_card(label: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: freed; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"held on the card; {host_memory()}")
 
 
 def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
-    """Phase P: isle_tpu's PubMed scale test. Returns ({kernel: its uses
-    at the PubMed shapes}, {path: launch counts})."""
+    """Phase P, isle_tpu's PubMed scale test, and phase Q, both CLIs at
+    its shape from a TDF file. Returns ({kernel: its uses at the PubMed
+    shapes}, {path: launch counts})."""
     t_phase = time.perf_counter()
     shape = dict(PUBMED)
     if docs != PUBMED["docs"]:
@@ -5037,19 +5459,34 @@ def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
         corpus, shape, seed, out, p1, spy1)
     walls["P2"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches["PubMed, in core"], model = pubmed_in_core(
+    launches["PubMed, in core"], ref = pubmed_in_core(
         corpus, shape, seed, out, p1, B1, cols1)
     walls["P3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     uses = pubmed_uses(corpus, p1, per1, B1, R, seed)
     walls["P4"] = time.perf_counter() - t0
     del p1, B1, spy1
-    gc.collect()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    pubmed_infer(corpus, model, seed, out)
+    q = q_files(corpus, ref, out)
+    walls["Q0"] = time.perf_counter() - t0
+    # P1's streamed state and P3's trainer are gone; the corpus stays
+    # for Q1's read-back and P5
+    free_host_and_card("phase Q1's start")
+    t0 = time.perf_counter()
+    model_file, model = q_train(q, corpus, ref, shape, seed)
+    walls["Q1"] = time.perf_counter() - t0
+    del ref
+    t0 = time.perf_counter()
+    p5 = pubmed_infer(corpus, model, seed, out)
     walls["P5"] = time.perf_counter() - t0
-    print(f"phase P: {time.perf_counter() - t_phase:.1f} s ("
+    sizes = corpus.vocab_size, corpus.num_docs, corpus.nnz
+    del corpus, model
+    free_host_and_card("phase Q2's start")
+    t0 = time.perf_counter()
+    q_infer(q, sizes, model_file, p5, shape["k"])
+    walls["Q2"] = time.perf_counter() - t0
+    shutil.rmtree(q.base)
+    print(f"phase P and Q: {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{k} {w:.1f} s" for k, w in walls.items())
           + f"); {card_line()}")
     return uses, launches

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import sys
 
-from isle_tpu_torch.cli.train import _pop_flag, end_line, start_line
+from isle_tpu_torch.cli.train import PeakRss, _pop_flag, end_line, \
+    start_line
 
 USAGE = (
     "Usage: python -m isle_tpu_torch.cli.infer <sparse_model_file> "
@@ -28,6 +29,7 @@ USAGE = (
 
 
 def main(argv=None) -> int:
+    peak = PeakRss()
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
         device = _pop_flag(argv, "--device", "cuda")
@@ -66,6 +68,7 @@ def main(argv=None) -> int:
                     mesh_shape=None if mesh is None else (mesh.world,))
     inf = Inferencer(cfg, model_file=model_file, output_dir=output_dir,
                      gpu=gpu, mesh=mesh)
+    inf.logger.add_sink("timer", peak.mark)
     inf.logger.info(start_line("ISLEInfer", inf.device))
     inf.infer_file(
         infer_file,
@@ -74,7 +77,7 @@ def main(argv=None) -> int:
         max_entries=int(max_entries) or None,
     )
     inf.timer.report_total("ISLEInfer")
-    inf.logger.info(end_line("ISLEInfer", inf.device))
+    inf.logger.info(end_line("ISLEInfer", inf.device, peak))
     return 0
 
 

@@ -22,6 +22,8 @@ alone the CLI runs on one device.
 from __future__ import annotations
 
 import sys
+import threading
+import time
 
 USAGE = (
     "Usage: python -m isle_tpu_torch.cli.train <tdf_file> <vocab_file> "
@@ -54,18 +56,77 @@ def start_line(tool: str, device) -> str:
     return f"{tool} on {device}{name}, text I/O {native.backend()}"
 
 
-def end_line(tool: str, device) -> str:
-    """A CLI run's last log line: its peak RSS and, on the card, its peak
-    device memory."""
-    import resource
+def status_bytes(field: str, path: str = "/proc/self/status"):
+    """A `<field>: <n> kB` line of /proc/self/status in bytes (VmHWM, the
+    process's own peak resident set, which exec resets; VmRSS, the
+    present one), or None where the file or the field is missing."""
+    try:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(f"{field}:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
 
+
+class PeakRss:
+    """This process's own peak RSS. getrusage's ru_maxrss will not do: a
+    process started by fork (or vfork) and exec carries its starter's
+    peak in it. Linux gives the own peak as VmHWM. Where
+    /proc/self/status has VmRSS but no VmHWM (gVisor's, for one), a
+    daemon thread reads VmRSS every `period` seconds from the start and
+    keeps the largest: the peak, but for one shorter than the period.
+    As a sink of a Timer's channel (`mark`) it notes the peak at each
+    stage's end, and so the stage that reached it."""
+
+    def __init__(self, period: float = 0.1):
+        self.period = period
+        self.sampled = 0
+        self.stages: list = []  # (stage, the peak at its end)
+        self._sampling = (status_bytes("VmHWM") is None
+                          and status_bytes("VmRSS") is not None)
+        if self._sampling:
+            threading.Thread(target=self._sample, daemon=True).start()
+
+    def _sample(self) -> None:
+        while (rss := status_bytes("VmRSS")) is not None:
+            self.sampled = max(self.sampled, rss)
+            time.sleep(self.period)
+
+    def bytes(self):
+        """The peak so far, or None where it cannot be known."""
+        hwm = status_bytes("VmHWM")
+        if hwm is not None or not self._sampling:
+            return hwm
+        return max(self.sampled, status_bytes("VmRSS") or 0)
+
+    def mark(self, message: str) -> None:
+        if message.startswith("Time for "):
+            stage = message[len("Time for "):message.index(": ")]
+            self.stages.append((stage, self.bytes()))
+
+    def __str__(self) -> str:
+        peak = self.bytes()
+        if peak is None:
+            return "unknown"
+        text = f"{peak / 2**30:.2f} GiB"
+        if self._sampling:
+            text += f" (VmRSS read every {self.period} s: no VmHWM here)"
+        reached = next((stage for stage, b in self.stages
+                        if b is not None and b >= peak), None)
+        return text + (f", reached in {reached!r}" if reached else "")
+
+
+def end_line(tool: str, device, peak: PeakRss) -> str:
+    """A CLI run's last log line: its own peak RSS and, on the card, its
+    peak device memory."""
     import torch
 
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    line = f"{tool} done, peak RSS {rss:.2f} GiB"
+    line = f"{tool} done, peak RSS {peak}"
     if device.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(device) / 2**30
-        line += f", peak device memory {peak:.2f} GiB"
+        mem = torch.cuda.max_memory_allocated(device) / 2**30
+        line += f", peak device memory {mem:.2f} GiB"
     return line
 
 
@@ -90,6 +151,7 @@ def train_config(args, seed: int):
 
 
 def main(argv=None) -> int:
+    peak = PeakRss()
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
         seed = int(_pop_flag(argv, "--seed", "0"))
@@ -117,6 +179,7 @@ def main(argv=None) -> int:
                     mesh_shape=None if mesh is None else (mesh.world,))
     trainer = Trainer(cfg, output_dir=output_dir, vocab_file=vocab_file,
                       gpu=gpu, mesh=mesh)
+    trainer.logger.add_sink("timer", peak.mark)
     trainer.logger.info(start_line("ISLETrain", trainer.device))
     trainer.load_data_from_file(tdf_file)
     trainer.train()
@@ -131,7 +194,7 @@ def main(argv=None) -> int:
         trainer.write_edgemodel_to_file()
         trainer.print_top_two_topics()
     trainer.timer.report_total("ISLETrain")
-    trainer.logger.info(end_line("ISLETrain", trainer.device))
+    trainer.logger.info(end_line("ISLETrain", trainer.device, peak))
     print(f"Model written to {trainer.run_dir}")
     return 0
 

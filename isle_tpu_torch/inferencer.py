@@ -174,6 +174,7 @@ class Inferencer:
             max_entries=max_entries,
             normalize_to_one=True,
             doc_base_offset=doc_begin - 1,
+            log=self.logger.info,
         )
         self.timer.next("load inference data")
         # The file report needs only the top-5 topics per doc.

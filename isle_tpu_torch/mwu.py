@@ -56,24 +56,24 @@ def build_infer_batch(corpus, model_mass: np.ndarray,
     D, V = corpus.num_docs, corpus.vocab_size
     keep = model_mass[rows] > 1e-10
     lengths = np.diff(offsets)
-    # kept-prefix sums over int32 (numpy's bool cumsum is much slower)
-    csum = np.cumsum(keep.astype(np.int32))
-    csum_ext = np.concatenate([[0], csum])
-    kept_len = csum_ext[offsets[1:]] - csum_ext[offsets[:-1]]
+    # the kept entries of each non-empty doc, an integer sum a doc
+    kept_len = np.zeros(D, np.int64)
+    nz = lengths > 0
+    if len(rows):
+        kept_len[nz] = np.add.reduceat(keep.view(np.uint8), offsets[:-1][nz],
+                                       dtype=np.int64)
     L = int(max(kept_len.max() if D else 0, 1))
     L = ((L + pad_to - 1) // pad_to) * pad_to
     if L >= MAX_NNZS:
         raise ValueError(f"doc with {L} nnz exceeds MAX_NNZS={MAX_NNZS}")
 
+    # a doc's kept entries fill its row from the start, in their order:
+    # the filled slots in row-major order take the kept entries in order
+    filled = np.arange(L) < kept_len[:, None]
     word_idx = np.full((D, L), V, np.int32)
+    word_idx[filled] = rows[keep]
     a = np.zeros((D, L), np.float32)
-    doc_ids = np.repeat(np.arange(D, dtype=np.int32), lengths)
-    # position within the doc among KEPT entries
-    within = csum - 1 - csum_ext[offsets[:-1]][doc_ids]
-    kd = doc_ids[keep]
-    kw = within[keep]
-    word_idx[kd, kw] = rows[keep]
-    a[kd, kw] = vals[keep]
+    a[filled] = vals[keep]
     return InferBatch(
         word_idx=word_idx,
         a=a,

@@ -225,6 +225,7 @@ class Trainer:
             num_docs=c.num_docs,
             tf_idf=c.tf_idf,
             int_normalized=c.hyper.use_int_normalized_counts,
+            log=self.logger.info,
         )
         self._post_ingest()
         self.timer.next("load + finalize data")

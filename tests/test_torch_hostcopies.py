@@ -7,6 +7,7 @@ equal arrays, byte-identical files."""
 import dataclasses
 import importlib.util
 import pathlib
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -94,6 +95,32 @@ def test_corpus_from_entries(opts):
                  jcorpus.Corpus.from_entries(d, w, c, **opts))
 
 
+@pytest.mark.parametrize("kind", ["float", "past 2^53", "negative"])
+def test_corpus_from_entries_counts_of_every_kind(kind):
+    """The assembly sums a doc's integer counts exactly only where
+    isle_tpu's float64 cumsum is exact too; float counts, integer counts
+    whose total passes 2^53 and negative counts take the cumsum, and
+    every kind gives isle_tpu's corpus bit for bit."""
+    d, w, c = native.sort_dedup_entries_plain(*_entries(3))
+    last0 = int(np.searchsorted(d, 1)) - 1  # doc 0's last entry
+    if kind == "float":
+        c = c + 0.37
+    else:
+        # a first count of 2^60: the float64 cumsum drops the small counts
+        # after it (with a last count of -2^60 in the same doc, doc 0's
+        # uint64 total stays small)
+        c = c.copy()
+        c[0] = 2**60
+        if kind == "negative":
+            c[last0] = -(2**60)
+    for opts in (dict(), dict(normalize_to_one=True),
+                 dict(vocab_size=400, num_docs=250)):
+        opts["sort_dedup"] = False  # the sort casts counts to int64
+        with np.errstate(divide="ignore"):  # doc 0's float sum is 0
+            _same_corpus(corpus.Corpus.from_entries(d, w, c, **opts),
+                         jcorpus.Corpus.from_entries(d, w, c, **opts))
+
+
 @pytest.mark.parametrize("opts", [
     dict(), dict(normalize_to_one=True), dict(tf_idf=True),
     dict(int_normalized=True), dict(vocab_size=400, num_docs=250),
@@ -126,20 +153,62 @@ def test_corpus_doc_sums_and_vals_match(opts):
         lambda k, ds: k)
 
 
+@pytest.mark.parametrize("in_order", [False, True])
 @pytest.mark.parametrize("opts", [
     dict(), dict(max_entries=1500, normalize_to_one=True),
     dict(doc_base_offset=3, num_docs=210),
 ])
-def test_corpus_from_tdf_file(tmp_path, opts):
+def test_corpus_from_tdf_file(tmp_path, opts, in_order):
+    """The ingest (the parse rebasing in place, the sort in the parsed
+    arrays or its check that they are in order, the assembly letting
+    each array go) gives isle_tpu's corpus bit for bit, from a file in
+    no order with duplicate pairs and from one in (doc, word) order."""
     d, w, c = _entries(2)
+    if in_order:
+        d, w, c = native.sort_dedup_entries_plain(d, w, c)
     path = str(tmp_path / "c.tdf")
     with open(path, "w") as f:
         for x in zip(d + 4, w + 1, c):
             f.write("%d %d %d\n" % x)
     assert all(np.array_equal(a, b) for a, b in zip(
         native.parse_tdf(path), jnative.parse_tdf(path)))
-    _same_corpus(corpus.Corpus.from_tdf_file(path, **opts),
+    lines = []
+    _same_corpus(corpus.Corpus.from_tdf_file(path, log=lines.append, **opts),
                  jcorpus.Corpus.from_tdf_file(path, **opts))
+    (line,) = lines
+    assert line.startswith(f"ingest: text I/O {native.backend()}, parse ")
+    assert line.endswith("; sort " + (
+        "none needed (already sorted and unique, in place)" if in_order
+        else "native radix sort (in place)"))
+
+
+@pytest.mark.parametrize("in_order", [False, True])
+def test_tdf_ingest_numpy_bytes_per_entry(tmp_path, in_order):
+    """Corpus.from_tdf_file holds at its peak no more numpy bytes than the
+    parse's three int64 arrays, 24 an entry, and a few arrays a doc: the
+    parse rebases in place, the sort works in the parsed arrays (its
+    indices, 8 bytes an entry, are the C library's), the assembly lets
+    each array go once read, sums each doc's integer counts exactly
+    without a float64 cumsum of them all, and divides a block of docs at
+    a time. Copies of the parse, of the sort's input, of the offsets'
+    doc ids and of the counts in float64 would take 72 an entry here."""
+    n, D, V = 400_000, 5_000, 3_000
+    rng = np.random.default_rng(5)
+    d, w, c = rng.integers(0, D, n), rng.integers(0, V, n), \
+        rng.integers(1, 9, n)
+    if in_order:
+        d, w, c = native.sort_dedup_entries_plain(d, w, c)
+    path = str(tmp_path / "c.tdf")
+    native.write_int_triples(path, d, w, c, 1, 1, 0)
+    tracemalloc.start()
+    try:
+        got = corpus.Corpus.from_tdf_file(path, vocab_size=V, num_docs=D)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak <= 24 * len(d) + 64 * D + (1 << 18)
+    _same_corpus(got, jcorpus.Corpus.from_tdf_file(path, vocab_size=V,
+                                                   num_docs=D))
 
 
 def test_entry_feeder_and_vocab_file(tmp_path):

@@ -104,8 +104,27 @@ def test_infer_all_matches_jax(name, seed):
         assert ((got[0] > 0).sum(axis=1) == 5).all()
 
 
-def test_build_infer_batch_matches_jax():
-    M, corpus, _ = _case("skewed", 4)
+def _with_empty_docs(seed):
+    """A model half of whose words have no mass and a corpus whose first,
+    middle and last docs are empty, with docs that keep no word."""
+    rng = np.random.default_rng(seed)
+    V, k = 90, 4
+    M = make_model(rng, V, k)
+    M[rng.random(V) < 0.5] = 0.0
+    lengths = rng.integers(1, 40, 60)
+    lengths[[0, 30, 59]] = 0
+    return M, make_corpus(rng, V, lengths)
+
+
+@pytest.mark.parametrize("case", ["skewed", "empty docs"])
+def test_build_infer_batch_matches_jax(case):
+    """The packed arrays equal isle_tpu's: each doc's kept words fill its
+    row from the start, in order, and pads stay V and 0."""
+    if case == "skewed":
+        M, corpus, _ = _case("skewed", 4)
+    else:
+        M, corpus = _with_empty_docs(6)
+        assert (np.diff(corpus.offsets) == 0).sum() == 3
     got = mwu.build_infer_batch(corpus, M.sum(axis=1))
     ref = jmwu.build_infer_batch(corpus, M.sum(axis=1))
     np.testing.assert_array_equal(got.word_idx, ref.word_idx)
