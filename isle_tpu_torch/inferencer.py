@@ -17,7 +17,7 @@ from . import io_text
 from .config import GpuConfig, InferConfig
 from .corpus import Corpus
 from .mwu import build_infer_batch, infer_all
-from .obs import Logger, Timer
+from .obs import Logger, Timer, mark_stage_in_trace, profiler_trace
 from .sharding import Mesh, default_mesh, require_mesh
 
 # the docs of one top-topics report file, as ISLEInfer.cpp:66-84 fixes it
@@ -99,8 +99,10 @@ class Inferencer:
                 f"model shape {model.shape} != (vocab_size, num_topics) "
                 f"{(config.vocab_size, config.num_topics)}"
             )
-        self.model = model.astype(np.float32)
-        self.model_mass = self.model.sum(axis=1)
+        with self.timer.span("pack: model mass"):
+            self.model = model.astype(np.float32)
+            self.model_mass = self.model.sum(axis=1)
+        self._tracing = False  # inside a GpuConfig.profile_dir trace
 
     def infer_corpus(self, corpus: Corpus, top_n: int = 0,
                      max_entries: Optional[int] = None) -> InferResult:
@@ -111,27 +113,20 @@ class Inferencer:
         max_entries, when given, is the avg-LLH-per-word divisor exactly
         as the CLI uses its max_entries ARGUMENT — not the actual entry
         count — even when the file holds fewer entries
-        (ISLEInfer.cpp:183)."""
-        cfg = self.config
+        (ISLEInfer.cpp:183).
+
+        GpuConfig.profile_dir runs it inside a torch.profiler trace, as
+        Trainer.train, written to <profile_dir>/infer_<pid>_<time>.json
+        (rank 0 only), with the stage ends marked in it."""
         require_mesh(self.gpu, self.mesh)
-        batch = build_infer_batch(corpus, self.model_mass)
-        self.timer.next("pack inference batch")
-        if self.mesh is not None:
-            self.logger.info(
-                f"sharded inference on {self.mesh.world} rank(s)")
-        weights, conv, llh_doc, llh_w = infer_all(
-            self.model,
-            batch,
-            iters=cfg.resolved_iters(),
-            Lf=cfg.resolved_Lf(),
-            max_guesses=cfg.hyper.infer_max_guesses,
-            top_n=top_n,
-            device=self.device,
-            mesh=self.mesh,
-        )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timer.next("MWU inference")
+        profile_dir = self.gpu.profile_dir if self.is_writer else ""
+        with profiler_trace(profile_dir, self.logger,
+                            self.device.type == "cuda", name="infer") as path:
+            self._tracing = path is not None
+            try:
+                weights, conv, llh_doc, llh_w = self._infer(corpus, top_n)
+            finally:
+                self._tracing = False
         nconv = int(conv.sum())
         D = corpus.num_docs
         total_entries = max_entries if max_entries else corpus.nnz
@@ -155,6 +150,36 @@ class Inferencer:
             avg_llh_per_converged_doc=float(avg_doc),
             avg_llh_per_word=float(avg_word),
         )
+
+    def _infer(self, corpus: Corpus, top_n: int):
+        """The pack and MWU stages of infer_corpus."""
+        cfg = self.config
+        batch = build_infer_batch(corpus, self.model_mass, timer=self.timer)
+        self._next("pack inference batch")
+        if self.mesh is not None:
+            self.logger.info(
+                f"sharded inference on {self.mesh.world} rank(s)")
+        out = infer_all(
+            self.model,
+            batch,
+            iters=cfg.resolved_iters(),
+            Lf=cfg.resolved_Lf(),
+            max_guesses=cfg.hyper.infer_max_guesses,
+            top_n=top_n,
+            device=self.device,
+            mesh=self.mesh,
+            timer=self.timer,
+        )
+        with self.timer.span("stage end: device wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._next("MWU inference")
+        return out
+
+    def _next(self, label: str) -> None:
+        self.timer.next(label)
+        if self._tracing:
+            mark_stage_in_trace(label)
 
     def infer_file(
         self,

@@ -24,6 +24,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
+
 # Ritz values below RANK_TOL * lambda_max are zero modes of the PSD Gram
 # operator; they converge on an absolute test (isle_tpu/linalg.py:40-50).
 RANK_TOL = 1e-6
@@ -61,7 +63,6 @@ class EigResult:
     nconv: int
     restarts: int
     op_calls: int
-    op_seconds: float
 
 
 def _dgks_project(V: torch.Tensor, F: torch.Tensor, rounds: int = 2):
@@ -193,33 +194,35 @@ def block_ks(
 
     The host-driven loop (GpuConfig.device_loop_solver=False): each
     restart solves its Ritz problem with LAPACK on the host, reads the
-    convergence back and logs a diagnostic line."""
+    convergence back and logs a diagnostic line. With a Timer, the spans
+    and count of block_ks_device."""
     blk, keep, s, K, ncv = _krylov_shapes(dim, nev, blk, steps_per_restart)
-    V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
+    with obs.span(timer, "eigensolve: start block"):
+        V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
 
     op_calls = 0
-    op_seconds = 0.0
     m = 0  # active square columns of H
     restarts = 0
     while True:
-        t0 = time.perf_counter()
         steps = (K - m) // blk
-        for i in range(steps):
-            _expand(op, V, H, m + i * blk, blk)
-        if steps:
-            _sync(V)
-            op_seconds += time.perf_counter() - t0
-            op_calls += steps
-        w, W = _ritz(H, K, on_host=True)
-        V, H, rnorm, conv, is_zero = _truncate(V, H, w, W, nev, keep, tol)
-        conv_h = conv.cpu().numpy()
-        is_zero_h = is_zero.cpu().numpy()
-        norms_h = (rnorm / torch.clamp(torch.abs(w[:nev]), min=1e-30)).cpu()
-        bad = np.flatnonzero(~conv_h)
-        nconv = int(bad[0]) if len(bad) else nev
-        evals = np.where(is_zero_h, 0.0, w[:nev].cpu().numpy()).astype(
-            np.float32
-        )
+        with obs.span(timer, "eigensolve: expand"):
+            for i in range(steps):
+                _expand(op, V, H, m + i * blk, blk)
+        op_calls += steps
+        with obs.span(timer, "eigensolve: ritz"):
+            w, W = _ritz(H, K, on_host=True)
+            V, H, rnorm, conv, is_zero = _truncate(V, H, w, W, nev, keep,
+                                                   tol)
+        with obs.span(timer, "eigensolve: stop test"):
+            conv_h = conv.cpu().numpy()
+            is_zero_h = is_zero.cpu().numpy()
+            norms_h = (rnorm / torch.clamp(torch.abs(w[:nev]),
+                                           min=1e-30)).cpu()
+            bad = np.flatnonzero(~conv_h)
+            nconv = int(bad[0]) if len(bad) else nev
+            evals = np.where(is_zero_h, 0.0, w[:nev].cpu().numpy()).astype(
+                np.float32
+            )
         if timer is not None:
             timer.diag(
                 f"block_ks restart {restarts}: nconv={nconv}/{nev} "
@@ -229,6 +232,7 @@ def block_ks(
         if nconv >= nev or restarts >= max_restarts:
             break
         restarts += 1
+        obs.count(timer, "eigensolve restarts")
 
     return EigResult(
         evals=evals,
@@ -236,7 +240,6 @@ def block_ks(
         nconv=nconv,
         restarts=restarts,
         op_calls=op_calls,
-        op_seconds=op_seconds,
     )
 
 
@@ -264,27 +267,34 @@ def block_ks_device(
     synchronizes; a failed eigh raises). K/blk expand steps and a
     truncate, then restarts of s steps and a truncate while
     nconv < nev and restarts < max_restarts. One diagnostic line for the
-    solve; op_calls = K/blk + s * restarts, op_seconds the whole solve."""
+    solve; op_calls = K/blk + s * restarts. With a Timer, spans of the
+    start block (its draw, copy and QR) and of each restart's expand
+    steps, its Ritz step (the eigh and the truncate) and its stop test
+    (the scan and the readback), and a count of the restarts."""
     blk, keep, s, K, ncv = _krylov_shapes(dim, nev, blk, steps_per_restart)
     t0 = time.perf_counter()
-    V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
+    with obs.span(timer, "eigensolve: start block"):
+        V, H = _start_basis(dim, ncv, K, blk, draws, device, start_block)
 
     def restart(V, H, m):
-        for i in range(m, K, blk):
-            _expand(op, V, H, i, blk)
-        w, W = _ritz(H, K, on_host=False)
-        V, H, _, conv, is_zero = _truncate(V, H, w, W, nev, keep, tol)
-        # the longest converged prefix: an integer scan
-        nconv = torch.cumprod(conv.to(torch.int32), 0).sum()
-        return V, H, nconv, torch.where(is_zero, 0.0, w[:nev])
+        with obs.span(timer, "eigensolve: expand"):
+            for i in range(m, K, blk):
+                _expand(op, V, H, i, blk)
+        with obs.span(timer, "eigensolve: ritz"):
+            w, W = _ritz(H, K, on_host=False)
+            V, H, _, conv, is_zero = _truncate(V, H, w, W, nev, keep, tol)
+        evals_d = torch.where(is_zero, 0.0, w[:nev])
+        with obs.span(timer, "eigensolve: stop test"):
+            # the longest converged prefix: an integer scan, read back
+            nconv = int(torch.cumprod(conv.to(torch.int32), 0).sum())
+        return V, H, nconv, evals_d
 
-    V, H, nconv_d, evals_d = restart(V, H, 0)
-    nconv = int(nconv_d)  # the stop test's readback
+    V, H, nconv, evals_d = restart(V, H, 0)
     restarts = 0
     while nconv < nev and restarts < max_restarts:
-        V, H, nconv_d, evals_d = restart(V, H, keep)
-        nconv = int(nconv_d)
+        V, H, nconv, evals_d = restart(V, H, keep)
         restarts += 1
+        obs.count(timer, "eigensolve restarts")
     evals = evals_d.cpu().numpy()
     _sync(V)
     seconds = time.perf_counter() - t0
@@ -299,7 +309,6 @@ def block_ks_device(
         nconv=nconv,
         restarts=restarts,
         op_calls=K // blk + s * restarts,
-        op_seconds=seconds,
     )
 
 
@@ -432,7 +441,6 @@ def lanczos(
         nconv=nconv,
         restarts=restarts,
         op_calls=K + s * restarts,
-        op_seconds=seconds,
     )
 
 

@@ -28,13 +28,31 @@ reaches no Pallas kernel in isle_tpu, so nothing here is a CUDA kernel.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 
 import numpy as np
 import torch
 
+from . import obs
+
 MAX_NNZS = 20000  # include/infer.h:52
+
+# the Timer of infer_all's block in flight, which mwu_core counts its
+# guesses and retried docs into: mwu_core keeps its six arguments, so that
+# any function of those six can stand in for it
+_BLOCK_TIMER = contextvars.ContextVar("mwu_block_timer", default=None)
+
+
+@contextlib.contextmanager
+def _counting_into(timer):
+    token = _BLOCK_TIMER.set(timer)
+    try:
+        yield
+    finally:
+        _BLOCK_TIMER.reset(token)
 
 
 @dataclasses.dataclass
@@ -49,19 +67,21 @@ class InferBatch:
 
 
 def build_infer_batch(corpus, model_mass: np.ndarray,
-                      pad_to: int = 8) -> InferBatch:
+                      pad_to: int = 8, timer=None) -> InferBatch:
     """Pack a normalized-to-one corpus into padded per-doc arrays, dropping
-    words with model mass <= 1e-10 (src/infer.cpp:375-386)."""
+    words with model mass <= 1e-10 (src/infer.cpp:375-386). With a Timer,
+    spans of the keep mask (with the kept lengths) and of the fill."""
     offsets, rows, vals = corpus.offsets, corpus.rows, corpus.vals
     D, V = corpus.num_docs, corpus.vocab_size
-    keep = model_mass[rows] > 1e-10
-    lengths = np.diff(offsets)
-    # the kept entries of each non-empty doc, an integer sum a doc
-    kept_len = np.zeros(D, np.int64)
-    nz = lengths > 0
-    if len(rows):
-        kept_len[nz] = np.add.reduceat(keep.view(np.uint8), offsets[:-1][nz],
-                                       dtype=np.int64)
+    with obs.span(timer, "pack: keep mask"):
+        keep = model_mass[rows] > 1e-10
+        lengths = np.diff(offsets)
+        # the kept entries of each non-empty doc, an integer sum a doc
+        kept_len = np.zeros(D, np.int64)
+        nz = lengths > 0
+        if len(rows):
+            kept_len[nz] = np.add.reduceat(keep.view(np.uint8),
+                                           offsets[:-1][nz], dtype=np.int64)
     L = int(max(kept_len.max() if D else 0, 1))
     L = ((L + pad_to - 1) // pad_to) * pad_to
     if L >= MAX_NNZS:
@@ -69,11 +89,12 @@ def build_infer_batch(corpus, model_mass: np.ndarray,
 
     # a doc's kept entries fill its row from the start, in their order:
     # the filled slots in row-major order take the kept entries in order
-    filled = np.arange(L) < kept_len[:, None]
-    word_idx = np.full((D, L), V, np.int32)
-    word_idx[filled] = rows[keep]
-    a = np.zeros((D, L), np.float32)
-    a[filled] = vals[keep]
+    with obs.span(timer, "pack: fill"):
+        filled = np.arange(L) < kept_len[:, None]
+        word_idx = np.full((D, L), V, np.int32)
+        word_idx[filled] = rows[keep]
+        a = np.zeros((D, L), np.float32)
+        a[filled] = vals[keep]
     return InferBatch(
         word_idx=word_idx,
         a=a,
@@ -109,7 +130,9 @@ def mwu_core(Mw: torch.Tensor, word_idx: torch.Tensor, a: torch.Tensor,
     with pad = V, a (bs, L) in Mw's dtype. Returns (w (bs, k), converged
     (bs,) bool, s (bs,) = sum a log z). Unconverged rows keep the uniform
     start. Each guess reruns only the docs not yet settled; the guess
-    loop is on the host, one readback per guess."""
+    loop is on the host, one readback per guess. Inside infer_all with a
+    Timer, counts of the guesses (runs of _run) and of the docs retried."""
+    timer = _BLOCK_TIMER.get()
     bs, _ = word_idx.shape
     k = Mw.shape[1]
     Mb = Mw[word_idx.long()]  # (bs, L, k), gathered once
@@ -119,6 +142,7 @@ def mwu_core(Mw: torch.Tensor, word_idx: torch.Tensor, a: torch.Tensor,
     Lf = torch.full((bs,), Lf0, dtype=Mw.dtype, device=Mw.device)
     todo = torch.arange(bs, device=Mw.device)
     for _ in range(max_guesses):
+        obs.count(timer, "mwu guesses")
         if todo.numel() == bs:  # first guess: no copy of Mb
             w_new = _run(Mb, a, iters, Lf)
         else:
@@ -134,6 +158,7 @@ def mwu_core(Mw: torch.Tensor, word_idx: torch.Tensor, a: torch.Tensor,
         todo = todo[retry]
         if todo.numel() == 0:
             break
+        obs.count(timer, "mwu docs retried", todo.numel())
         Lf[todo] *= 2.0
     z = torch.bmm(Mb, w[:, :, None])[:, :, 0]
     logz = torch.where(a > 0, torch.log(z), 0.0)
@@ -175,6 +200,7 @@ def infer_all(
     top_n: int = 0,
     device="cuda",
     mesh=None,
+    timer=None,
 ):
     """Run MWU over every doc on `device`. Returns (weights (D, k),
     converged (D,), llh_per_doc (D,), llh_weighted (D,)) as numpy.
@@ -190,21 +216,27 @@ def infer_all(
     reference's parallel-for over doc blocks (ISLEInfer.cpp:64-117) for
     one process a card. MWU is row-parallel, so the loop holds no
     collective; at the end every rank gathers the others' rows and
-    returns the whole result."""
+    returns the whole result.
+
+    With a Timer, spans of the set-up (the model to the device, the
+    result arrays, the kept lengths), of each block's work (the host's
+    slice, the copy to the device, the core, the write back of its
+    results) and of the results' final form, and counts of the blocks,
+    their padded slots (rows x width) and kept entries."""
     device = torch.device(device)
     V, k = model.shape
     D, L = batch.word_idx.shape
     top_n = min(top_n, k)
-    Mw = torch.cat([torch.as_tensor(model, dtype=torch.float32),
-                    torch.zeros((1, k), dtype=torch.float32)]).to(device)
-    weights = np.full((D, k), 1.0 / k, np.float32)
-    conv = np.zeros(D, bool)
-    s_all = np.zeros(D, np.float32)
-
-    # Bucket docs by kept length: the padded layout is front-loaded, so a
-    # doc with n kept words only needs the first n columns. Fine edges
-    # (multiples of 64 through 512) keep padding waste small.
-    kept = (batch.word_idx < V).sum(axis=1)
+    with obs.span(timer, "mwu: set-up"):
+        Mw = torch.cat([torch.as_tensor(model, dtype=torch.float32),
+                        torch.zeros((1, k), dtype=torch.float32)]).to(device)
+        weights = np.full((D, k), 1.0 / k, np.float32)
+        conv = np.zeros(D, bool)
+        s_all = np.zeros(D, np.float32)
+        # Bucket docs by kept length: the padded layout is front-loaded,
+        # so a doc with n kept words only needs the first n columns. Fine
+        # edges (multiples of 64 through 512) keep padding waste small.
+        kept = (batch.word_idx < V).sum(axis=1)
     fine = [64, 128, 192, 256, 320, 384, 448, 512, 1024, 2048, 8192]
     edges = [e for e in fine if e < L] + [L]
     mine = []  # the docs this rank inferred, block by block
@@ -228,30 +260,38 @@ def infer_all(
             bs = len(idx)
             if bs == 0:
                 continue
-            wi = batch.word_idx[idx, :edge]
-            av = batch.a[idx, :edge]
-            if bs < cap:  # pad the tail block to the block shape
-                wi = np.concatenate(
-                    [wi, np.full((cap - bs, edge), V, np.int32)])
-                av = np.concatenate(
-                    [av, np.zeros((cap - bs, edge), np.float32)])
-            w, c, s = mwu_core(
-                Mw, torch.from_numpy(wi).to(device),
-                torch.from_numpy(av).to(device), iters, Lf, max_guesses,
-            )
-            if top_n:
-                tv, ti = (x[:bs].cpu().numpy() for x in top_n_rows(w, top_n))
-                rows = np.zeros((bs, k), np.float32)
-                np.put_along_axis(rows, ti, tv, axis=1)
-                weights[idx] = rows
-            else:
-                weights[idx] = w[:bs].cpu().numpy()
-            conv[idx] = c[:bs].cpu().numpy()
-            s_all[idx] = s[:bs].cpu().numpy()
+            obs.count(timer, "mwu blocks")
+            obs.count(timer, "mwu slots", cap * edge)
+            obs.count(timer, "mwu entries", int(kept[idx].sum()))
+            with obs.span(timer, "mwu: block slice"):
+                wi = batch.word_idx[idx, :edge]
+                av = batch.a[idx, :edge]
+                if bs < cap:  # pad the tail block to the block shape
+                    wi = np.concatenate(
+                        [wi, np.full((cap - bs, edge), V, np.int32)])
+                    av = np.concatenate(
+                        [av, np.zeros((cap - bs, edge), np.float32)])
+            with obs.span(timer, "mwu: copy to device"):
+                wi_d = torch.from_numpy(wi).to(device)
+                av_d = torch.from_numpy(av).to(device)
+            with obs.span(timer, "mwu: core"), _counting_into(timer):
+                w, c, s = mwu_core(Mw, wi_d, av_d, iters, Lf, max_guesses)
+            with obs.span(timer, "mwu: write back"):
+                if top_n:
+                    tv, ti = (x[:bs].cpu().numpy()
+                              for x in top_n_rows(w, top_n))
+                    rows = np.zeros((bs, k), np.float32)
+                    np.put_along_axis(rows, ti, tv, axis=1)
+                    weights[idx] = rows
+                else:
+                    weights[idx] = w[:bs].cpu().numpy()
+                conv[idx] = c[:bs].cpu().numpy()
+                s_all[idx] = s[:bs].cpu().numpy()
             mine.append(idx)
     if mesh is not None:
         _gather_rows(mesh, mine, weights, conv, s_all)
-    llh_doc = np.where(conv, s_all * np.float32(batch.avg_doc_sz), 0.0)
-    llh_weighted = np.where(conv, s_all * batch.words_in_doc, 0.0)
-    weights = np.where(conv[:, None], weights, np.float32(1.0 / k))
+    with obs.span(timer, "mwu: results"):
+        llh_doc = np.where(conv, s_all * np.float32(batch.avg_doc_sz), 0.0)
+        llh_weighted = np.where(conv, s_all * batch.words_in_doc, 0.0)
+        weights = np.where(conv[:, None], weights, np.float32(1.0 / k))
     return weights, conv, llh_doc, llh_weighted

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import segsum
+from . import obs, segsum
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 
 # Docs a tile of the tile-ordered word stream (with_doc_tiles): a (T, 128)
@@ -70,26 +70,34 @@ class DocSparse:
         return self.d_word.device
 
     @staticmethod
-    def from_corpus(corpus, device) -> "DocSparse":
+    def from_corpus(corpus, device, timer=None) -> "DocSparse":
         """From a corpus.Corpus, whose CSC arrays are doc-sorted."""
+        with obs.span(timer, "upload: doc ids"):
+            docs = corpus.doc_ids()
         return DocSparse.from_doc_sorted(
-            corpus.rows, corpus.doc_ids(), corpus.vals, corpus.vocab_size,
-            corpus.num_docs, device)
+            corpus.rows, docs, corpus.vals, corpus.vocab_size,
+            corpus.num_docs, device, timer=timer)
 
     @staticmethod
     def from_doc_sorted(words, docs, vals, vocab: int, num_docs: int,
-                        device) -> "DocSparse":
+                        device, timer=None) -> "DocSparse":
         """From host COO arrays sorted by (doc, word); the word-sorted
-        copy is made on the device by one sort of word * (D + 1) + doc."""
+        copy is made on the device by one sort of word * (D + 1) + doc.
+        With a Timer, spans of the copies and the sort, and the bytes
+        copied."""
         D = int(num_docs)
-        dw = torch.as_tensor(np.asarray(words, np.int32)).to(device)
-        dd = torch.as_tensor(np.asarray(docs, np.int32)).to(device)
-        dv = torch.as_tensor(np.asarray(vals, np.float32)).to(device)
-        key = dw.long() * (D + 1) + dd.long()
-        perm = torch.sort(key, stable=True).indices
+        with obs.span(timer, "upload: copy to device"):
+            host = (np.asarray(words, np.int32), np.asarray(docs, np.int32),
+                    np.asarray(vals, np.float32))
+            obs.count(timer, "upload bytes", sum(a.nbytes for a in host))
+            dw, dd, dv = (torch.as_tensor(a).to(device) for a in host)
+        with obs.span(timer, "upload: word-order sort"):
+            key = dw.long() * (D + 1) + dd.long()
+            perm = torch.sort(key, stable=True).indices
+            w_word, w_doc, w_val = dw[perm], dd[perm], dv[perm]
         return DocSparse(
             d_word=dw, d_doc=dd, d_val=dv,
-            w_word=dw[perm], w_doc=dd[perm], w_val=dv[perm],
+            w_word=w_word, w_doc=w_doc, w_val=w_val,
             vocab=int(vocab), num_docs=D,
         )
 

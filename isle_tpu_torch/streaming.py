@@ -57,7 +57,7 @@ from .elkans import run_elkans
 from .hybrid import max_head_rows, row_scale_from_zetas, to_hybrid
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
-from .matops import mat_bt_x, mat_spmm_flops
+from .matops import mat_bt_x
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 from .sharding import require_mesh
 from .sparse import DocSparse, with_doc_tiles
@@ -932,10 +932,7 @@ class StreamedTrainer:
                 device_loop=t.gpu.device_loop_solver,
             )
             if stats is not None:
-                res, op_width = stats
-                t.op_counter.add(res.op_seconds,
-                                 mat_spmm_flops(Bh, op_width) * res.op_calls,
-                                 res.op_calls)
+                t.op_counter.add(stats.op_calls)
             t._mark("eigen solve (B B^T)")
             t._checkpoint("svd", U=U.cpu().numpy(), evalues=t.evalues,
                           zetas=zetas.cpu().numpy(),

@@ -43,8 +43,7 @@ from .hybrid import hybrid_from_thresholds, max_head_rows, \
 from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
     run_lloyds_projected
 from .linalg import block_ks, block_ks_device, dense_topk_eigh, lanczos
-from .matops import mat_b_y, mat_bt_x, mat_gram_x, mat_spmm_flops, \
-    mat_to_dense
+from .matops import mat_b_y, mat_bt_x, mat_gram_x, mat_to_dense
 from .obs import Logger, OpCounter, Timer, mark_stage_in_trace, \
     profiler_trace
 from .rng import Draws
@@ -107,7 +106,7 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
     sharded trainer hands in `op` (X -> (B B^T) X on every rank) and
     `dense_gram` (-> the (V, V) float64 Gram matrix on the host).
     Returns (evalues np.float32[k], U (V, k) tensor, stats) with stats None
-    for the dense oracle and (EigResult, op width) otherwise."""
+    for the dense oracle and the EigResult otherwise."""
     hp = cfg.hyper
     eigensolver = hp.eigensolver  # validated by check_supported
     if eigensolver != "dense" and 2 * k + 2 >= V:
@@ -134,16 +133,14 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
     common = dict(tol=hp.block_ks_tolerance,
                   max_restarts=hp.block_ks_max_iters, timer=timer)
     if eigensolver == "lanczos":
-        op_width = 1
         res = lanczos(
             op, V, k, draws, B.device, **common,
             start_vector=None if start_block is None else start_block[:, 0],
         )
     else:
-        op_width = hp.block_ks_block_size
         solver = block_ks_device if device_loop else block_ks
-        res = solver(op, V, k, draws, B.device, blk=op_width, **common,
-                     start_block=start_block)
+        res = solver(op, V, k, draws, B.device, blk=hp.block_ks_block_size,
+                     start_block=start_block, **common)
     if res.nconv < k:
         if hp.block_ks_strict:
             raise RuntimeError(
@@ -155,7 +152,7 @@ def solve_gram_eigens(B, V: int, k: int, cfg: TrainConfig,
         if logger:
             logger.warning(
                 f"{eigensolver} converged only {res.nconv}/{k} eigenpairs")
-    return res.evals, res.evecs, (res, op_width)
+    return res.evals, res.evecs, res
 
 
 class Trainer:
@@ -279,8 +276,9 @@ class Trainer:
     def _mark(self, label: str) -> None:
         """Close a timed stage once the device has finished its work, and
         note the kernels' launch counts as they stand at its end."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self.timer.span("stage end: device wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.timer.next(label)
         self.stage_launches.append((label, launch_counts()))
         if self._tracing:
@@ -291,7 +289,8 @@ class Trainer:
         (output_doc_topic, output_avg_topic_coherence, compute_input_svd)
         share one upload."""
         if self.A is None:
-            self.A = DocSparse.from_corpus(self.corpus, self.device)
+            self.A = DocSparse.from_corpus(self.corpus, self.device,
+                                           timer=self.timer)
         return self.A
 
     def _doc_topic_mass(self, cw_topic: torch.Tensor) -> torch.Tensor:
@@ -474,11 +473,7 @@ class Trainer:
                 device_loop=self.gpu.device_loop_solver,
             )
             if stats is not None:
-                res, op_width = stats
-                self.op_counter.add(
-                    res.op_seconds,
-                    mat_spmm_flops(B, op_width) * res.op_calls, res.op_calls,
-                )
+                self.op_counter.add(stats.op_calls)
                 self.logger.info(self.op_counter.summary())
         self._print_eigen_data(self.evalues, k)
         self._mark("eigen solve (B B^T)")
@@ -726,7 +721,7 @@ class Trainer:
         from .elkans_sharded import sharded_run_elkans
         from .sharding import compact_doc_rows, pad_doc_rows, shard_hybrid, \
             sharded_b_y, sharded_bt_x, sharded_gram_x, \
-            sharded_run_lloyds_full, sharded_spmm_flops
+            sharded_run_lloyds_full
 
         mesh = self.mesh
         cfg = self.config
@@ -784,12 +779,7 @@ class Trainer:
             self.evalues = mesh.broadcast(
                 torch.from_numpy(evalues).to(dev)).cpu().numpy()
             if stats is not None:
-                res, op_width = stats
-                self.op_counter.add(
-                    res.op_seconds,
-                    sharded_spmm_flops(B, op_width) * res.op_calls,
-                    res.op_calls,
-                )
+                self.op_counter.add(stats.op_calls)
                 self.logger.info(self.op_counter.summary())
             if state is not None:
                 state["evalues"], state["U"] = self.evalues, U
@@ -921,16 +911,17 @@ class Trainer:
         if not self.config.compute_edge_topics:
             raise RuntimeError("edge topic flag is off")
         t1, t2, valid = self.top_pairs
-        self.edge_model, self.edge_pairs = construct_edge_topics_v2(
-            t1,
-            t2,
-            valid,
-            self.model,
-            self.config.num_topics,
-            self.config.max_edge_topics,
-            min_docs=self.config.hyper.edge_topic_min_docs,
-            primary_ratio=self.config.hyper.edge_topic_primary_ratio,
-        )
+        with self.timer.span("edge topics: build"):
+            self.edge_model, self.edge_pairs = construct_edge_topics_v2(
+                t1,
+                t2,
+                valid,
+                self.model,
+                self.config.num_topics,
+                self.config.max_edge_topics,
+                min_docs=self.config.hyper.edge_topic_min_docs,
+                primary_ratio=self.config.hyper.edge_topic_primary_ratio,
+            )
         self.logger.info(f"#Edge topics: {self.edge_model.shape[1]}")
         self.timer.next("constructing edge topic model")
 
@@ -1206,5 +1197,7 @@ class Trainer:
         path = os.path.join(self.run_dir, f"ckpt_{stage}.npz")
         arrays = {k: v for k, v in arrays.items() if v is not None}
         arrays["corpus_stamp"] = self._corpus_stamp()
-        np.savez(path, **arrays)
+        with self.timer.span("checkpoint write"):
+            np.savez(path, **arrays)
+            self.timer.count("checkpoint bytes", os.path.getsize(path))
         self.logger.diag(f"checkpointed stage '{stage}' -> {path}")
