@@ -70,14 +70,16 @@ phases P and Q. Phases, in order:
      atol 1e-6;
   8. inference at full width: the NYTimes docs normalized to unit mass,
      inferred with phase 4's model (iters 15, Lf 10) twice, top 5 per doc
-     as the CLI reads them and full weights: wall time, host packing
+     as the CLI reads them and full weights: wall time, the card pack's
      time, converged share, average LLHs, peak device memory. Checks:
      every converged row of the full weights sums to 1 within 1e-2, the
      LLHs are finite, at least 90% of docs converge, and on a fixed
      sample of 2,048 docs the card's weights equal a float64 CPU run of
      the plain MWU core within atol 1e-4 with the same convergence flags.
      Whether the two runs' weights are bit-equal is printed. MWU reaches
-     no kernel: the launch counts of this run are printed, not required.
+     no segsum kernel (those launch counts are printed, not required);
+     each run packs its batch on the card, one launch of each pack
+     kernel (counted from zero before the run, required).
 
   E. (between 6 and H1) the eigensolver's two loops on phase 4's B
      (rebuilt from the run's ζ, with its doc tiles): linalg.block_ks_device
@@ -410,11 +412,18 @@ Then, with everything of the NYTimes phases off the card:
      the same flags, none left out above a kept one); the first block
      inferred alone with every weight read back: the same flags, its
      converged rows summing to 1 within 1e-2, its top-5 rows within 1e-6
-     of the whole run's (bit-equality printed). Before the run the
-     host's available memory beside the whole-corpus pack's reckoned
-     bytes (pack_bytes; the phase fails if it would not fit); printed the
-     walls, the MWU blocks, the peak RSS and device memory. Each part's
-     seconds are printed;
+     of the whole run's (bit-equality printed); a tenth of the docs (a
+     range of the benchmark's pubmed-infer) inferred alone: the same
+     flags. Both pack kernels (csrc/pack.cu) at that range's shape and
+     at the whole corpus's, against their plain versions on the same
+     card tensors, bit for bit, two launches bit-equal, timed beside
+     their bounds (and the host's numpy pack at the range); their
+     launches counted from zero before the whole-corpus run and the
+     range's, one each. Before the run the card's free memory beside
+     the whole-corpus card pack's reckoned bytes (card_pack_bytes; the
+     phase fails if it would not fit); printed the walls, the MWU
+     blocks, the peak RSS and device memory. Each part's seconds are
+     printed;
   Q.  both CLIs at PubMed's shape as a user runs them, from a TDF file.
      Q0 P0's corpus written as a 1-based TDF file by the port's triple
      writer and a vocab file, after a check that the disk holds what the
@@ -529,6 +538,8 @@ CROSS_LAYOUT_K = 64
 # phase M: the micro-benchmarks' kernels (micro_kernels.py) at the shapes of
 # benchmarks/micro_pallas.py and micro_pallas_gather.py
 PARTIALS, ROWGATHER = "chunk_partials", "row_gather_async"
+# the card pack of inference's batch (isle_tpu_torch/pack.py, csrc/pack.cu)
+PACK_KEPT, PACK_FILL = "pack_kept_lengths", "pack_fill"
 MICRO = dict(n=1 << 24, width=128, chunk=2048, gather_n=1 << 22,
              gather_rows=102_660)
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -758,34 +769,45 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str,
                name: str = "infer_nyt") -> None:
     """Phase 8 (and Z7 on the bite corpus): infer the NYTimes docs with
     the trained model. `top_equal`: the top-5 run's kept weights are
-    required equal to the full run's, else printed."""
-    from isle_tpu_torch import segsum
+    required equal to the full run's, else printed. Each run packs its
+    batch on the card: one launch of each pack kernel, counted from zero
+    just before it. Returns the pack kernels' launches over the runs."""
+    from isle_tpu_torch import pack, segsum
 
     t0 = time.perf_counter()
     corpus = make_corpus(entries, shape, normalize_to_one=True)
     print(f"{label} corpus: {corpus.num_docs} docs normalized to unit "
           f"mass in {time.perf_counter() - t0:.1f} s (host)")
     runs = {}
+    pack_launches = {PACK_KEPT: 0, PACK_FILL: 0}
     for top_n in (5, 0):
         inf = inferencer(tr.model, "cuda", os.path.join(out, name))
         assert inf.device.type == "cuda"
         torch.cuda.reset_peak_memory_stats()
         segsum.reset_launch_counts()
+        pack.pack_kept_lengths.launches = pack.pack_fill.launches = 0
         t0 = time.perf_counter()
         res = inf.infer_corpus(corpus, top_n=top_n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = segsum.launch_counts()
-        pack = dict((label, w) for label, w, _ in inf.timer.phases)[
+        packs = {PACK_KEPT: pack.pack_kept_lengths.launches,
+                 PACK_FILL: pack.pack_fill.launches}
+        assert packs == {PACK_KEPT: 1, PACK_FILL: 1}, \
+            f"{label}: the card pack launched {packs}"
+        for kernel, n in packs.items():
+            pack_launches[kernel] += n
+        pack_s = dict((label, w) for label, w, _ in inf.timer.phases)[
             "pack inference batch"]
         runs[top_n] = res
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"{label} top_n={top_n}: {wall:.3f} s wall "
-              f"(build_infer_batch {pack:.3f} s host), converged "
+              f"(the card pack {pack_s:.3f} s), converged "
               f"{res.num_converged}/{corpus.num_docs}, avg LLH per "
               f"converged doc {res.avg_llh_per_converged_doc:.6f}, avg LLH "
               f"per word {res.avg_llh_per_word:.6f}, peak device memory "
-              f"{peak:.2f} GiB, kernel launches {launches}")
+              f"{peak:.2f} GiB, kernel launches {launches}, pack kernel "
+              f"launches {packs}")
     top, full = runs[5], runs[0]
     conv = full.converged
     assert np.array_equal(conv, top.converged), \
@@ -809,6 +831,7 @@ def infer_full(tr, entries, shape: dict, seed: int, out: str,
           f"run: {bit_equal}; {min(MWU_SAMPLE, shape['docs'])}-doc sample "
           f"vs float64 CPU max abs "
           f"err {err:.3e}")
+    return pack_launches
 
 
 def bound(nbytes: int, ops: int, rate: float = FP32_FLOPS) -> tuple:
@@ -2381,11 +2404,17 @@ def host_waits():
 def restart_waits(sites: collections.Counter) -> tuple:
     """A device-loop solve's waits by where they stand: (inside a restart's
     expand steps, Ritz step and truncate {site: n}, at the stop test's
-    readback, elsewhere: the start and the end)."""
+    readback of the converged count (`nconv = int(...)`, in
+    block_ks_device's nested `restart`), elsewhere: the start and the
+    end)."""
+    def stop_test(site):
+        return (site[0] in ("block_ks_device", "restart")
+                and site[1].startswith("nconv = int("))
+
     inside = {site: n for site, n in sites.items()
-              if site[0] in ("_expand", "_ritz", "_truncate", "restart")}
-    stop = sum(n for site, n in sites.items()
-               if site[0] == "block_ks_device" and "int(nconv_d)" in site[1])
+              if site[0] in ("_expand", "_ritz", "_truncate", "restart")
+              and not stop_test(site)}
+    stop = sum(n for site, n in sites.items() if stop_test(site))
     return inside, stop, sum(sites.values()) - sum(inside.values()) - stop
 
 
@@ -4931,14 +4960,89 @@ def pubmed_uses(corpus, p1, per, B1, R: int, seed: int) -> dict:
     return uses
 
 
-def pack_bytes(corpus) -> int:
-    """The host bytes mwu.build_infer_batch holds at its peak, reckoned
-    from its code: per entry the kept mask (1) and the kept rows or
-    values (4); per doc the filled-slot mask and the padded word ids and
-    values (1 + 4 + 4 a slot), at the widest doc's length (an upper bound
-    of the kept one)."""
-    L = -(-int(np.diff(corpus.offsets).max()) // 8) * 8
-    return corpus.nnz * 5 + corpus.num_docs * L * 9
+def card_pack_bytes(corpus) -> int:
+    """The card bytes mwu.pack_on_device holds at its peak, reckoned from
+    its code: the CSR (offsets 8 a doc, rows and values 8 an entry), the
+    kept lengths and each row's start and width (16 a doc), and the rows,
+    8 bytes a slot of mwu.bucket_layout, here over every entry of a doc:
+    an upper bound of the slots its kept entries take."""
+    from isle_tpu_torch import mwu
+
+    lengths = np.diff(corpus.offsets)
+    _, _, slots = mwu.bucket_layout(lengths, mwu._padded_width(lengths, 8))
+    return 8 * (corpus.num_docs + 1) + 8 * corpus.nnz \
+        + 16 * corpus.num_docs + 8 * slots
+
+
+def pack_uses(corpus, mass: np.ndarray, use: str, launches: int,
+              host: bool) -> dict:
+    """The card pack's two kernels at one shape: each wrapper on the CSR
+    of `corpus` on the card, against its plain version on the same card
+    tensors (kept lengths equal; word ids and the values' bits equal, in
+    mwu.bucket_layout's rows), two launches bit-equal, each timed (CUDA
+    events, time_ms) beside its plain version and its bound (the bytes it
+    moves once at HBM bandwidth), and with `host` the host's numpy pack
+    (mwu.build_infer_batch, both parts, one call) as the library time.
+    `launches`: those of the path that ran this shape. Returns {kernel:
+    [use]}."""
+    from isle_tpu_torch import mwu, pack
+
+    D, V, n = corpus.num_docs, corpus.vocab_size, corpus.nnz
+    off, rows, vals = (
+        torch.from_numpy(np.ascontiguousarray(x, dtype=t)).cuda()
+        for x, t in ((corpus.offsets, np.int64), (corpus.rows, np.int32),
+                     (corpus.vals, np.float32)))
+    table = torch.from_numpy(pack.keep_table(mass)).cuda()
+    kept = pack.pack_kept_lengths(off, rows, table, V)
+    kept_eq = torch.equal(kept, pack.pack_kept_lengths(off, rows, table, V))
+    assert torch.equal(kept, pack.pack_kept_lengths_plain(
+        off, rows, table, V)), f"{use}: kept lengths differ from the plain"
+    kept_h = kept.cpu().numpy()
+    L = mwu._padded_width(kept_h, 8)
+    start, width, slots = mwu.bucket_layout(kept_h, L)
+    layout = [torch.from_numpy(x).cuda() for x in (start, width)]
+    wi, a = pack.pack_fill(off, rows, vals, table, V, *layout, slots)
+    wi2, a2 = pack.pack_fill(off, rows, vals, table, V, *layout, slots)
+    fill_eq = torch.equal(wi, wi2) and torch.equal(a.view(torch.int32),
+                                                   a2.view(torch.int32))
+    del wi2, a2
+    pw, pa = pack.pack_fill_plain(off, rows, vals, table, V, *layout, slots)
+    assert torch.equal(wi, pw) and torch.equal(
+        a.view(torch.int32), pa.view(torch.int32)), \
+        f"{use}: the fill differs from the plain version"
+    del pw, pa, wi, a
+    assert kept_eq and fill_eq, f"{use}: two launches differ"
+    torch.cuda.empty_cache()
+    library_ms, library = 0.0, "not timed at this shape"
+    if host:
+        t0 = time.perf_counter()
+        mwu.build_infer_batch(corpus, mass)
+        library_ms = (time.perf_counter() - t0) * 1e3
+        library = "the host's numpy pack, both parts"
+    common = dict(launches=launches, max_abs_err=0.0, bit_equal=True,
+                  library_ms=library_ms, library=library, bound_by="bytes")
+    kept_bytes = 4 * n + 8 * (D + 1) + 4 * D
+    fill_bytes = 8 * n + 8 * (D + 1) + 12 * D + 8 * slots
+    out = {
+        PACK_KEPT: [dict(
+            use=use, n=n, shape=[D], **common,
+            ms=time_ms(lambda: pack.pack_kept_lengths(off, rows, table, V)),
+            plain_ms=time_ms(lambda: pack.pack_kept_lengths_plain(
+                off, rows, table, V)),
+            bound_ms=kept_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_bytes=kept_bytes)],
+        PACK_FILL: [dict(
+            use=use, n=n, shape=[slots], **common, width=L,
+            ms=time_ms(lambda: pack.pack_fill(off, rows, vals, table, V,
+                                              *layout, slots)),
+            plain_ms=time_ms(lambda: pack.pack_fill_plain(
+                off, rows, vals, table, V, *layout, slots)),
+            bound_ms=fill_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_bytes=fill_bytes)],
+    }
+    del off, rows, vals, table, layout
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -4984,32 +5088,54 @@ def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str):
     infer_file's normalization, infer_corpus(top_n=5) on the card, the
     report in blocks of inferencer.REPORT_BLOCK_DOCS docs), held against
     the report written as one file, a float64 sample and the first block
-    inferred alone. Returns what phase Q2 holds ISLEInfer's report
-    against: each block's name and sha256, the converged docs and the
-    two average LLHs."""
-    from isle_tpu_torch import inferencer as reports, io_text, mwu
+    inferred alone, and a range of the benchmark's (a tenth of the docs)
+    inferred alone. Both pack kernels are held against their plain
+    versions at the range's shape and the whole corpus's (pack_uses), and
+    their launches counted from zero just before the whole-corpus run and
+    the range's. Returns (what phase Q2 holds ISLEInfer's report against:
+    each block's name and sha256, the converged docs and the two average
+    LLHs; the pack kernels' uses; their launches by path)."""
+    from isle_tpu_torch import inferencer as reports, io_text, mwu, pack
 
     label = "phase P5, PubMed, ISLEInfer's report blocks"
     D, k = corpus.num_docs, model.shape[1]
     base = os.path.join(out, "pubmed_infer")
     shutil.rmtree(base, ignore_errors=True)
-    need, avail = pack_bytes(corpus), mem_available()
-    print(f"{label}: before the run {host_memory()}; the whole-corpus pack "
-          f"reckoned at {need / 2**30:.1f} GiB")
-    assert need < avail, f"{label}: the host cannot hold the whole-corpus " \
-        f"pack ({need} bytes reckoned, {avail} available)"
+    torch.cuda.empty_cache()
+    need, free = card_pack_bytes(corpus), torch.cuda.mem_get_info()[0]
+    print(f"{label}: before the run {host_memory()}; the whole-corpus card "
+          f"pack reckoned at {need / 2**30:.1f} GiB, "
+          f"{free / 2**30:.1f} GiB free on the card")
+    assert need < free, f"{label}: the card cannot hold the whole-corpus " \
+        f"pack ({need} bytes reckoned, {free} free)"
     t0 = time.perf_counter()
     unit = corpus.normalized_to_one()
     norm_s = time.perf_counter() - t0
+    # the Inferencer's own model mass (its Timer starts when it is made,
+    # so it is made after the pack checks)
+    mass = model.astype(np.float32).sum(axis=1)
+    rng_docs = np.arange(D // 10)
+    part = doc_subset(unit, rng_docs)
+    uses = pack_uses(part, mass, f"a tenth of PubMed: {len(rng_docs)} "
+                     f"docs, {part.nnz} entries", 1, host=True)
+    for kernel, rows in pack_uses(
+            unit, mass, f"PubMed's whole corpus: {D} docs, "
+            f"{unit.nnz} entries", 1, host=False).items():
+        uses[kernel] += rows
     inf = inferencer(model, "cuda", base)
+    assert np.array_equal(inf.model_mass, mass)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    pack.pack_kept_lengths.launches = pack.pack_fill.launches = 0
     t0 = time.perf_counter()
     with mwu_blocks() as spy:
         res = inf.infer_corpus(unit, top_n=5)
     wall = time.perf_counter() - t0
+    launches = {"PubMed, inference, whole corpus": {
+        PACK_KEPT: pack.pack_kept_lengths.launches,
+        PACK_FILL: pack.pack_fill.launches}}
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     phases = dict((s, w) for s, w, _ in inf.timer.phases)
     t0 = time.perf_counter()
@@ -5053,11 +5179,23 @@ def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str):
     gap = float(np.abs(top - res.weights[:n1]).max())
     same = bool(np.array_equal(top, res.weights[:n1]))
     assert gap <= 1e-6, f"{label}: the first block alone differs by {gap}"
-    del unit, first, top, res
+    # the benchmark's range alone
+    pack.pack_kept_lengths.launches = pack.pack_fill.launches = 0
+    t0 = time.perf_counter()
+    ranged = inf.infer_corpus(part, top_n=5)
+    range_s = time.perf_counter() - t0
+    launches["PubMed, inference, a tenth"] = {
+        PACK_KEPT: pack.pack_kept_lengths.launches,
+        PACK_FILL: pack.pack_fill.launches}
+    assert np.array_equal(ranged.converged, conv[:len(rng_docs)]), \
+        f"{label}: the range alone converges on other docs"
+    for path, n in launches.items():
+        assert n == {PACK_KEPT: 1, PACK_FILL: 1}, (path, n)
+    del unit, first, top, res, part, ranged
     shutil.rmtree(base)
     print(f"{label}: {D} docs normalized to unit mass in {norm_s:.2f} s "
-          f"(host); infer_corpus(top_n=5) {wall:.2f} s (build_infer_batch "
-          f"{phases['pack inference batch']:.2f} s host, MWU "
+          f"(host); infer_corpus(top_n=5) {wall:.2f} s (the card pack "
+          f"{phases['pack inference batch']:.2f} s, MWU "
           f"{phases['MWU inference']:.2f} s, {spy.blocks} MWU blocks), peak "
           f"device memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB "
           f"held; {conv.sum()} of {D} docs converged ({conv.mean():.4%}); "
@@ -5068,9 +5206,12 @@ def pubmed_infer(corpus, model: np.ndarray, seed: int, out: str):
           f"{err:.3e}; the first {n1} docs alone ({first_s:.2f} s, every "
           f"weight read back): the same convergence, rows sum to 1 within "
           f"{np.abs(sums - 1.0).max():.2e}, top-5 rows bit-equal to the "
-          f"whole run's: {same} (max abs diff {gap:.3e}); after the phase "
+          f"whole run's: {same} (max abs diff {gap:.3e}); the first "
+          f"{len(rng_docs)} docs alone {range_s:.2f} s, the same "
+          f"convergence; pack kernel launches {launches}; after the phase "
           f"{host_memory()}; {card_line()}")
-    return ref
+    print_uses(uses, "PubMed inference")
+    return ref, uses, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5477,7 +5618,9 @@ def pubmed_phase(seed: int, docs: int, out: str) -> tuple:
     walls["Q1"] = time.perf_counter() - t0
     del ref
     t0 = time.perf_counter()
-    p5 = pubmed_infer(corpus, model, seed, out)
+    p5, p5_uses, launches_p5 = pubmed_infer(corpus, model, seed, out)
+    uses.update(p5_uses)
+    launches.update(launches_p5)
     walls["P5"] = time.perf_counter() - t0
     sizes = corpus.vocab_size, corpus.num_docs, corpus.nnz
     del corpus, model
@@ -5738,7 +5881,10 @@ def main() -> int:
     # 8. inference at full width with the main path's model
     del corpus
     torch.cuda.empty_cache()
-    infer_full(tr, entries, shape, args.seed, out)
+    infer_launches = infer_full(tr, entries, shape, args.seed, out)
+    for name, n in infer_launches.items():
+        uses[name] = []
+        by_path[name] = {"inference": n}
     del entries
     # C: both CLIs as a user runs them, on phase 4's corpus
     cli_phase(tr, hy, shape, args.seed, out)
@@ -5746,7 +5892,7 @@ def main() -> int:
     m_uses, micro_launches = micro_phase(args.seed)
     uses.update(m_uses)
     for name in uses:
-        by_path.setdefault(name, {})["micro"] = micro_launches[name]
+        by_path.setdefault(name, {})["micro"] = micro_launches.get(name, 0)
     # P: isle_tpu's PubMed scale test, with the NYTimes corpus freed
     del tr, tiny_tr, tiny_cpu, hy
     p_uses, p_launches = pubmed_phase(args.seed, args.pubmed_docs, out)
@@ -5769,7 +5915,10 @@ def main() -> int:
             assert sum(by_path[name].values()) > 0, (name, by_path[name])
     source = {name: "isle_tpu_torch/csrc/segsum.cu" for name in uses}
     source[PARTIALS] = source[ROWGATHER] = "isle_tpu_torch/csrc/micro.cu"
-    replaces = {ONEHOT: "isle_tpu/pallas_ops.py:236",
+    source[PACK_KEPT] = source[PACK_FILL] = "isle_tpu_torch/csrc/pack.cu"
+    replaces = {PACK_KEPT: "none (isle_tpu/mwu.py packs in host numpy)",
+                PACK_FILL: "none (isle_tpu/mwu.py packs in host numpy)",
+                ONEHOT: "isle_tpu/pallas_ops.py:236",
                 GATHER: "isle_tpu/pallas_ops.py:203",
                 NARROW: "isle_tpu/pallas_ops.py:203",
                 TILED: "isle_tpu/pallas_ops.py:203",

@@ -54,6 +54,8 @@ _SIGNATURES = {
     ],
     "isle_row_gather_bulk_f32": [_P, _P, _I64, _I, _I, _I64, _I, _P, _I, _P],
     "isle_micro_kernel_info": [_I, _I64, _I, _I64, _I, _I, _P],
+    "isle_pack_kept_lengths": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "isle_pack_fill": [_P, _P, _P, _P, _I64, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 

@@ -154,7 +154,8 @@ class Inferencer:
     def _infer(self, corpus: Corpus, top_n: int):
         """The pack and MWU stages of infer_corpus."""
         cfg = self.config
-        batch = build_infer_batch(corpus, self.model_mass, timer=self.timer)
+        batch = build_infer_batch(corpus, self.model_mass, timer=self.timer,
+                                  device=self.device)
         self._next("pack inference batch")
         if self.mesh is not None:
             self.logger.info(

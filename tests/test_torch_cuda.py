@@ -824,6 +824,175 @@ def test_mwu_on_the_card_matches_the_cpu(dev):
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
 
 
+THRESHOLD = np.float32(1e-10)
+
+
+def _pack_case(name):
+    """(model mass (V,) float32, unit-mass corpus) of one case of the card
+    pack. Every case has words of mass exactly float32(1e-10) (0-4,
+    dropped) and the next float32 above it (5-9, kept), about 10% of the
+    other words without mass, and docs holding each."""
+    from isle_tpu_torch import Corpus
+
+    rng = np.random.default_rng(
+        {"short": 1, "long": 2, "pad_to": 3, "pubmed_vocab": 4,
+         "wide_table": 5}[name])
+    V = {"short": 500, "long": 5000, "pad_to": 500, "pubmed_vocab": 141_043,
+         "wide_table": 500_000}[name]
+    mass = rng.random(V).astype(np.float32)
+    mass[rng.random(V) < 0.1] = 0.0
+    mass[:5] = THRESHOLD
+    mass[5:10] = np.nextafter(THRESHOLD, np.float32(1.0))
+    kept_words = np.flatnonzero(mass > 1e-10)
+    if name == "short":  # empty docs, a doc that keeps no word
+        lengths = rng.integers(0, 40, 300)
+        lengths[[0, 150, 299]] = 0
+    elif name == "long":  # docs past a warp's 32 entries and 1,024
+        lengths = rng.integers(1, 80, 400)
+        lengths[[3, 7, 100, 399]] = [33, 1025, 1500, 3000]
+    elif name == "pad_to":  # the widest doc keeps 64: L lands on pad_to
+        lengths = rng.integers(1, 60, 300)
+    else:
+        lengths = rng.integers(1, 200, 3000)
+    docs, words = [], []
+    for d, n in enumerate(lengths):
+        if name == "pad_to" and d == 17:
+            ws = rng.choice(kept_words, 64, replace=False)
+        elif d == 1:  # a doc that keeps no word
+            ws = np.concatenate([np.arange(5), np.flatnonzero(mass == 0)[:9]])
+        else:
+            ws = rng.choice(V, n, replace=False)
+            if d % 5 == 2:
+                ws = np.union1d(ws, [2, 7])
+        docs += [d] * len(ws)
+        words += sorted(ws.tolist())
+    corpus = Corpus.from_entries(
+        np.array(docs), np.array(words), rng.integers(1, 7, len(words)),
+        vocab_size=V, num_docs=len(lengths), normalize_to_one=True)
+    return mass, corpus
+
+
+@pytest.mark.parametrize("name", ["short", "long", "pad_to", "pubmed_vocab",
+                                  "wide_table"])
+def test_pack_on_the_card_matches_the_host(dev, name):
+    """build_infer_batch on the card (pack_kept_lengths_kernel, then
+    pack_fill_kernel, one launch each) against the host's numpy pack:
+    every doc's row (bit for bit, the card's bucket rows widened to the
+    host's (D, L)), the kept lengths and L exactly equal, and the card
+    holding no slot beyond the buckets' rows. The
+    cases: empty docs, a doc that keeps no word, words at the threshold
+    and just above it, docs longer than 32 and 1,024 entries, a widest
+    doc of 64 kept entries (L on pad_to), PubMed's vocabulary (a table of
+    17.6 KB) and 500,000 words (62.5 KB: past the 48 KB default)."""
+    from isle_tpu_torch import mwu, pack
+
+    mass, corpus = _pack_case(name)
+    host = mwu.build_infer_batch(corpus, mass)
+    k0, f0 = pack.pack_kept_lengths.launches, pack.pack_fill.launches
+    card = mwu.build_infer_batch(corpus, mass, device=dev)
+    torch.cuda.synchronize()
+    assert pack.pack_kept_lengths.launches == k0 + 1
+    assert pack.pack_fill.launches == f0 + 1
+    assert card.word_idx.device.type == "cuda" and card.a.is_cuda
+    assert card.width == host.word_idx.shape[1]
+    assert card.word_idx.dtype == torch.int32 and card.a.dtype == torch.float32
+    assert card.word_idx.numel() == card.a.numel() == sum(
+        edge * len(sel)
+        for edge, sel in mwu.length_buckets(host.kept_len, card.width))
+    wi, a = mwu.padded_rows(card, corpus.vocab_size)
+    np.testing.assert_array_equal(wi, host.word_idx)
+    np.testing.assert_array_equal(a.view(np.int32), host.a.view(np.int32))
+    np.testing.assert_array_equal(card.kept_len, host.kept_len)
+    np.testing.assert_array_equal(card.words_in_doc, host.words_in_doc)
+    assert card.num_docs == host.num_docs
+    assert card.avg_doc_sz == host.avg_doc_sz
+    if name == "pad_to":
+        assert host.kept_len.max() == 64 == host.word_idx.shape[1]
+    if name == "short":
+        assert (np.diff(corpus.offsets) == 0).sum() >= 3
+    assert host.kept_len[1] == 0  # the doc that keeps no word
+    w = host.word_idx
+    assert not np.isin(w, np.arange(5)).any() and np.isin(w, [7]).any()
+    if name == "long":  # one wide doc does not widen the others' rows
+        assert host.kept_len.max() > 1024
+        assert card.word_idx.numel() < host.word_idx.size // 4
+
+
+def test_pack_on_the_card_plain_version_and_checks(dev):
+    """The wrappers on CUDA tensors against their plain versions on the
+    same tensors: rows of one width for every doc, narrower than the
+    widest doc (its entries past the width left out alike) and wider,
+    rows of each doc's own width in reverse doc order, and no docs at
+    all."""
+    from isle_tpu_torch import pack
+
+    mass, corpus = _pack_case("long")
+    table = torch.from_numpy(pack.keep_table(mass))
+    off = torch.from_numpy(corpus.offsets.astype(np.int64))
+    rows = torch.from_numpy(corpus.rows)
+    vals = torch.from_numpy(corpus.vals)
+    V = corpus.vocab_size
+    on = [x.to(dev) for x in (off, rows, vals, table)]
+    kept = pack.pack_kept_lengths(on[0], on[1], on[3], V)
+    assert torch.equal(kept.cpu(), pack.pack_kept_lengths_plain(
+        off, rows, table, V))
+    D = corpus.num_docs
+    own = (kept.cpu() + 5).to(torch.int32)  # each doc's count and 5 pads
+    reverse = torch.cumsum(own.flip(0).to(torch.int64), 0).flip(0) - own
+    layouts = [(torch.arange(D) * w, torch.full((D,), w, dtype=torch.int32),
+                D * w) for w in (8, 1032)]
+    layouts.append((reverse, own, int(own.sum())))
+    for start, width, slots in layouts:
+        wi, a = pack.pack_fill(*on, V, start.to(dev), width.to(dev), slots)
+        pw, pa = pack.pack_fill_plain(off, rows, vals, table, V, start,
+                                      width, slots)
+        assert torch.equal(wi.cpu(), pw)
+        assert torch.equal(a.cpu().view(torch.int32), pa.view(torch.int32))
+    empty = torch.zeros(1, dtype=torch.int64, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    assert pack.pack_kept_lengths(empty, none, on[3], V).numel() == 0
+    wi, a = pack.pack_fill(empty, none, none.float(), on[3], V,
+                           empty[:0], none, 0)
+    assert wi.shape == (0,) and a.shape == (0,)
+    with pytest.raises(ValueError, match="is on"):
+        pack.pack_kept_lengths(on[0], rows, on[3], V)
+
+
+def test_infer_all_from_the_card_batch_is_bit_equal(dev):
+    """infer_all on the batch packed on the card (blocks cut there) and on
+    the host's batch (blocks cut on the host and copied): the same blocks,
+    so bit-equal weights, converged flags and both LLH arrays, with top_n
+    0 and 5 and with overflow retries (tiny Lf)."""
+    from isle_tpu_torch import Corpus, mwu
+
+    rng = np.random.default_rng(8)
+    V, D, k = 700, 900, 12
+    M = rng.random((V, k)).astype(np.float32)
+    M[M < 0.6] = 0.0
+    M[rng.random(V) < 0.05] = 0.0
+    M /= M.sum(axis=0, keepdims=True)
+    lengths = rng.integers(1, 120, D)
+    lengths[[5, 6]] = [300, 600]
+    d = np.repeat(np.arange(D), lengths)
+    key = np.unique(d * V + rng.integers(0, V, d.size))
+    corpus = Corpus.from_entries(key // V, key % V,
+                                 rng.integers(1, 6, key.size), vocab_size=V,
+                                 num_docs=D, normalize_to_one=True)
+    mass = M.sum(axis=1)
+    host = mwu.build_infer_batch(corpus, mass)
+    card = mwu.build_infer_batch(corpus, mass, device=dev)
+    for Lf, top_n, block in ((10.0, 0, 0), (10.0, 5, 0), (1e-3, 0, 64),
+                             (10.0, 5, 100)):
+        g = mwu.infer_all(M, card, 15, Lf, top_n=top_n, block_size=block,
+                          device=dev)
+        h = mwu.infer_all(M, host, 15, Lf, top_n=top_n, block_size=block,
+                          device=dev)
+        for a, b in zip(g, h):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert 0 < g[1].sum() <= D
+
+
 def _doc_ordered_chunks(n, S, rows, seed, pieces=5):
     """A stream in doc order whose word-keyed sums cross every chunk: the
     segments (words) of each piece are sorted on their own, as the streamed

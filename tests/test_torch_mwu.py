@@ -13,7 +13,7 @@ import torch
 
 from isle_tpu import mwu as jmwu
 from isle_tpu.corpus import Corpus
-from isle_tpu_torch import mwu
+from isle_tpu_torch import mwu, pack
 
 RTOL, ATOL = 1e-4, 1e-6
 
@@ -116,15 +116,62 @@ def _with_empty_docs(seed):
     return M, make_corpus(rng, V, lengths)
 
 
-@pytest.mark.parametrize("case", ["skewed", "empty docs"])
+def _at_the_threshold(seed):
+    """Words whose mass is exactly float32(1e-10) (dropped: the keep test
+    is `> 1e-10`) and the next float32 above it (kept), in every doc."""
+    rng = np.random.default_rng(seed)
+    V, k = 120, 4
+    M = make_model(rng, V, k)
+    M[10:20] = 0.0
+    M[10:15, 0] = np.float32(1e-10)
+    M[15:20, 1] = np.nextafter(np.float32(1e-10), np.float32(1.0))
+    corpus = make_corpus(rng, V, rng.integers(1, 30, 50))
+    d, w = corpus.doc_ids(), corpus.rows
+    extra = np.arange(10, 20)
+    corpus = Corpus.from_entries(
+        np.concatenate([d, np.repeat(np.arange(50), 10)]),
+        np.concatenate([w, np.tile(extra, 50)]),
+        np.concatenate([rng.integers(1, 7, len(w)), np.ones(500, int)]),
+        vocab_size=V, num_docs=50, normalize_to_one=True)
+    return M, corpus
+
+
+def _all_dropped(seed):
+    """Docs (the first, one in the middle, the last) that hold only words
+    without model mass, beside docs that keep some."""
+    rng = np.random.default_rng(seed)
+    V, k = 80, 5
+    M = make_model(rng, V, k)
+    M[:20] = 0.0
+    lengths = rng.integers(1, 25, 30)
+    docs, words = [], []
+    for doc, n in enumerate(lengths):
+        pool = 20 if doc in (0, 15, 29) else V
+        ws = np.sort(rng.choice(pool, size=min(n, pool), replace=False))
+        docs += [doc] * len(ws)
+        words += ws.tolist()
+    corpus = Corpus.from_entries(
+        np.array(docs), np.array(words), rng.integers(1, 7, len(words)),
+        vocab_size=V, num_docs=30, normalize_to_one=True)
+    return M, corpus
+
+
+@pytest.mark.parametrize("case", ["skewed", "empty docs", "threshold word",
+                                  "all dropped doc"])
 def test_build_infer_batch_matches_jax(case):
     """The packed arrays equal isle_tpu's: each doc's kept words fill its
-    row from the start, in order, and pads stay V and 0."""
+    row from the start, in order, and pads stay V and 0. So do those of
+    the device pack's plain PyTorch version (pack_on_device on the CPU,
+    its bucket rows widened to (D, L)), and both packs' kept lengths."""
     if case == "skewed":
         M, corpus, _ = _case("skewed", 4)
-    else:
+    elif case == "empty docs":
         M, corpus = _with_empty_docs(6)
         assert (np.diff(corpus.offsets) == 0).sum() == 3
+    elif case == "threshold word":
+        M, corpus = _at_the_threshold(8)
+    else:
+        M, corpus = _all_dropped(9)
     got = mwu.build_infer_batch(corpus, M.sum(axis=1))
     ref = jmwu.build_infer_batch(corpus, M.sum(axis=1))
     np.testing.assert_array_equal(got.word_idx, ref.word_idx)
@@ -132,6 +179,61 @@ def test_build_infer_batch_matches_jax(case):
     np.testing.assert_array_equal(got.words_in_doc, ref.words_in_doc)
     assert got.avg_doc_sz == ref.avg_doc_sz and got.num_docs == ref.num_docs
     assert got.word_idx.shape[1] % 8 == 0
+    kept = (ref.word_idx < corpus.vocab_size).sum(axis=1)
+    np.testing.assert_array_equal(got.kept_len, kept)
+    plain = mwu.pack_on_device(corpus, M.sum(axis=1), "cpu")
+    wi, av = mwu.padded_rows(plain, corpus.vocab_size)
+    np.testing.assert_array_equal(wi, ref.word_idx)
+    np.testing.assert_array_equal(av, ref.a)
+    np.testing.assert_array_equal(plain.kept_len, kept)
+    assert plain.width == got.word_idx.shape[1]
+    # the device layout: each bucket's rows at its width, nothing more
+    assert plain.word_idx.numel() == sum(
+        edge * len(sel)
+        for edge, sel in mwu.length_buckets(kept, plain.width))
+    np.testing.assert_array_equal(plain.words_in_doc, ref.words_in_doc)
+    if case == "threshold word":  # each doc keeps 15..19, drops 10..14
+        w = ref.word_idx
+        assert not np.isin(w, np.arange(10, 15)).any()
+        assert (np.isin(w, np.arange(15, 20)).sum(axis=1) == 5).all()
+    if case == "all dropped doc":
+        assert kept[[0, 15, 29]].tolist() == [0, 0, 0]
+        assert (kept > 0).sum() > 20
+
+
+def test_infer_all_from_a_device_batch_is_bit_equal():
+    """infer_all on a batch of tensors (pack_on_device: its blocks cut by
+    an index on the batch's device) gives the same bits as on the host
+    batch, with the tail blocks padded, and with top_n."""
+    M, corpus, _ = _case("skewed", 5)
+    host = mwu.build_infer_batch(corpus, M.sum(axis=1))
+    dev = mwu.pack_on_device(corpus, M.sum(axis=1), "cpu")
+    assert isinstance(dev.word_idx, torch.Tensor)
+    for kw in (dict(), dict(block_size=3, top_n=2)):
+        a = mwu.infer_all(M, host, 15, 10.0, device="cpu", **kw)
+        b = mwu.infer_all(M, dev, 15, 10.0, device="cpu", **kw)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_pack_refuses_a_keep_table_past_shared_memory():
+    """Each block of the pack kernels holds the keep table in shared
+    memory: the wrappers raise, on every device, where the table is more
+    than a block's 227 KB, and take the largest vocabulary that fits."""
+    off = torch.zeros(2, dtype=torch.int64)
+    rows = torch.zeros(0, dtype=torch.int32)
+    most = 8 * pack.TABLE_BYTES_MAX
+    for V in (most, most + 1):
+        table = torch.from_numpy(pack.keep_table(np.ones(V, np.float32)))
+        if V == most:
+            assert pack.pack_kept_lengths(off, rows, table, V).tolist() == [0]
+            wi, a = pack.pack_fill(off, rows, rows.float(), table, V,
+                                   torch.zeros(1, dtype=torch.int64),
+                                   torch.full((1,), 8, dtype=torch.int32), 8)
+            assert (wi == V).all() and (a == 0).all()
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                pack.pack_kept_lengths(off, rows, table, V)
 
 
 def test_small_blocks_equal_one_block():

@@ -225,6 +225,50 @@ def test_an_inference_job_records_every_span_and_counter(tmp_path):
     assert res.num_converged > 0
 
 
+@pytest.mark.cuda
+def test_an_inference_job_on_the_card_records_the_card_pack(tmp_path):
+    """On the card the batch is packed there: the spans of the CSR's copy,
+    the keep mask and the fill in the pack stage, the counters `pack on
+    card` and `pack bytes to device` (offsets, rows, vals, keep table,
+    the rows' starts and widths),
+    no `mwu: copy to device` (the blocks are cut on the card), and both
+    pack kernels in the job's device trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the pack kernels have no CPU mode)")
+    corpus = _corpus(unit=True)
+    rng = np.random.default_rng(0)
+    model = rng.random((400, 6)).astype(np.float32)
+    model[:40] = 0.0
+    model /= model.sum(axis=0)
+    prof = str(tmp_path / "prof")
+    inf = Inferencer(InferConfig(num_topics=6, vocab_size=400), model=model,
+                     output_dir=str(tmp_path / "out"), quiet=True,
+                     gpu=GpuConfig(device="cuda", profile_dir=prof))
+    res = inf.infer_corpus(corpus, top_n=3)
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as f:
+        kernels = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for name in ("pack_kept_lengths_kernel", "pack_fill_kernel"):
+        assert any(name in k for k in kernels), sorted(kernels)
+    t = inf.timer
+    card = INFER_SPANS - {"mwu: copy to device"} | {"pack: copy to device"}
+    assert card <= _names(t), card - _names(t)
+    assert "mwu: copy to device" not in _names(t)
+    parent = {n: p for n, p, *_ in t.spans}
+    for name in ("pack: copy to device", "pack: keep mask", "pack: fill"):
+        assert parent[name] == "pack inference batch"
+    assert t.counters["pack on card"] == 1
+    table = 4 * -(-400 // 32)
+    assert t.counters["pack bytes to device"] == (
+        8 * corpus.nnz + 8 * (corpus.num_docs + 1) + table
+        + 12 * corpus.num_docs)  # each row's start and width
+    kept = int((build_infer_batch(corpus, model.sum(axis=1)).word_idx
+                < 400).sum())
+    assert t.counters["mwu entries"] == kept
+    assert MWU_COUNTERS <= set(t.counters) and res.num_converged > 0
+
+
 def test_profile_dir_traces_inference(tmp_path):
     corpus = _corpus(unit=True)
     model = np.full((400, 4), 1.0 / 400, np.float32)
