@@ -15,6 +15,9 @@ race dice = u^(1/weight) (0 for weight 0) keeps the top sample_rate
 fraction: pivot = the floor(sample_rate * num_docs)-th largest dice,
 clamped to the last doc (so a rate >= 1 keeps every doc), and docs with
 dice >= pivot stay. The uniforms u come from the draw source.
+
+With a Timer (`timer=`), the sampling records the spans "sample: doc
+weights" and "sample: race" and the counter "sampled docs" (obs).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
 from .segsum import segsum_onehot
 from .sparse import DocSparse
 
@@ -38,40 +42,51 @@ def doc_dice(weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
 
 
 def dice_select(weights: torch.Tensor, sample_rate: float,
-                uniforms: torch.Tensor) -> torch.Tensor:
+                uniforms: torch.Tensor, timer=None) -> torch.Tensor:
     """The exponential race over per-doc weights
     (src/sparseMatrix.cpp:1399-1417): a boolean mask of the docs whose
-    dice reach the pivot."""
-    D = weights.numel()
-    dice = doc_dice(weights, uniforms)
-    pivot_index = min(int(sample_rate * D), D - 1)
-    pivot = torch.sort(dice, descending=True).values[pivot_index]
-    return dice >= pivot
+    dice reach the pivot. With a Timer, the span "sample: race" and the
+    counter "sampled docs", the mask's count: its readback waits for the
+    sampling's device work, which the span then holds."""
+    with obs.span(timer, "sample: race"):
+        D = weights.numel()
+        dice = doc_dice(weights, uniforms)
+        pivot_index = min(int(sample_rate * D), D - 1)
+        pivot = torch.sort(dice, descending=True).values[pivot_index]
+        sel = dice >= pivot
+        if isinstance(timer, obs.Timer):
+            timer.count("sampled docs", int(sel.sum()))
+    return sel
 
 
 def doc_weights(A: DocSparse, keep_d: torch.Tensor,
-                zetas: torch.Tensor) -> torch.Tensor:
+                zetas: torch.Tensor, timer=None) -> torch.Tensor:
     """Each doc's sampling weight: a segment sum of its kept entries' ζ
-    (column -1 drops an entry), summed in a fixed order on the card."""
-    D = A.num_docs
-    col = torch.where(keep_d, 0, -1).to(torch.int32)
-    return segsum_onehot(A.d_doc, col, zetas[A.d_word], D, 1)[:D, 0]
+    (column -1 drops an entry), summed in a fixed order on the card. With
+    a Timer, the span "sample: doc weights"."""
+    with obs.span(timer, "sample: doc weights"):
+        D = A.num_docs
+        col = torch.where(keep_d, 0, -1).to(torch.int32)
+        return segsum_onehot(A.d_doc, col, zetas[A.d_word], D, 1)[:D, 0]
 
 
 def sample_select(A: DocSparse, keep_d: torch.Tensor, zetas: torch.Tensor,
-                  sample_rate: float, uniforms: torch.Tensor) -> torch.Tensor:
+                  sample_rate: float, uniforms: torch.Tensor,
+                  timer=None) -> torch.Tensor:
     """Importance-sampled doc selection (src/sparseMatrix.cpp:1383-1417).
     Returns a boolean per-doc mask."""
-    return dice_select(doc_weights(A, keep_d, zetas), sample_rate, uniforms)
+    return dice_select(doc_weights(A, keep_d, zetas, timer), sample_rate,
+                       uniforms, timer)
 
 
 def threshold_and_copy(
     A: DocSparse, zetas: torch.Tensor, sample_rate: Optional[float] = None,
     uniforms: Optional[torch.Tensor] = None,
-    docs: Optional[np.ndarray] = None,
+    docs: Optional[np.ndarray] = None, timer=None,
 ) -> Tuple[DocSparse, np.ndarray]:
     """Returns (B, original_cols host int32 array). With sample_rate,
-    `uniforms` holds the (num_docs,) draws of the sampling. With `docs`
+    `uniforms` holds the (num_docs,) draws of the sampling (`timer`: the
+    sampling's spans and counter). With `docs`
     (the original_cols of a checkpoint), B keeps only those docs: a
     resumed run rebuilds the selection it checkpointed, drawn by whichever
     source wrote it, instead of drawing anew."""
@@ -81,7 +96,7 @@ def threshold_and_copy(
         sel = docs_mask(docs, A.num_docs, A.device)
     elif sample_rate is not None:
         keep_d = torch.floor(A.d_val + 0.5) >= zetas[A.d_word]
-        sel = sample_select(A, keep_d, zetas, sample_rate, uniforms)
+        sel = sample_select(A, keep_d, zetas, sample_rate, uniforms, timer)
     return copy_kept(A, zetas, sel)
 
 

@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
 from .bmatrix import threshold_and_copy
 from .segsum import DEFAULT_CHUNK
 from .sparse import DocSparse, b_y, bt_x, doc_l2sq, frobenius_sq, \
@@ -168,13 +169,14 @@ def _alloc_head(rows: int, cols: int, device) -> torch.Tensor:
 
 
 def split_by_head(sp: DocSparse, head_words: torch.Tensor,
-                  row_scale: torch.Tensor) -> HybridSparse:
+                  row_scale: torch.Tensor, timer=None) -> HybridSparse:
     """The hybrid layout of B (sp) with the given head words. The head is
     written by a non-accumulating index_put_ of ones at the int64 flat
     index r * stride + d, so its build is deterministic; the tail is
     both of B's streams masked to the other words, with the tile-ordered
     copy of its word stream (every layout that builds a tail, in core,
-    streamed and sharded, builds it here)."""
+    streamed and sharded, builds it here). With a Timer, the counters
+    "B nnz" (sp's entries) and "hybrid head nnz" (the head's)."""
     V, D = sp.vocab, sp.num_docs
     dev = sp.device
     R = head_words.numel()
@@ -185,6 +187,8 @@ def split_by_head(sp: DocSparse, head_words: torch.Tensor,
     head = _alloc_head(R, D, dev)
     flat = r_d[in_head].long() * head.stride(0) + sp.d_doc[in_head].long()
     head_nnz = int(flat.numel())
+    obs.count(timer, "B nnz", sp.nnz)
+    obs.count(timer, "hybrid head nnz", head_nnz)
     base = head.as_strided((head.shape[0] * head.stride(0),), (1,))
     base.index_put_((flat,), torch.ones((), dtype=torch.bfloat16,
                                         device=dev))
@@ -202,7 +206,7 @@ def split_by_head(sp: DocSparse, head_words: torch.Tensor,
 
 def to_hybrid(sp: DocSparse, num_head: int, row_scale: torch.Tensor,
               flat_cap: Optional[int] = None,
-              break_head_cap: bool = False) -> HybridSparse:
+              break_head_cap: bool = False, timer=None) -> HybridSparse:
     """The factored hybrid layout of B (isle_tpu/hybrid.py:313-399 with
     row_scale): the num_head words of the most entries (at most vocab,
     and at most the cap without break_head_cap) form the head. Raises
@@ -213,7 +217,8 @@ def to_hybrid(sp: DocSparse, num_head: int, row_scale: torch.Tensor,
         _check_doc_blocks(num_head, sp.num_docs, flat_cap)
     else:
         num_head = min(num_head, _head_cap(sp.num_docs, flat_cap))
-    return split_by_head(sp, top_words(word_counts(sp), num_head), row_scale)
+    return split_by_head(sp, top_words(word_counts(sp), num_head), row_scale,
+                         timer)
 
 
 def hybrid_from_thresholds(
@@ -222,7 +227,7 @@ def hybrid_from_thresholds(
     uniforms: Optional[torch.Tensor] = None,
     docs: Optional[np.ndarray] = None,
     break_head_cap: bool = False,
-    flat_cap: Optional[int] = None,
+    flat_cap: Optional[int] = None, timer=None,
 ) -> Tuple[HybridSparse, np.ndarray, float]:
     """B = threshold_and_copy(A, zetas) in the hybrid layout, with
     isle_tpu's head budget (hybrid.py:758-893): over A.num_docs columns
@@ -230,19 +235,21 @@ def hybrid_from_thresholds(
     max_head_rows unless break_head_cap is set. isle_tpu fuses the two
     steps to save TPU scatters; the layout is the same. `docs` (a
     checkpoint's original_cols) selects B's docs in place of the draws,
-    under the budget rule of `sample_rate`. Returns (B, original_cols,
-    Frobenius norm of B squared)."""
+    under the budget rule of `sample_rate`. `timer` takes the sampling's
+    spans and the split's counters. Returns (B, original_cols, Frobenius
+    norm of B squared)."""
     if sample_rate is None:  # refused before any work, as isle_tpu's
         num_head = head_rows(head_budget_bytes, A.vocab, A.num_docs,
                              flat_cap, break_head_cap)
     B, original_cols = threshold_and_copy(
-        A, zetas, sample_rate=sample_rate, uniforms=uniforms, docs=docs)
+        A, zetas, sample_rate=sample_rate, uniforms=uniforms, docs=docs,
+        timer=timer)
     if sample_rate is not None:
         num_head = head_rows(head_budget_bytes, A.vocab, B.num_docs,
                              flat_cap, break_head_cap)
     frob_sq = float(frobenius_sq(B))
     return (to_hybrid(B, num_head, row_scale_from_zetas(zetas), flat_cap,
-                      break_head_cap),
+                      break_head_cap, timer),
             original_cols, frob_sq)
 
 

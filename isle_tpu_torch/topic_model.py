@@ -142,6 +142,30 @@ def construct_edge_topics_v1(
     return edge.astype(np.float32), sel
 
 
+def edge_vectors(model: np.ndarray, a: np.ndarray, b: np.ndarray,
+                 primary_ratio: float,
+                 device: Optional[torch.device] = None) -> np.ndarray:
+    """(vocab, len(a)) float32: primary_ratio * model[:, a] + (1 -
+    primary_ratio) * model[:, b], each ratio rounded to float32, each
+    product rounded and then the sum, as numpy's float32 arithmetic does.
+    On a CUDA device the model's columns are gathered and combined there
+    (a multiply, a multiply, an add: no fused multiply-add, so the bits
+    are numpy's) and the result copied back; elsewhere host numpy, its
+    plain version. The host version's two column gathers of a (vocab,
+    n) result took 2.4 ms an edge topic at V = 141,043 on the H100's
+    host: 4.8 s of a job at 2000 edge topics."""
+    if device is None or torch.device(device).type != "cuda":
+        edge = (primary_ratio * model[:, a]
+                + (1.0 - primary_ratio) * model[:, b])
+        return edge.astype(np.float32)
+    m = torch.from_numpy(np.ascontiguousarray(model, np.float32)).to(device)
+    ia, ib = (torch.from_numpy(np.asarray(x, np.int64)).to(device)
+              for x in (a, b))
+    edge = m[:, ia].mul_(primary_ratio)
+    edge.add_(m[:, ib].mul_(1.0 - primary_ratio))
+    return edge.cpu().numpy()
+
+
 def construct_edge_topics_v2(
     t1: np.ndarray,
     t2: np.ndarray,
@@ -151,12 +175,15 @@ def construct_edge_topics_v2(
     max_edge_topics: int,
     min_docs: int = 1,
     primary_ratio: float = 0.7,
+    device: Optional[torch.device] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (edge_model (vocab, n_edges), selected pairs (n_edges, 3) of
     [t1, t2, count]): pairs with >= min_docs docs, count-descending with
     (t1, t2) ties ascending, truncated to max_edge_topics; edge vector =
-    primary_ratio * topic_a + (1 - primary_ratio) * topic_b. Host numpy,
-    a copy of isle_tpu.topic_model.construct_edge_topics_v2."""
+    primary_ratio * topic_a + (1 - primary_ratio) * topic_b (edge_vectors,
+    on `device` where it is a card). A copy of
+    isle_tpu.topic_model.construct_edge_topics_v2, whose pair selection
+    runs on the host (the per-doc pairs are small)."""
     k = num_topics
     keys = t1.astype(np.int64) * k + t2.astype(np.int64)
     keys = keys[valid]
@@ -166,6 +193,6 @@ def construct_edge_topics_v2(
     cand = cand[order][:max_edge_topics]
     a = (cand // k).astype(np.int32)
     b = (cand % k).astype(np.int32)
-    edge = primary_ratio * model[:, a] + (1.0 - primary_ratio) * model[:, b]
+    edge = edge_vectors(model, a, b, primary_ratio, device)
     sel = np.stack([a, b, counts[cand].astype(np.int32)], axis=1)
-    return edge.astype(np.float32), sel
+    return edge, sel

@@ -428,9 +428,10 @@ class Trainer:
         if use_hybrid:
             B, original_cols, frob_sq = hybrid_from_thresholds(
                 A, zetas, budget, break_head_cap=self.gpu.break_head_cap,
-                **select)
+                timer=self.timer, **select)
         else:
-            B, original_cols = threshold_and_copy(A, zetas, **select)
+            B, original_cols = threshold_and_copy(A, zetas, timer=self.timer,
+                                                  **select)
             frob_sq = float(frobenius_sq(B))
             # B Y over doc tiles (sparse.b_y), as the hybrid tail's
             B = with_doc_tiles(B)
@@ -921,7 +922,9 @@ class Trainer:
                 self.config.max_edge_topics,
                 min_docs=self.config.hyper.edge_topic_min_docs,
                 primary_ratio=self.config.hyper.edge_topic_primary_ratio,
+                device=self.device,
             )
+        self.timer.count("edge topics", self.edge_model.shape[1])
         self.logger.info(f"#Edge topics: {self.edge_model.shape[1]}")
         self.timer.next("constructing edge topic model")
 
