@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import obs, segsum
+from . import obs, segsum, staging
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 
 # Docs a tile of the tile-ordered word stream (with_doc_tiles): a (T, 128)
@@ -71,12 +71,36 @@ class DocSparse:
 
     @staticmethod
     def from_corpus(corpus, device, timer=None) -> "DocSparse":
-        """From a corpus.Corpus, whose CSC arrays are doc-sorted."""
+        """From a corpus.Corpus in its CSC form. The word ids and values
+        go to the device as they are, through pinned staging by entry
+        ranges of staging.DEFAULT_CHUNK_ENTRIES on a card (views of the
+        corpus's arrays on the CPU), the offsets beside them; each
+        entry's doc id is made there from the offsets; then the
+        word-sorted copy, as from_doc_sorted makes it. With a Timer,
+        spans of the copies, the doc ids and the sort, the bytes read
+        from the host and those that went through the staging."""
+        device = torch.device(device)
+        offsets = np.ascontiguousarray(corpus.offsets, np.int64)
+        nnz = int(offsets[-1])
+        rows = torch.from_numpy(np.ascontiguousarray(corpus.rows[:nnz],
+                                                     np.int32))
+        vals = torch.from_numpy(np.ascontiguousarray(corpus.vals[:nnz],
+                                                     np.float32))
+        with obs.span(timer, "upload: copy to device"):
+            obs.count(timer, "upload bytes",
+                      rows.nbytes + vals.nbytes + offsets.nbytes)
+            off = torch.from_numpy(offsets).to(device)
+            if device.type == "cuda":
+                dw = torch.empty(nnz, dtype=torch.int32, device=device)
+                dv = torch.empty(nnz, dtype=torch.float32, device=device)
+                obs.count(timer, "upload staged bytes", staging.upload(
+                    (rows, vals), (dw, dv), staging.DEFAULT_CHUNK_ENTRIES))
+            else:
+                dw, dv = rows.to(device), vals.to(device)
         with obs.span(timer, "upload: doc ids"):
-            docs = corpus.doc_ids()
-        return DocSparse.from_doc_sorted(
-            corpus.rows, docs, corpus.vals, corpus.vocab_size,
-            corpus.num_docs, device, timer=timer)
+            dd = doc_ids_from_offsets(off, 0, nnz)
+        return DocSparse._word_sorted(dw, dd, dv, corpus.vocab_size,
+                                      corpus.num_docs, timer)
 
     @staticmethod
     def from_doc_sorted(words, docs, vals, vocab: int, num_docs: int,
@@ -85,12 +109,19 @@ class DocSparse:
         copy is made on the device by one sort of word * (D + 1) + doc.
         With a Timer, spans of the copies and the sort, and the bytes
         copied."""
-        D = int(num_docs)
         with obs.span(timer, "upload: copy to device"):
             host = (np.asarray(words, np.int32), np.asarray(docs, np.int32),
                     np.asarray(vals, np.float32))
             obs.count(timer, "upload bytes", sum(a.nbytes for a in host))
             dw, dd, dv = (torch.as_tensor(a).to(device) for a in host)
+        return DocSparse._word_sorted(dw, dd, dv, vocab, num_docs, timer)
+
+    @staticmethod
+    def _word_sorted(dw, dd, dv, vocab: int, num_docs: int,
+                     timer=None) -> "DocSparse":
+        """From the doc-sorted arrays on the device, with the word-sorted
+        copy made by one sort of word * (D + 1) + doc."""
+        D = int(num_docs)
         with obs.span(timer, "upload: word-order sort"):
             key = dw.long() * (D + 1) + dd.long()
             perm = torch.sort(key, stable=True).indices
@@ -118,6 +149,18 @@ class DocSparse:
             w_doc=up(w_doc, np.int32), w_val=up(w_val, np.float32),
             vocab=int(vocab), num_docs=int(num_docs),
         )
+
+
+def doc_ids_from_offsets(offsets: torch.Tensor, first: int, nnz: int
+                         ) -> torch.Tensor:
+    """The doc id (int32) of each entry of docs [first, first + n), from
+    their n + 1 CSC offsets (int64) on any device, made there: what
+    corpus.doc_ids() holds for those docs. nnz is offsets[n] -
+    offsets[0], which the caller knows without reading the device."""
+    lens = offsets[1:] - offsets[:-1]
+    return torch.repeat_interleave(
+        torch.arange(first, first + lens.numel(), dtype=torch.int32,
+                     device=offsets.device), lens, output_size=nnz)
 
 
 def bt_x(sp: DocSparse, X: torch.Tensor, chunk: int = DEFAULT_CHUNK):

@@ -60,13 +60,12 @@ from .kmeans import kmeans_init_on_projected, run_lloyds_full, \
 from .matops import mat_bt_x
 from .segsum import DEFAULT_CHUNK, segsum_gather_rows, segsum_onehot
 from .sharding import require_mesh
-from .sparse import DocSparse, with_doc_tiles
+from .sparse import DocSparse, doc_ids_from_offsets, with_doc_tiles
+from .staging import DEFAULT_CHUNK_ENTRIES, Staging
 from .thresholds import freq_bound, hist_cols, zeta_from_hist
 from .topic_model import _contribution_weights, has_catchwords, \
     l1_normalize_columns, model_thresholds, top_two_topics
 from .trainer import Trainer, check_supported, solve_gram_eigens
-
-DEFAULT_CHUNK_ENTRIES = 1 << 24
 
 
 def doc_chunks(corpus, target_entries: int,
@@ -93,19 +92,6 @@ def doc_chunks(corpus, target_entries: int,
         hi = max(min(hi, end), lo + 1)
         yield lo, hi
         lo = hi
-
-
-class _Slot:
-    """One of a loader's two staging slots: a pinned host buffer for each
-    field, the fields' device buffers where the slot has its own, and the
-    event of the slot's last copy."""
-
-    def __init__(self, cap: int, dtypes, device: torch.device, own: bool):
-        self.pin = [torch.empty(cap, dtype=dt, pin_memory=True)
-                    for dt in dtypes]
-        self.dev = ([torch.empty(cap, dtype=dt, device=device)
-                     for dt in dtypes] if own else [])
-        self.copied = torch.cuda.Event()
 
 
 class Loader:
@@ -140,7 +126,7 @@ class Loader:
         self.bytes_copied = 0
         self.host_wait_seconds = 0.0
         self._waits: list = []
-        self._slots: list = []
+        self._staging: Optional[Staging] = None
 
     def _span(self, lo: int, hi: int) -> Tuple[int, int]:
         return int(self._offsets[lo]), int(self._offsets[hi])
@@ -149,32 +135,22 @@ class Loader:
         """The entries of the range's largest chunk."""
         return max(b - a for a, b in (self._span(*r) for r in self.ranges))
 
-    def _open_staging(self, dtypes, own: bool) -> None:
-        self._stream = torch.cuda.Stream(self.device)
-        self._slots = [_Slot(self._cap(), dtypes, self.device, own)
-                       for _ in range(2)]
-        self._turn = 0
+    @property
+    def _slots(self) -> list:
+        """The two staging slots, while the loader holds them."""
+        return self._staging.slots if self._staging is not None else []
 
-    def _stage(self, srcs, dsts=None) -> _Slot:
+    def _open_staging(self, dtypes, own: bool) -> None:
+        self._staging = Staging(self._cap(), dtypes, self.device, own)
+
+    def _stage(self, srcs, dsts=None):
         """Copy the host tensors `srcs` (one length) into the device
-        tensors `dsts`, else into the next slot's own buffers."""
-        slot = self._slots[self._turn]
-        self._turn ^= 1
-        n = srcs[0].numel()
-        if n > slot.pin[0].numel():
-            raise ValueError(f"{n} entries are more than a chunk of this "
-                             f"loader ({slot.pin[0].numel()})")
-        t0 = time.perf_counter()
-        slot.copied.synchronize()  # the staging buffers are free again
-        self.host_wait_seconds += time.perf_counter() - t0
-        for p, src in zip(slot.pin, srcs):
-            p[:n].copy_(src)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
-            for d, p in zip(slot.dev if dsts is None else dsts, slot.pin):
-                d[:n].copy_(p[:n], non_blocking=True)
-            slot.copied.record(self._stream)
-        self.bytes_copied += n * sum(p.element_size() for p in slot.pin)
+        tensors `dsts`, else into the next slot's own buffers; returns
+        the slot."""
+        slot, waited = self._staging.stage(srcs, dsts)
+        self.host_wait_seconds += waited
+        self.bytes_copied += srcs[0].numel() * sum(
+            p.element_size() for p in slot.pin)
         return slot
 
     def _doc_ids(self, off_dev: torch.Tensor, lo: int, hi: int
@@ -183,11 +159,8 @@ class Loader:
         range's offsets on the device."""
         a, b = self._span(lo, hi)
         base = self.doc_range[0]
-        lens = (off_dev[lo + 1 - base:hi + 1 - base]
-                - off_dev[lo - base:hi - base])
-        return torch.repeat_interleave(
-            torch.arange(lo, hi, dtype=torch.int32, device=self.device),
-            lens, output_size=b - a)
+        return doc_ids_from_offsets(off_dev[lo - base:hi + 1 - base], lo,
+                                    b - a)
 
     def _start(self, lo: int, hi: int):
         """Start what chunk [lo, hi) needs before _take (a copy)."""
@@ -399,9 +372,8 @@ class ResidentLoader(Loader):
                 for d, src in zip(dsts, srcs):
                     d.copy_(src)
         if cuda:
-            self._stream.synchronize()
-            torch.cuda.current_stream(dev).wait_stream(self._stream)
-            self._slots = []  # the pinned staging goes with the fill
+            self._staging.finish()
+            self._staging = None  # the pinned staging goes with the fill
         off = torch.from_numpy(self._offsets[first:end + 1]).to(dev)
         if dev.type == "cuda":
             self.bytes_copied += off.nbytes

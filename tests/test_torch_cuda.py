@@ -1202,6 +1202,37 @@ def test_chunk_loader_over_a_doc_range_on_the_card(dev):
     assert list(empty.chunks()) == []
 
 
+@pytest.mark.parametrize("chunk", [1000, 2999, 1 << 24])
+def test_staged_upload_on_the_card(dev, monkeypatch, chunk):
+    """The in-core upload through the pinned staging, by entry ranges that
+    split docs (runs of empty docs, a doc longer than a range): the six
+    arrays bit-equal to the pageable COO upload of the host's doc ids,
+    and 8 bytes an entry staged."""
+    from isle_tpu_torch import obs, staging
+    from isle_tpu_torch.sparse import DocSparse
+    from torch_cases import csc_corpus
+
+    rng = np.random.default_rng(5)
+    lengths = np.where(rng.random(2000) < 0.3, 0,
+                       rng.integers(1, 40, 2000))
+    lengths[700] = 5000
+    corpus = csc_corpus(lengths, vocab=6000, seed=5)
+    n, D = corpus.nnz, corpus.num_docs
+    splits = set(range(chunk, n, chunk)) - set(corpus.offsets.tolist())
+    assert n > 10 * 3000 and (chunk > n or splits)
+    monkeypatch.setattr(staging, "DEFAULT_CHUNK_ENTRIES", chunk)
+    t = obs.Timer()
+    got = DocSparse.from_corpus(corpus, dev, timer=t)
+    ref = DocSparse.from_doc_sorted(corpus.rows, corpus.doc_ids(),
+                                    corpus.vals, corpus.vocab_size, D, dev)
+    torch.cuda.synchronize()
+    for f in ("d_word", "d_doc", "d_val", "w_word", "w_doc", "w_val"):
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), f
+    assert t.counters["upload staged bytes"] == 8 * n
+    assert t.counters["upload bytes"] == 8 * n + 8 * (D + 1)
+
+
 def test_group_less_mesh_streamed_on_the_card(dev, tmp_path):
     """StreamedTrainer with a mesh of one rank and no group on the card:
     the sharded streamed path, every pass launching its kernel once a

@@ -192,7 +192,10 @@ def test_a_training_job_records_every_span_and_counter(trained):
     files = [os.path.join(trained.run_dir, f"ckpt_{s}.npz")
              for s in ("svd", "kmeans", "model")]
     assert t.counters["checkpoint bytes"] == sum(map(os.path.getsize, files))
-    assert t.counters["upload bytes"] == 12 * trained.corpus.nnz
+    # the CSC arrays the upload reads: word ids, values and offsets
+    corpus = trained.corpus
+    assert t.counters["upload bytes"] == (8 * corpus.nnz
+                                          + 8 * (corpus.num_docs + 1))
     with open(os.path.join(trained.run_dir, "diagnosticLog.txt")) as f:
         restarts = re.search(r"block_ks_device: (\d+) restarts", f.read())
     assert t.counters.get("eigensolve restarts", 0) == int(restarts[1])

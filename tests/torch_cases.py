@@ -143,3 +143,19 @@ def resident_corpus(name: str):
     kind, opts, _ = RESIDENT_CORPORA[name]
     d, w, c, V, D = resident_entries(kind)
     return Corpus.from_entries(d, w, c, vocab_size=V, num_docs=D, **opts)
+
+
+def csc_corpus(lengths, vocab=80, seed=0):
+    """A corpus.Corpus of the given doc lengths (CSC): each doc's distinct
+    word ids sorted, positive float32 values, no counts."""
+    from isle_tpu_torch.corpus import Corpus
+
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths, np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    rows = np.concatenate([np.sort(rng.choice(vocab, n, replace=False))
+                           for n in lengths]).astype(np.int32)
+    vals = (rng.random(rows.size) + 0.25).astype(np.float32)
+    return Corpus(vocab_size=vocab, num_docs=lengths.size, offsets=offsets,
+                  rows=rows, counts=None, vals=vals, avg_doc_sz=1.0,
+                  nz_docs=int((lengths > 0).sum()))
